@@ -1,0 +1,507 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure (nothing is caught; any failure exits
+non-zero before the result line):
+
+1. build  — ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
+   one library (all sources at once), timed.
+2. kernels — every hand-written kernel against its plain PyTorch version on
+   the card, at the main path's shapes (full-width tinyllama-1.1b: D=2048,
+   HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; and the
+   ``--load seq`` shape, batch 1, through the uniform ``decode_attention``
+   wrapper with its mask built from slot_pos/pos) and over a sweep (HKV=3,
+   odd dh, a sliding window, non-power-of-two lengths), in float32
+   (atol = rtol = 1e-4) and bfloat16 (atol = rtol = 2e-2).
+3. timings — per kernel, with CUDA events over back-to-back calls: the
+   kernel, its plain version, the one PyTorch library call computing the
+   same function (``F.rms_norm``, ``F.scaled_dot_product_attention``; the
+   port never calls them), and the bound: the larger of bytes moved over
+   3.35 TB/s and operations over the peak for the input type (67 TFLOP/s
+   fp32 without tensor cores, 989 TFLOP/s bf16), from the H100 SXM data
+   sheet. Also at one larger shape per kernel, where the bound is not just
+   launch cost.
+4. path — the main path through its entry points: full-width tinyllama-1.1b
+   with the port's seeded init, ``nss_shortcut``, 8 requests under
+   ``--load open`` and then ``--load seq``. Launch counts are zeroed just
+   before each and read just after; every kernel must have launched, and
+   every request must complete with its budget.
+5. teacher-forced check — prefill, then 8 slotted decode steps (the
+   engine's) and, from the same prefill, 8 uniform decode steps (``--load
+   seq``), at full width, kernels against plain versions on the card, fed
+   the plain path's tokens: max |Δlogit| <= 2e-3. The agreement of engine streams with sequential
+   streams is printed and does not gate (greedy streams of a random-init
+   model flip on near-ties).
+6. profile — where one engine run's time goes (``profile_phase``): wall
+   time, device busy time, the device's idle share, the top kernels.
+
+Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
+(at the main path's small shapes that is the host's launch cost);
+``device_ms`` is the kernels' own device time under ``torch.profiler``.
+
+The last two lines are the card's name and power limit (``nvidia-smi``)
+then ``{"ok": true, "device": {...}}``; the line before them is the
+per-kernel JSON record. Exits non-zero without a GPU.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+MEM_BPS = 3.35e12                       # H100 SXM HBM3
+PEAK_OPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+
+# the main path: full-width tinyllama-1.1b, 4 slots, prompt 32, gen 32
+ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
+SLOTS, PROMPT, GEN, REQUESTS = 4, 32, 32, 8
+MAX_LEN = PROMPT + GEN + 8
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+
+
+def cuda_ms(fn, iters: int = 200, warmup: int = 5) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_events(prof):
+    import torch
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _self_device_us(e) -> float:
+    return float(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters: int = 50):
+    """Device time per call: the CUDA kernels' own time under
+    ``torch.profiler`` (CUPTI), summed and divided by the call count —
+    free of the host launch cost that the event timing of back-to-back
+    calls includes. None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_self_device_us(e) for e in _device_events(prof))
+    return total / iters / 1e3 if total > 0 else None
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: int, n_ops: float, dtype) -> tuple:
+    t_mem = n_bytes / MEM_BPS * 1e3
+    t_ops = n_ops / PEAK_OPS[str(dtype)] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def check_close(name, got, want, dtype) -> float:
+    import torch
+    tol = TOL[str(dtype)]
+    err = (got.float() - want.float()).abs()
+    lim = tol + tol * want.float().abs()
+    if not torch.isfinite(got.float()).all() or (err > lim).any():
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max |err| {err.max().item():.3e}, "
+                             f"tolerance {tol})")
+    return err.max().item()
+
+
+# ---------------------------------------------------------------------------
+# kernels: inputs, plain versions, library yardsticks, bounds
+# ---------------------------------------------------------------------------
+
+def make_cases(gen, dtype):
+    """Kernel cases: (kernel, label, call, plain, library, bytes, ops)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import slot_decode as ksd
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    cases = []
+
+    def rms_case(label, shape):
+        x = rn(*shape)
+        s = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1 + 1.0
+        s_lib = s.to(dtype)
+        cases.append(("rmsnorm", label, lambda: krms.rmsnorm(x, s),
+                      lambda: ref.rmsnorm_ref(x, s),
+                      lambda: F.rms_norm(x, (shape[-1],), s_lib, 1e-5),
+                      nbytes(x, s, x), 4.0 * x.numel()))
+
+    def flash_case(label, B, S, HQ, HKV, dh, window=0, causal=True):
+        q, k, v = rn(B, S, HQ, dh), rn(B, S, HKV, dh), rn(B, S, HKV, dh)
+        i = torch.arange(S, device="cuda")
+        live = i[:, None] >= i[None, :] if causal else torch.ones(
+            S, S, dtype=torch.bool, device="cuda")
+        if window:
+            live &= i[:, None] - i[None, :] < window
+        pairs = int(live.sum().item()) * B * HQ
+        qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+        lib_mask = live if window or not causal else None
+        cases.append((
+            "flash_attention", label,
+            lambda: kfa.flash_attention(q, k, v, causal=causal,
+                                        window=window),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window),
+            lambda: F.scaled_dot_product_attention(
+                qT, kT, vT, attn_mask=lib_mask, is_causal=lib_mask is None,
+                enable_gqa=True),
+            nbytes(q, k, v, q), 4.0 * dh * pairs))
+
+    def slot_case(label, B, T, HQ, HKV, dh, lives):
+        q, k, v = rn(B, HQ, dh), rn(B, T, HKV, dh), rn(B, T, HKV, dh)
+        valid = torch.zeros(B, T, dtype=torch.bool, device="cuda")
+        for b, n in enumerate(lives):
+            valid[b, :n] = True
+        keys = int(valid.sum().item())
+        kT, vT = k.transpose(1, 2), v.transpose(1, 2)
+        cases.append((
+            "slot_decode", label,
+            lambda: ksd.slot_decode_attention(q, k, v, valid),
+            lambda: ref.slot_decode_attention_ref(q, k, v, valid),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kT, vT, attn_mask=valid[:, None, None],
+                enable_gqa=True),
+            nbytes(q, k, v, valid, q), 4.0 * dh * HQ * keys))
+
+    def uniform_case(label, B, T, HQ, HKV, dh, pos, filled, window=0):
+        """The uniform wrapper (``--load seq``): ``ops.decode_attention``
+        builds the shared (T,) mask from slot_pos/pos and broadcasts it to
+        the slot kernel as a stride-0 (B,T) view. The plain version gets a
+        mask built here, independently: entries 0..filled-1 hold their
+        position, the rest are empty (-1); live are those <= pos and, with
+        a window, > pos - window."""
+        q, k, v = rn(B, HQ, dh), rn(B, T, HKV, dh), rn(B, T, HKV, dh)
+        i = torch.arange(T, device="cuda")
+        slot_pos = torch.where(i < filled, i, -1).to(torch.int32)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        valid = (i < filled) & (i <= pos)
+        if window:
+            valid &= i > pos - window
+        keys = int(valid.sum().item()) * B
+        kT, vT = k.transpose(1, 2), v.transpose(1, 2)
+        cases.append((
+            "slot_decode", label,
+            lambda: ops.decode_attention(q[:, None], k, v, slot_pos, pos_t,
+                                         window=window)[:, 0],
+            lambda: ref.decode_attention_ref(q, k, v, valid),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kT, vT, attn_mask=valid[None, None, None],
+                enable_gqa=True),
+            nbytes(q, k, v, slot_pos, q), 4.0 * dh * HQ * keys))
+
+    # main-path shapes first (the first case of each kernel is its record)
+    rms_case("main: decode rows (4,1,2048)", (SLOTS, 1, 2048))
+    rms_case("main: prefill rows (1,32,2048)", (1, PROMPT, 2048))
+    flash_case("main: prefill q (1,32,32,64)", 1, PROMPT, 32, 4, 64)
+    slot_case("main: decode q (4,32,64) kv (4,72,4,64)", SLOTS, MAX_LEN, 32,
+              4, 64, (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
+    uniform_case("main seq: decode_attention q (1,32,64) kv (1,72,4,64)", 1,
+                 MAX_LEN, 32, 4, 64, pos=PROMPT + 17, filled=PROMPT + 20)
+    # sweep
+    rms_case("sweep (3,40,96)", (3, 40, 96))
+    rms_case("sweep odd D (5,7,33)", (5, 7, 33))
+    flash_case("sweep HKV=3 dh=80 S=100", 2, 100, 6, 3, 80)
+    flash_case("sweep odd dh=33 window=16 S=77", 1, 77, 4, 2, 33, window=16)
+    flash_case("sweep MQA dh=128 window=40 S=130", 1, 130, 4, 1, 128,
+               window=40)
+    flash_case("sweep non-causal dh=256 S=64", 2, 64, 8, 8, 256,
+               causal=False)
+    slot_case("sweep HKV=3 T=24", 2, 24, 6, 3, 64, (24, 7))
+    slot_case("sweep odd dh=129 MQA", 2, 32, 4, 1, 129, (31, 16))
+    slot_case("sweep empty row T=40", 2, 40, 8, 2, 80, (33, 0))
+    uniform_case("sweep decode_attention HKV=3 window=16 T=40", 3, 40, 6, 3,
+                 33, pos=30, filled=35, window=16)
+    # larger shapes, where the bound is more than launch cost
+    rms_case("large (4096,2048)", (4096, 2048))
+    flash_case("large prefill q (1,2048,32,64)", 1, 2048, 32, 4, 64)
+    slot_case("large decode q (32,32,64) kv (32,2048,4,64)", 32, 2048, 32, 4,
+              64, (2048,) * 32)
+    return cases
+
+
+def kernel_phase(gen):
+    import torch
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, label, call, plain, lib, nb, ops in make_cases(gen, dtype):
+            got = call()
+            want = plain()
+            torch.cuda.synchronize()
+            err = check_close(f"{name} [{label}] {dtype}", got, want, dtype)
+            row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
+            if label.startswith(("main", "large")):
+                b_ms, b_by = bound(nb, ops, dtype)
+                row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
+                           library_ms=cuda_ms(lib), bound_ms=b_ms,
+                           bound_by=b_by, device_ms=device_ms(call),
+                           plain_device_ms=device_ms(plain),
+                           library_device_ms=device_ms(lib))
+            log(f"kernel {name:15s} {str(dtype):15s} {label:45s} "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()
+                           if k not in ("label", "dtype")))
+            records.setdefault(name, []).append(row)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# the main path and the teacher-forced check
+# ---------------------------------------------------------------------------
+
+def path_phase():
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_engine, run_server
+
+    ops.reset_launch_counts()
+    rep = run_engine(ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
+                     gen_len=GEN, requests=REQUESTS, load="open",
+                     smoke=False, device="cuda")
+    open_counts = ops.launch_counts()
+    log("serve report (open):", json.dumps(rep))
+    log("launches (open):", open_counts)
+    if rep["requests"] != REQUESTS or rep["total_tokens"] != REQUESTS * GEN:
+        raise AssertionError(f"open load: {rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{REQUESTS} x {GEN}")
+
+    ops.reset_launch_counts()
+    seq = run_server(ARCH, PRESET, batch=1, prompt_len=PROMPT, gen_len=GEN,
+                     requests=REQUESTS, smoke=False, device="cuda")
+    seq_counts = ops.launch_counts()
+    log("serve report (seq):", json.dumps(seq))
+    log("launches (seq):", seq_counts)
+    if seq["total_tokens"] != REQUESTS * GEN:
+        raise AssertionError(f"seq load produced {seq['total_tokens']} "
+                             f"tokens, want {REQUESTS * GEN}")
+    for what, counts in (("open", open_counts), ("seq", seq_counts)):
+        for k in ("rmsnorm", "flash_attention", "slot_decode"):
+            if counts.get(k, 0) < 1:
+                raise AssertionError(f"--load {what}: kernel {k} was never "
+                                     "launched on the main path")
+    return rep, seq, open_counts
+
+
+def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import L3_NSS, preset
+    from repro_torch.models import (ModelOptions, decode_step,
+                                    decode_step_slots, init_params, prefill)
+    from repro_torch.models.transformer import clone_cache
+    from repro_torch.serve import ServeEngine, slotify, synthetic_requests
+
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, "cuda")
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PROMPT),
+                                         dtype=np.int32)).cuda()
+    lp0, cp0 = prefill(params, toks, cfg, plain, MAX_LEN)
+    lk0, ck0 = prefill(params, toks, cfg, kern, MAX_LEN)
+    worst0 = (lp0 - lk0).abs().max().item()
+    # slotted decode (the engine's) and uniform decode (``--load seq``, the
+    # mask built from slot_pos/pos in ops.decode_attention), each from a
+    # copy of the prefilled caches
+    for what, step, layout in (("slotted", decode_step_slots, slotify),
+                               ("uniform", decode_step, clone_cache)):
+        lp, lk = lp0, lk0
+        cp, ck = layout(clone_cache(cp0)), layout(clone_cache(ck0))
+        worst = worst0
+        for _ in range(steps):
+            nxt = torch.argmax(lp, -1).to(torch.int32)   # the plain token
+            lp, cp = step(params, cp, nxt, cfg, plain)
+            lk, ck = step(params, ck, nxt, cfg, kern)
+            worst = max(worst, (lp - lk).abs().max().item())
+        torch.cuda.synchronize()
+        log(f"teacher-forced ({what}) max |dlogit| over prefill + {steps} "
+            f"decode steps: {worst:.3e} (tolerance {tol}; logit scale "
+            f"{lp.abs().max().item():.3g})")
+        if not math.isfinite(worst) or worst > tol:
+            raise AssertionError(f"teacher-forced ({what}) logits differ by "
+                                 f"{worst}")
+
+    # engine streams (kernels) vs sequential streams (plain): printed only
+    lk_cfg = dataclasses.replace(preset(PRESET), decode_steps=8)
+    assert lk_cfg.level == L3_NSS
+    reqs = synthetic_requests(4, PROMPT, 16, cfg.vocab_size, seed=3)
+    eng = ServeEngine(cfg, params, kern, lk_cfg, n_slots=2, max_len=MAX_LEN)
+    comps, _ = eng.run(reqs, load="closed")
+    agree = total = 0
+    for c in comps:
+        req = reqs[c.rid]
+        lg, cache = prefill(params, torch.from_numpy(req.prompt)[None].cuda(),
+                            cfg, plain, MAX_LEN)
+        want = [int(torch.argmax(lg, -1))]
+        for _ in range(req.max_new_tokens - 1):
+            nxt = torch.tensor(want[-1:], dtype=torch.int32, device="cuda")
+            lg, cache = decode_step(params, cache, nxt, cfg, plain)
+            want.append(int(torch.argmax(lg, -1)))
+        agree += int(sum(a == b for a, b in zip(c.tokens.tolist(), want)))
+        total += len(want)
+    log(f"engine (kernels) vs sequential (plain) stream agreement: "
+        f"{agree}/{total} tokens")
+    return worst
+
+
+def profile_phase():
+    """Where one engine run's time goes: 4 slots, each admitted with a
+    32-token prompt and then decoded by one 32-token L3 program, at full
+    width under ``nss_shortcut``. The wall time comes from an unprofiled
+    run (host clock, ending in a synchronise); the device busy time is the
+    kernels' own time under ``torch.profiler`` in a second, identical run.
+    Idle share = 1 - busy / wall."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS, max_len=MAX_LEN)
+    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
+    eng.run(reqs, load="closed")                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs, load="closed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(reqs, load="closed")
+        torch.cuda.synchronize()
+    events = sorted(_device_events(prof), key=_self_device_us, reverse=True)
+    busy = sum(_self_device_us(e) for e in events) / 1e6
+    log(f"profile: {SLOTS} admissions + one {GEN}-step decode program: wall "
+        f"{wall:.6f} s, device busy {busy:.6f} s, idle share "
+        f"{1 - busy / wall:.4f}, tokens/s {SLOTS * (GEN + 1) / wall:.6g}")
+    for e in events[:12]:
+        log(f"  device {_self_device_us(e) / 1e3:10.3f} ms  x{e.count:6d}  "
+            f"{e.key[:110]}")
+    return wall, busy
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs the port on a GPU", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch import resolve_device
+    from repro_torch.kernels import _build
+
+    resolve_device("cuda")
+    smi = nvidia_smi()
+    log("gpu:", smi)
+    log("python", sys.version.split()[0], "torch", torch.__version__,
+        "cuda", torch.version.cuda)
+    t0 = time.time()
+    lib = _build.build()
+    log(f"build: {time.time() - t0:.2f} s -> {lib.relative_to(ROOT)}")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log("  ptxas:", line.split("info    :")[-1].strip()[:160])
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = kernel_phase(gen)
+    _, _, counts = path_phase()
+    teacher_forced_phase()
+    profile_phase()
+
+    sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm.py:36"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:164"),
+               "slot_decode": ("src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/slot_decode.py:52")}
+    out = []
+    for name, (src, replaces) in sources.items():
+        rows = [r for r in records[name] if r["dtype"] == "torch.float32"]
+        main_row = rows[0]
+        large = next(r for r in rows if r["label"].startswith("large"))
+        extra = {k: v for k, v in large.items() if k != "dtype"}
+        seq = [r for r in rows if r["label"].startswith("main seq")]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts.get(name, 0),
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "device_ms": main_row["device_ms"],
+            "plain_device_ms": main_row["plain_device_ms"],
+            "library_device_ms": main_row["library_device_ms"],
+            "shape": main_row["label"],
+            "large": extra,
+        })
+        if seq:       # slot_decode through the uniform wrapper (--load seq)
+            out[-1]["seq"] = {k: v for k, v in seq[0].items()
+                              if k != "dtype"}
+    print(json.dumps({"kernels": out}), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

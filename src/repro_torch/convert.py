@@ -1,0 +1,52 @@
+"""Weights from the JAX package into the port — the only way they cross.
+
+``params_from_jax`` takes the tree ``repro.models.init_params`` returns
+(its leaves as numpy arrays, or anything ``np.asarray`` reads: a caller
+holding jax arrays passes them as they are, and this module never imports
+jax), with ``blocks`` stacked per block-pattern position and dense weights
+in ``(d_in, d_out)`` layout, and returns the port's parameters: one dict per
+layer in execution order (block-major, as the JAX scan runs them), the same
+keys, the same layout. A tree without ``lm_head`` is a tied-embedding model.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """JAX parameter tree -> the port's parameters on ``device`` (``cuda``
+    unless the caller asks for the CPU; ``cuda`` without a GPU raises)."""
+    device = resolve_device(device)
+    blocks = tree["blocks"]
+    num_blocks = np.shape(next(_leaves(blocks[0])))[0]
+    layers = [_map(group, lambda a, b=b: _tensor(np.asarray(a)[b], device))
+              for b in range(num_blocks) for group in blocks]
+    params = {"embed": _tensor(tree["embed"], device), "layers": layers,
+              "final_norm": _map(tree["final_norm"],
+                                 lambda a: _tensor(a, device))}
+    if "lm_head" in tree:
+        params["lm_head"] = _tensor(tree["lm_head"], device)
+    return params

@@ -1,0 +1,310 @@
+"""Serving launcher of the port — the paper's Redis evaluation for the
+decode boundary (``src/repro/launch/serve.py``), on the GPU.
+
+Two paths share one model/linkage setup:
+
+  engine (default)  continuous-batching ``repro_torch.serve.ServeEngine``: a
+                    slot pool served under open-loop (Poisson arrivals) or
+                    closed-loop load, reporting tokens/s and p50/p99 latency.
+
+      python -m repro_torch.launch.serve --preset nss_shortcut --load open
+      python -m repro_torch.launch.serve --preset ret_byp --load closed \\
+          --slots 8 --requests 32
+      python -m repro_torch.launch.serve --device cpu     # off the card
+
+  sequential        one request batch at a time (``--load seq``, also
+                    ``run_server``): the baseline the engine's continuous
+                    batching is held token-identical against.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU, ``cuda``
+raises. The CLI serves the smoke model, as the JAX launcher does;
+``run_engine(..., smoke=False)`` serves the published widths. The paged
+backend, chunked prefill, speculation, quantized KV, swap, the prefix
+cache, meshes and sampling at temperature > 0 raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _setup(arch: str, preset_name: str, *, smoke: bool = True, seed: int = 0,
+           gen_len: int = 64, decode_steps: int = 0, device="cuda"):
+    """Shared model/linkage construction for both serving paths: weights
+    from the port's own seeded init on ``device``."""
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.core import L3_NSS, preset
+    from repro_torch.models import ModelOptions, init_params
+
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if smoke:
+        cfg = cfg.smoke()
+    lk = preset(preset_name)
+    if lk.level == L3_NSS:
+        k = decode_steps or min(lk.decode_steps, gen_len)
+        lk = dataclasses.replace(lk, decode_steps=k)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, gen, dev)
+    return cfg, lk, opts, params
+
+
+def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
+               prompt_len: int = 32, gen_len: int = 32, requests: int = 8,
+               load: str = "open", rate: float = 25.0,
+               concurrency: int = 0, decode_steps: int = 0,
+               smoke: bool = True, seed: int = 0, device="cuda",
+               bucket_prompts: bool = False, temperature: float = 0.0,
+               eos_id: int = -1, trace: str = "", metrics: str = "",
+               log_interval: float = 0.0, profile_dir: str = ""):
+    """Continuous-batching serving run; returns the engine report dict.
+
+    ``trace`` writes the run's Chrome-trace JSON (``.jsonl`` suffix: raw
+    JSONL), ``metrics`` the Prometheus text exposition, ``log_interval``
+    prints a one-line stats log every S seconds, ``profile_dir`` captures a
+    ``torch.profiler`` trace around the first post-warmup steps. All empty
+    by default: the engine then runs with the zero-cost NULL_TELEMETRY.
+    """
+    from repro_torch.core import MetricWriter, SamplingConfig
+    from repro_torch.serve import (ServeEngine, Telemetry, serve_report,
+                                   synthetic_requests)
+
+    if requests < 1:
+        raise ValueError("need --requests >= 1")
+    sampling = SamplingConfig(temperature=temperature, seed=seed).validate()
+    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
+                                   gen_len=gen_len,
+                                   decode_steps=decode_steps, device=device)
+    max_len = prompt_len + gen_len + 8
+
+    tel = None
+    if trace or metrics or log_interval > 0 or profile_dir:
+        sink = None
+        if metrics and log_interval > 0:
+            # periodic registry snapshots through the MetricWriter
+            # co-process into <metrics>.jsonl while the run is live
+            stream_path = metrics + ".jsonl"
+            open(stream_path, "w").close()
+
+            def _append(step, m):
+                with open(stream_path, "a") as f:
+                    f.write(json.dumps({"step": step, **m}) + "\n")
+
+            sink = MetricWriter(_append)
+        tel = Telemetry(trace=bool(trace), log_interval=log_interval,
+                        sink=sink,
+                        const_labels={"backend": "slotted",
+                                      "preset": preset_name})
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=n_slots, max_len=max_len,
+                      sampling=sampling, bucket_prompts=bucket_prompts,
+                      telemetry=tel)
+
+    # warmup: one request through prefill and one decode program, outside
+    # the timed region (first launches load the kernel library and warm
+    # the allocator)
+    warm = synthetic_requests(1, prompt_len, eng.tokens_per_program + 1,
+                              cfg.vocab_size, seed=seed + 1)
+    eng.run(warm, load="closed")
+    eng.reset_counters()          # also clears the warmup trace/metrics
+    if tel is not None and profile_dir:
+        tel.profile_dir = profile_dir
+
+    reqs = synthetic_requests(requests, prompt_len, gen_len, cfg.vocab_size,
+                              seed=seed,
+                              rate=rate if load == "open" else None,
+                              eos_id=eos_id if eos_id >= 0 else None)
+    completions, wall = eng.run(reqs, load=load,
+                                concurrency=concurrency or None)
+    rep = serve_report(completions, wall, utilization=eng.utilization())
+    if tel is not None:
+        tel.close()               # stop any profiler capture, flush the sink
+        if trace:
+            n = (tel.trace.export_jsonl(trace) if trace.endswith(".jsonl")
+                 else tel.trace.export_chrome(trace))
+            rep["trace_path"], rep["trace_events"] = trace, n
+        if metrics:
+            with open(metrics, "w") as f:
+                f.write(tel.metrics.render())
+            rep["metrics_path"] = metrics
+        if profile_dir:
+            rep["profile_dir"] = profile_dir
+    rep.update({
+        "arch": cfg.name, "preset": preset_name, "load": load,
+        "n_slots": n_slots, "prompt_len": prompt_len, "gen_len": gen_len,
+        "decode_steps_per_program": eng.tokens_per_program,
+        "device": _device_name(params["embed"].device),
+    })
+    if load == "open":
+        rep["offered_rate_req_s"] = rate
+    return rep
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_server(arch: str, preset_name: str, *, batch: int = 8,
+               prompt_len: int = 64, gen_len: int = 64, requests: int = 4,
+               smoke: bool = True, seed: int = 0, device="cuda"):
+    """Sequential baseline: whole-batch prefill + decode, one request batch
+    at a time (no admission between programs)."""
+    from repro_torch.core import L3_NSS, build_decode_step
+    from repro_torch.models import prefill
+
+    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
+                                   gen_len=gen_len, decode_steps=gen_len,
+                                   device=device)
+    dev = params["embed"].device
+    dec = build_decode_step(cfg, opts, lk)
+    rng = np.random.default_rng(seed)
+    max_len = prompt_len + gen_len + 8
+
+    def one_request(toks):
+        """prefill + decode gen_len tokens; returns #tokens produced."""
+        logits, cache = prefill(params, toks, cfg, opts, max_len=max_len)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if lk.level == L3_NSS:
+            cache, seq = dec(params, cache, nxt)
+            _sync(dev)
+            return seq.shape[0] * seq.shape[1]
+        n = 0
+        for _ in range(gen_len):
+            cache, out = dec(params, cache, nxt)
+            nxt = out[:, 0]
+            n += batch
+        _sync(dev)
+        return n
+
+    def draw():
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(batch, prompt_len),
+            dtype=np.int32)).to(dev)
+
+    one_request(draw())       # warmup, outside the timed region
+    lat = []
+    tokens_out = 0
+    t_all = time.time()
+    for _ in range(requests):
+        toks = draw()
+        t0 = time.time()
+        tokens_out += one_request(toks)
+        lat.append(time.time() - t0)
+    wall = time.time() - t_all
+    return {
+        "arch": cfg.name, "preset": preset_name, "load": "seq",
+        "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+        "requests": requests, "wall_s": wall,
+        "total_tokens": tokens_out,
+        "tokens_per_s": tokens_out / wall,
+        "mean_latency_s": float(np.mean(lat)),
+        "p50_latency_s": float(np.percentile(lat, 50)),
+        "p99_latency_s": float(np.percentile(lat, 99)),
+        "device": _device_name(dev),
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--arch", default="tinyllama-1.1b")
+    p.add_argument("--preset", default="nss_shortcut")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--load", default="open",
+                   choices=["open", "closed", "seq"],
+                   help="open: Poisson arrivals at --rate; closed: "
+                        "--concurrency outstanding; seq: sequential baseline")
+    p.add_argument("--slots", type=int, default=4,
+                   help="engine cache slots (continuous-batching batch)")
+    p.add_argument("--bucket-prompts", action="store_true",
+                   help="pad admitted prompts to power-of-two buckets")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature (0 = greedy argmax; > 0 is "
+                        "ROADMAP module item 3 and raises)")
+    p.add_argument("--eos-id", type=int, default=-1,
+                   help="stop token id (-1 = length-based completion only)")
+    p.add_argument("--rate", type=float, default=25.0,
+                   help="open-loop offered load, requests/s")
+    p.add_argument("--concurrency", type=int, default=0,
+                   help="closed-loop outstanding requests (0 = slots)")
+    p.add_argument("--decode-steps", type=int, default=0,
+                   help="L3 tokens per decode program (0 = preset default, "
+                        "clipped to gen-len)")
+    p.add_argument("--batch", type=int, default=8,
+                   help="batch size for --load seq")
+    p.add_argument("--trace", default="",
+                   help="write the run's trace here: Chrome-trace JSON, or "
+                        "raw JSONL if the path ends in .jsonl")
+    p.add_argument("--metrics", default="",
+                   help="write the Prometheus text exposition here")
+    p.add_argument("--log-interval", type=float, default=0.0,
+                   help="print a one-line engine stats log every S seconds")
+    p.add_argument("--profile-dir", default="",
+                   help="capture a torch.profiler trace around the first "
+                        "post-warmup engine steps into this dir")
+    p.add_argument("--prompt-len", type=int, default=32)
+    p.add_argument("--gen-len", type=int, default=32)
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--report-json", default=None)
+    # the JAX launcher's options that later slices bring (each raises
+    # NotImplementedError unless left at its default)
+    p.add_argument("--kv", default="slotted", choices=["slotted", "paged"])
+    p.add_argument("--chunked", action="store_true")
+    p.add_argument("--spec-decode", default="none", choices=["none", "ngram"])
+    p.add_argument("--mesh", default="")
+    p.add_argument("--kv-dtype", default="bf16",
+                   choices=["bf16", "int8", "fp8"])
+    p.add_argument("--preempt", default="recompute",
+                   choices=["recompute", "swap"])
+    p.add_argument("--prefix-cache", default="")
+    args = p.parse_args(argv)
+
+    from repro_torch.serve import check_slice
+    check_slice(kv=args.kv, chunked=args.chunked,
+                spec_decode=args.spec_decode, mesh=args.mesh,
+                kv_dtype=args.kv_dtype, preempt=args.preempt,
+                prefix_cache=args.prefix_cache)
+    if args.load == "seq":
+        from repro_torch.core import SamplingConfig
+        SamplingConfig(temperature=args.temperature).validate()
+        rep = run_server(args.arch, args.preset, batch=args.batch,
+                         prompt_len=args.prompt_len, gen_len=args.gen_len,
+                         requests=args.requests, seed=args.seed, device=args.device)
+    else:
+        rep = run_engine(args.arch, args.preset, n_slots=args.slots,
+                         prompt_len=args.prompt_len, gen_len=args.gen_len,
+                         requests=args.requests, load=args.load,
+                         rate=args.rate, concurrency=args.concurrency,
+                         decode_steps=args.decode_steps,
+                         seed=args.seed,
+                         device=args.device,
+                         bucket_prompts=args.bucket_prompts,
+                         temperature=args.temperature, eos_id=args.eos_id,
+                         trace=args.trace, metrics=args.metrics,
+                         log_interval=args.log_interval,
+                         profile_dir=args.profile_dir)
+    print(json.dumps(rep, indent=1))
+    if args.report_json:
+        with open(args.report_json, "w") as f:
+            json.dump(rep, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

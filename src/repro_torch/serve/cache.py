@@ -1,0 +1,161 @@
+"""Slotted KV cache: the serving engine's resident device memory
+(``src/repro/serve/cache.py``).
+
+The engine owns one persistent cache with ``n_slots`` batch rows ("slots").
+A slot holds one in-flight sequence; finished sequences are evicted and the
+freed row is overwritten by the next admitted prompt's prefill — the device
+state never reallocates between requests (the UKL "pinned" discipline).
+Writes are in place: the PyTorch counterpart of the JAX slot writer's
+donated ``dynamic_update_slice``.
+
+Layout (one dict per layer) vs the uniform decode cache of
+``repro_torch.models.transformer``:
+
+  uniform (all rows at one position)      slot layout (per-row positions)
+  -----------------------------------    --------------------------------
+  slot_pos : (T,)                         slot_pos : (B, T)
+  pos      : ()                           pos      : (B,)
+
+Every other leaf already carries batch at axis 0, so once ``slot_pos`` and
+``pos`` gain a batch axis, admission is one row write per leaf
+(``write_slot``).
+"""
+from __future__ import annotations
+
+from typing import Any, Protocol
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.step import (build_prefill_fn, build_slot_decode_step,
+                                   make_sampler)
+from repro_torch.models.transformer import Cache, init_cache
+from repro_torch.serve.telemetry import NULL_TELEMETRY
+
+
+def slotify(cache: Cache) -> Cache:
+    """Uniform-layout cache (any batch) -> slot layout.
+
+    ``slot_pos`` (T,) and ``pos`` () are shared across the batch in the
+    uniform layout (prefill runs all rows in lockstep), so broadcasting them
+    over the batch axis is exact. The result owns its storage (the engine
+    writes into it in place).
+    """
+    out = []
+    for g in cache:
+        B = g["k"].shape[0]
+        g = dict(g)
+        g["pos"] = g["pos"].expand(B).clone()
+        g["slot_pos"] = g["slot_pos"][None].expand(B, -1).clone()
+        out.append(g)
+    return out
+
+
+def init_slot_cache(cfg: ArchConfig, n_slots: int, max_len: int,
+                    dtype=torch.bfloat16, device="cuda") -> Cache:
+    """Fresh slot-layout cache: all slots empty (slot_pos == -1, pos == 0).
+    On ``cuda`` unless the caller asks for the CPU; ``cuda`` without a GPU
+    raises (``init_cache``)."""
+    base = slotify(init_cache(cfg, n_slots, max_len, dtype, device))
+    # init_cache leaves pos at the int32 fill value; empty slots decode from
+    # position 0 (their garbage output is ignored until admission).
+    for g in base:
+        g["pos"].zero_()
+    return base
+
+
+def write_slot(dst: Cache, src: Cache, slot: int) -> None:
+    """Write a freshly prefilled single-sequence cache (slot layout, batch
+    1) into row ``slot`` of the engine cache, in place — no reallocation per
+    admission (the JAX ``make_slot_writer``)."""
+    for d, s in zip(dst, src):
+        for name, leaf in d.items():
+            leaf[slot].copy_(s[name][0])
+
+
+class KVBackend(Protocol):
+    """What ``ServeEngine`` needs from a KV-memory subsystem.
+
+    ``SlottedKV`` (dense: one ``max_len`` row per slot) is the port's one
+    implementation so far; the paged subsystem of the JAX package
+    (``repro.serve.paging.PagedKV``) is ROADMAP module item 5.
+    """
+    kind: str
+    #: telemetry hook bundle (``repro_torch.serve.telemetry.Telemetry``);
+    #: the engine installs its own on construction
+    tel: Any
+    #: the resident cache (KV bytes are read off it for reports)
+    cache: Cache
+
+    def admit(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
+        """Prefill ``prompt`` into ``slot``. Returns the first generated
+        token, shape (1,), on the device."""
+        ...
+
+    def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
+        """Run one decode program over all slots; returns tokens (B, K)."""
+        ...
+
+    def fits(self, prompt_len: int, max_new: int) -> bool:
+        """Could this request ever run alone? (Hard reject when False.)"""
+        ...
+
+    def has_room(self, prompt_len: int) -> bool:
+        """Admission gate: is there memory for this prompt *now*?"""
+        ...
+
+    def release(self, slot: int) -> None:
+        """Free the slot's memory."""
+        ...
+
+    def utilization(self) -> dict:
+        """Backend-specific utilization counters for ``serve_report``."""
+        ...
+
+    def reset_counters(self) -> None:
+        """Zero utilization counters (after a warmup run)."""
+        ...
+
+
+class SlottedKV:
+    """Dense slot-row backend behind the KVBackend API. The cache lives on
+    the parameters' device."""
+
+    kind = "slotted"
+    tel = NULL_TELEMETRY
+
+    def __init__(self, cfg: ArchConfig, params, opts, linkage, n_slots: int,
+                 max_len: int, sampling=None, bucket_fn=None):
+        self.cfg, self.params, self.opts = cfg, params, opts
+        self.n_slots, self.max_len = n_slots, max_len
+        self.cache = init_slot_cache(cfg, n_slots, max_len, opts.dtype,
+                                     params["embed"].device)
+        self._dec = build_slot_decode_step(cfg, opts, linkage, sampling)
+        self._prefill = build_prefill_fn(cfg, opts, max_len,
+                                         bucket_fn=bucket_fn)
+        self._sample = make_sampler(sampling)
+
+    def admit(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
+        logits, c1 = self._prefill(self.params, prompt)
+        write_slot(self.cache, slotify(c1), slot)
+        return self._sample(logits)
+
+    def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
+        self.cache, toks = self._dec(self.params, self.cache, next_tokens)
+        return toks
+
+    def fits(self, prompt_len: int, max_new: int) -> bool:
+        return prompt_len + max_new <= self.max_len
+
+    def has_room(self, prompt_len: int) -> bool:
+        return True                     # a free slot is the only resource
+
+    def release(self, slot: int) -> None:
+        pass                            # the row is overwritten on admission
+
+    def utilization(self) -> dict:
+        return {}
+
+    def reset_counters(self) -> None:
+        pass

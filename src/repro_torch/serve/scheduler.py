@@ -1,0 +1,219 @@
+"""Request/slot scheduling for the continuous-batching engine.
+
+The part of ``src/repro/serve/scheduler.py`` that the slotted two-phase
+engine uses, copied (numpy only): the port imports nothing of the JAX
+package, and a fixed seed must give the same requests and the same
+schedule in both. Preemption, the chunk packer, the budget tuner and the
+n-gram drafter come with the slices that port paging, chunked prefill and
+speculation (ROADMAP module items 5-8).
+
+Deterministic by construction: admission is FIFO over arrival order (ties
+broken by request id) and free slots are handed out lowest-index-first, so a
+fixed request list plus a fixed seed replays the exact same schedule — the
+property the token-identity tests rely on.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence
+
+import numpy as np
+
+
+#: smallest admission bucket — prompts shorter than this share one compiled
+#: prefill instead of one program per tiny length. Lives here (not on the
+#: engine) so every admission path — two-phase prefill and chunked — goes
+#: through the same guard and the zero-``true_len`` padding-read bug fixed
+#: earlier cannot be resurrected by a new caller.
+MIN_BUCKET = 8
+
+
+def bucket_len(n: int, max_len: int) -> int:
+    """Power-of-two prompt bucket, floored at MIN_BUCKET and clipped to
+    ``max_len``: bounds the jit prefill cache under mixed-length load. The
+    floor keeps 1..7-token prompts from each minting their own compiled
+    program; ``true_len`` fixes up positions/logits so the padding is exact.
+    Empty prompts are rejected loudly — a ``true_len`` of 0 would silently
+    read position 0 of pure padding."""
+    if n < 1:
+        raise ValueError("cannot bucket an empty prompt (true_len == 0 "
+                         "would read logits from pure padding)")
+    return min(max(1 << max(n - 1, 0).bit_length(), MIN_BUCKET), max_len)
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request: a prompt and a generation budget.
+
+    ``eos_id``: optional stop token — generation finalizes early when it
+    appears at a host sync point (every program in iret mode; at request
+    completion under RET, where only the output is trimmed — see
+    docs/serving.md for the RET caveat).
+    """
+    rid: int
+    prompt: np.ndarray               # (P,) int32 token ids
+    max_new_tokens: int
+    arrival_s: float = 0.0           # offset from run start (open-loop load)
+    eos_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Host-side bookkeeping for one occupied cache slot."""
+    req: Request
+    admit_s: float
+    produced: int = 0                # generated tokens so far (incl. prefill's)
+    eos_seen: bool = False           # EOS observed at a host sync point
+    first_token_s: Optional[float] = None
+    chunks: List[np.ndarray] = dataclasses.field(default_factory=list)
+    prefill_done_s: Optional[float] = None   # last prompt chunk absorbed
+    first_decode_s: Optional[float] = None   # first decode-phase tokens
+    last_emit_s: Optional[float] = None      # last time this slot emitted
+    max_stall_s: float = 0.0                 # worst inter-emission gap — in
+                                             # two-phase mode this exposes
+                                             # decode stalls behind blocking
+                                             # admission prefills
+
+    def note_emit(self, now: float) -> None:
+        if self.last_emit_s is not None:
+            self.max_stall_s = max(self.max_stall_s, now - self.last_emit_s)
+        self.last_emit_s = now
+
+    @property
+    def remaining(self) -> int:
+        return self.req.max_new_tokens - self.produced
+
+
+@dataclasses.dataclass
+class Completion:
+    """A finished request with its timeline.
+
+    The TTFT breakdown (``serve_report``): ``queue_wait_s`` (arrival ->
+    admission), ``prefill_s`` (admission -> last prompt chunk absorbed =
+    first token), and ``first_decode_gap_s`` (first token -> first
+    decode-phase tokens). Under chunked prefill the prefill component is
+    what the budget knob trades against decode throughput."""
+    rid: int
+    prompt_len: int
+    tokens: np.ndarray               # (max_new_tokens,) generated ids
+    arrival_s: float
+    admit_s: float
+    first_token_s: float
+    done_s: float
+    prefill_done_s: float = 0.0
+    first_decode_s: float = 0.0
+    max_stall_s: float = 0.0         # worst gap between consecutive token
+                                     # emissions (inter-token stall)
+
+    @property
+    def latency_s(self) -> float:
+        return self.done_s - self.arrival_s
+
+    @property
+    def ttft_s(self) -> float:
+        return self.first_token_s - self.arrival_s
+
+    @property
+    def queue_wait_s(self) -> float:
+        return self.admit_s - self.arrival_s
+
+    @property
+    def prefill_s(self) -> float:
+        return self.prefill_done_s - self.admit_s
+
+    @property
+    def first_decode_gap_s(self) -> float:
+        return self.first_decode_s - self.prefill_done_s
+
+
+class SlotScheduler:
+    """FIFO admission queue over a fixed pool of cache slots."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self._free: List[int] = list(range(n_slots))
+        heapq.heapify(self._free)
+        self._queue: Deque[Request] = deque()
+        self.active: Dict[int, SlotState] = {}
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._queue)
+
+    def enqueue(self, req: Request) -> None:
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.rid}: max_new_tokens must be >= 1 (the "
+                "prefill itself yields the first generated token)")
+        if int(np.asarray(req.prompt).shape[0]) < 1:
+            raise ValueError(
+                f"request {req.rid}: prompt must be non-empty (a bucketed "
+                "prefill with true_len == 0 would silently read logits from "
+                "pure padding)")
+        self._queue.append(req)
+
+    def peek(self) -> Optional[Request]:
+        """The request the next admit would take, without taking it."""
+        return self._queue[0] if self._queue else None
+
+    def can_admit(self) -> bool:
+        return bool(self._queue) and bool(self._free)
+
+    def admit_next(self, now: float) -> tuple:
+        """Pop the oldest queued request into the lowest free slot."""
+        req = self._queue.popleft()
+        slot = heapq.heappop(self._free)
+        self.active[slot] = SlotState(req=req, admit_s=now)
+        return slot, req
+
+    def release(self, slot: int) -> SlotState:
+        st = self.active.pop(slot)
+        heapq.heappush(self._free, slot)
+        return st
+
+
+# ---------------------------------------------------------------------------
+# Synthetic load generation
+# ---------------------------------------------------------------------------
+
+def synthetic_requests(n: int, prompt_len: int, max_new_tokens: int,
+                       vocab_size: int, seed: int = 0,
+                       rate: Optional[float] = None,
+                       prompt_lens: Optional[Sequence[int]] = None,
+                       shared_prefix_len: int = 0,
+                       eos_id: Optional[int] = None) -> List[Request]:
+    """n random-token requests; with ``rate`` (req/s), Poisson arrival times
+    (open-loop load — arrivals don't wait for the server), else all at t=0.
+
+    ``prompt_lens``: bucket sizes to cycle through (mixed-length load for the
+    engine's power-of-two admission bucketing); overrides ``prompt_len``.
+    ``shared_prefix_len``: every prompt starts with the same token prefix (a
+    "system prompt") — the paged backend's radix index prefills it once and
+    CoW-shares its blocks.
+    """
+    rng = np.random.default_rng(seed)
+    lens = ([int(prompt_lens[i % len(prompt_lens)]) for i in range(n)]
+            if prompt_lens else [prompt_len] * n)
+    if shared_prefix_len > 0:
+        if any(l <= shared_prefix_len for l in lens):
+            raise ValueError("shared_prefix_len must be < every prompt len")
+        prefix = rng.integers(0, vocab_size, size=shared_prefix_len,
+                              dtype=np.int32)
+    prompts = []
+    for l in lens:
+        p = rng.integers(0, vocab_size, size=l, dtype=np.int32)
+        if shared_prefix_len > 0:
+            p[:shared_prefix_len] = prefix
+        prompts.append(p)
+    arrivals = np.zeros(n)
+    if rate is not None and rate > 0:
+        arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    return [Request(rid=i, prompt=prompts[i], max_new_tokens=max_new_tokens,
+                    arrival_s=float(arrivals[i]), eos_id=eos_id)
+            for i in range(n)]

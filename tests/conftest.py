@@ -31,6 +31,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: exhaustive/expensive test, skipped unless "
         "--runslow (tier-1 stays fast; representatives still run)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's Hopper kernels); "
+        "skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -9,33 +9,43 @@ non-zero before the result line):
 1. build  — ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
    one library (all sources at once), timed.
 2. kernels — every hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes (full-width tinyllama-1.1b: D=2048,
-   HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; and the
+   the card, at the main paths' shapes (full-width tinyllama-1.1b: D=2048,
+   HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; the
    ``--load seq`` shape, batch 1, through the uniform ``decode_attention``
-   wrapper with its mask built from slot_pos/pos) and over a sweep (HKV=3,
-   odd dh, a sliding window, non-power-of-two lengths), in float32
-   (atol = rtol = 1e-4) and bfloat16 (atol = rtol = 2e-2).
+   wrapper with its mask built from slot_pos/pos; paged decode over pools
+   (22,16,4,64) through permuted tables with trash tails; paged prefill
+   chunks of 24 starting mid-block) and over a sweep (HKV=3, odd dh, a
+   sliding window, non-power-of-two lengths, block sizes 8 and 16, chunks
+   of 1, 7 and to a block boundary, paged prefill at W=1 against paged
+   decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2).
 3. timings — per kernel, with CUDA events over back-to-back calls: the
    kernel, its plain version, the one PyTorch library call computing the
-   same function (``F.rms_norm``, ``F.scaled_dot_product_attention``; the
-   port never calls them), and the bound: the larger of bytes moved over
-   3.35 TB/s and operations over the peak for the input type (67 TFLOP/s
-   fp32 without tensor cores, 989 TFLOP/s bf16), from the H100 SXM data
-   sheet. Also at one larger shape per kernel, where the bound is not just
-   launch cost.
-4. path — the main path through its entry points: full-width tinyllama-1.1b
-   with the port's seeded init, ``nss_shortcut``, 8 requests under
-   ``--load open`` and then ``--load seq``. Launch counts are zeroed just
-   before each and read just after; every kernel must have launched, and
-   every request must complete with its budget.
+   same function (``F.rms_norm``, ``F.scaled_dot_product_attention``; for
+   the paged kernels SDPA over the gathered chains, the gather timed
+   apart; the port never calls them), and the bound: the larger of bytes
+   moved over 3.35 TB/s and operations over the peak for the input type
+   (67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s bf16), from the H100
+   SXM data sheet, counting the keys this run's data makes live. Also at
+   one larger shape per kernel, where the bound is not just launch cost.
+4. path — the main paths through their entry points, full-width
+   tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
+   requests each: slotted ``--load open`` and ``--load seq``; paged path A
+   (``--kv paged --shared-prefix-len 16``, open load) and paged path B
+   (``--kv paged --chunked --budget 48 --chunk-width 24``, open load).
+   Launch counts are zeroed just before each and read just after; every
+   kernel of a path must have launched, and every request must complete
+   with its budget.
 5. teacher-forced check — prefill, then 8 slotted decode steps (the
-   engine's) and, from the same prefill, 8 uniform decode steps (``--load
-   seq``), at full width, kernels against plain versions on the card, fed
-   the plain path's tokens: max |Δlogit| <= 2e-3. The agreement of engine streams with sequential
-   streams is printed and does not gate (greedy streams of a random-init
-   model flip on near-ties).
-6. profile — where one engine run's time goes (``profile_phase``): wall
-   time, device busy time, the device's idle share, the top kernels.
+   engine's), 8 uniform decode steps (``--load seq``) and 8 paged decode
+   steps over a pool filled through a permuted table, each from the same
+   prefill, and one paged chunk pass of 24 tokens at position 8; at full
+   width, kernels against plain versions on the card, fed the plain path's
+   tokens: max |Δlogit| <= 2e-3. The agreement of engine streams (slotted,
+   paged, paged chunked) with sequential streams is printed and does not
+   gate (greedy streams of a random-init model flip on near-ties).
+6. profile — where one engine run's time goes (``profile_phase``), slotted
+   and paged chunked: wall time, device busy time, the device's idle
+   share, the top kernels.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -65,6 +75,10 @@ TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
 SLOTS, PROMPT, GEN, REQUESTS = 4, 32, 32, 8
 MAX_LEN = PROMPT + GEN + 8
+# the paged paths: blocks of 16 (5 per slot at max_len 72), a 16-token
+# shared prefix (path A), budget 48 and chunks of 24 (path B)
+BS, SHARED, BUDGET, CHUNK_W = 16, 16, 48, 24
+NB = -(-MAX_LEN // BS)
 
 
 def log(*a):
@@ -149,11 +163,16 @@ def check_close(name, got, want, dtype) -> float:
 # ---------------------------------------------------------------------------
 
 def make_cases(gen, dtype):
-    """Kernel cases: (kernel, label, call, plain, library, bytes, ops)."""
+    """Kernel cases: (kernel, label, call, plain, library, bytes, ops[,
+    gather]). ``gather`` builds the library call's input where the library
+    needs a view the kernel never builds (the paged kernels' gathered
+    chains); it is timed apart from the library call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_decode as kpd
+    from repro_torch.kernels import paged_prefill as kpp
     from repro_torch.kernels import rmsnorm as krms
     from repro_torch.kernels import slot_decode as ksd
 
@@ -234,6 +253,86 @@ def make_cases(gen, dtype):
                 enable_gqa=True),
             nbytes(q, k, v, slot_pos, q), 4.0 * dh * HQ * keys))
 
+    def pool_case(B, nb, bs, HKV, dh, spare, keys):
+        """Pools (P+1, bs, HKV, dh) with P = B*nb + spare and row P the
+        trash block, and (B, nb) tables: a random permutation of the pool
+        rows for each slot's first ceil(keys[b] / bs) blocks (so chains are
+        not contiguous), the trash row for the rest."""
+        P = B * nb + spare
+        kp, vp = rn(P + 1, bs, HKV, dh), rn(P + 1, bs, HKV, dh)
+        perm = torch.randperm(P, generator=torch.Generator().manual_seed(P))
+        tables = torch.full((B, nb), P, dtype=torch.int32)
+        for b, n in enumerate(keys):
+            used = -(-n // bs)
+            tables[b, :used] = perm[b * nb:b * nb + used].to(torch.int32)
+        return kp, vp, tables.cuda()
+
+    def gathered(kp, vp, tables):
+        """The library yardstick's input: each slot's logical view,
+        (B, HKV, nb*bs, dh), gathered by one indexing call per pool."""
+        def g(p):
+            B, nb = tables.shape
+            return p[tables.long()].reshape(B, nb * p.shape[1], *p.shape[2:]
+                                            ).transpose(1, 2).contiguous()
+        return g(kp), g(vp)
+
+    def paged_decode_case(label, B, nb, bs, HQ, HKV, dh, pos, spare=1):
+        kp, vp, tables = pool_case(B, nb, bs, HKV, dh, spare,
+                                   [p + 1 for p in pos])
+        q = rn(B, HQ, dh)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        valid = torch.arange(nb * bs, device="cuda")[None] <= pos_t[:, None]
+        keys = sum(p + 1 for p in pos)           # live keys, this run's data
+        kg, vg = gathered(kp, vp, tables)
+        cases.append((
+            "paged_decode", label,
+            lambda: kpd.paged_decode_attention(q, kp, vp, tables, valid),
+            lambda: ref.paged_decode_attention_ref(q, kp, vp, tables, valid),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=valid[:, None, None],
+                enable_gqa=True),
+            nbytes(q, tables, valid, q) + 2 * keys * HKV * dh
+            * kp.element_size(), 4.0 * dh * HQ * keys,
+            lambda: gathered(kp, vp, tables)))
+
+    def paged_prefill_case(label, B, W, nb, bs, HQ, HKV, dh, starts,
+                           spare=1):
+        T = nb * bs
+        kp, vp, tables = pool_case(B, nb, bs, HKV, dh, spare,
+                                   [min(s + W, T) for s in starts])
+        q = rn(B, W, HQ, dh)
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        qpos = start[:, None] + torch.arange(W, device="cuda")[None]
+        live = torch.arange(T, device="cuda")[None, None] <= qpos[:, :, None]
+        pairs = int(live.sum().item()) * HQ
+        keys = sum(min(s + W, T) for s in starts)
+        kg, vg = gathered(kp, vp, tables)
+        cases.append((
+            "paged_prefill", label,
+            lambda: kpp.paged_prefill_attention(q, kp, vp, tables, start),
+            lambda: ref.paged_prefill_attention_ref(q, kp, vp, tables, start),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kg, vg, attn_mask=live[:, None],
+                enable_gqa=True),
+            nbytes(q, tables, start, q) + 2 * keys * HKV * dh
+            * kp.element_size(), 4.0 * dh * pairs,
+            lambda: gathered(kp, vp, tables)))
+
+    def prefill_is_decode_case(label, B, nb, bs, HQ, HKV, dh, pos):
+        """paged_prefill at W = 1 against paged_decode at pos = start, on
+        the same pools and tables (the 'plain' side is the decode kernel)."""
+        kp, vp, tables = pool_case(B, nb, bs, HKV, dh, 1,
+                                   [p + 1 for p in pos])
+        q = rn(B, HQ, dh)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        valid = torch.arange(nb * bs, device="cuda")[None] <= pos_t[:, None]
+        cases.append((
+            "paged_prefill", label,
+            lambda: kpp.paged_prefill_attention(q[:, None], kp, vp, tables,
+                                                pos_t)[:, 0],
+            lambda: kpd.paged_decode_attention(q, kp, vp, tables, valid),
+            None, 0, 0.0, None))
+
     # main-path shapes first (the first case of each kernel is its record)
     rms_case("main: decode rows (4,1,2048)", (SLOTS, 1, 2048))
     rms_case("main: prefill rows (1,32,2048)", (1, PROMPT, 2048))
@@ -242,6 +341,13 @@ def make_cases(gen, dtype):
               4, 64, (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
     uniform_case("main seq: decode_attention q (1,32,64) kv (1,72,4,64)", 1,
                  MAX_LEN, 32, 4, 64, pos=PROMPT + 17, filled=PROMPT + 20)
+    # path A's decode: 4 slots x 5 blocks of 16 + 1 spare + the trash row
+    paged_decode_case("main: paged decode q (4,32,64) pools (22,16,4,64)",
+                      SLOTS, NB, BS, 32, 4, 64, (32, 48, 71, 0))
+    # path B's chunk pass: chunks of 24 starting mid-block
+    paged_prefill_case("main: paged prefill q (4,24,32,64) starts "
+                       "(0,8,24,40)", SLOTS, CHUNK_W, NB, BS, 32, 4, 64,
+                       (0, 8, 24, 40))
     # sweep
     rms_case("sweep (3,40,96)", (3, 40, 96))
     rms_case("sweep odd D (5,7,33)", (5, 7, 33))
@@ -256,11 +362,29 @@ def make_cases(gen, dtype):
     slot_case("sweep empty row T=40", 2, 40, 8, 2, 80, (33, 0))
     uniform_case("sweep decode_attention HKV=3 window=16 T=40", 3, 40, 6, 3,
                  33, pos=30, filled=35, window=16)
+    paged_decode_case("sweep paged decode HKV=3 dh=33 bs=8", 3, 4, 8, 6, 3,
+                      33, (0, 13, 31))
+    paged_decode_case("sweep paged decode MQA dh=129 bs=16", 2, 3, 16, 4, 1,
+                      129, (47, 16), spare=3)
+    paged_prefill_case("sweep paged prefill HKV=3 dh=33 bs=8 W=7", 3, 7, 4,
+                       8, 6, 3, 33, (0, 5, 25))
+    paged_prefill_case("sweep paged prefill dh=129 bs=16 W=1", 2, 1, 3, 16,
+                       4, 1, 129, (0, 40))
+    paged_prefill_case("sweep paged prefill W at a block boundary bs=8 W=8",
+                       2, 8, 4, 8, 6, 3, 64, (8, 16))
+    prefill_is_decode_case("sweep paged prefill W=1 == paged decode HKV=3 "
+                           "dh=33 bs=8", 3, 4, 8, 6, 3, 33, (0, 13, 31))
+    prefill_is_decode_case("sweep paged prefill W=1 == paged decode dh=129 "
+                           "bs=16", 2, 3, 16, 8, 2, 129, (47, 5))
     # larger shapes, where the bound is more than launch cost
     rms_case("large (4096,2048)", (4096, 2048))
     flash_case("large prefill q (1,2048,32,64)", 1, 2048, 32, 4, 64)
     slot_case("large decode q (32,32,64) kv (32,2048,4,64)", 32, 2048, 32, 4,
               64, (2048,) * 32)
+    paged_decode_case("large paged decode q (32,32,64) 32 slots x 2048 "
+                      "bs=16", 32, 128, 16, 32, 4, 64, (2047,) * 32)
+    paged_prefill_case("large paged prefill q (4,256,32,64) T=2048 bs=16", 4,
+                       256, 128, 16, 32, 4, 64, (0, 512, 1024, 1792))
     return cases
 
 
@@ -268,7 +392,8 @@ def kernel_phase(gen):
     import torch
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, label, call, plain, lib, nb, ops in make_cases(gen, dtype):
+        for name, label, call, plain, lib, nb, ops, *gather in make_cases(
+                gen, dtype):
             got = call()
             want = plain()
             torch.cuda.synchronize()
@@ -281,6 +406,9 @@ def kernel_phase(gen):
                            bound_by=b_by, device_ms=device_ms(call),
                            plain_device_ms=device_ms(plain),
                            library_device_ms=device_ms(lib))
+                if gather:
+                    row.update(library_gather_ms=cuda_ms(gather[0]),
+                               library_gather_device_ms=device_ms(gather[0]))
             log(f"kernel {name:15s} {str(dtype):15s} {label:45s} "
                 + " ".join(f"{k}={v!r}" for k, v in row.items()
                            if k not in ("label", "dtype")))
@@ -322,7 +450,39 @@ def path_phase():
             if counts.get(k, 0) < 1:
                 raise AssertionError(f"--load {what}: kernel {k} was never "
                                      "launched on the main path")
-    return rep, seq, open_counts
+
+    # the paged paths: A, two-phase with a shared prefix (later admissions
+    # take the suffix prefill over a radix-shared block); B, chunked, each
+    # 32-token prompt entering in chunks of at most 24 (the second one
+    # starting mid-block)
+    paged = {}
+    for name, kw, want in (
+            ("A", dict(shared_prefix_len=SHARED),
+             ("paged_decode", "flash_attention", "rmsnorm")),
+            ("B", dict(chunked=True, budget=BUDGET, chunk_width=CHUNK_W),
+             ("paged_decode", "paged_prefill", "rmsnorm"))):
+        ops.reset_launch_counts()
+        rep_p = run_engine(ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
+                           gen_len=GEN, requests=REQUESTS, load="open",
+                           smoke=False, device="cuda", kv="paged",
+                           block_size=BS, **kw)
+        counts = ops.launch_counts()
+        log(f"serve report (paged path {name}):", json.dumps(rep_p))
+        log(f"launches (paged path {name}):", counts)
+        log(f"paged path {name}: kv_prefix_shared_tokens "
+            f"{rep_p['kv_prefix_shared_tokens']}, kv_cow_forks "
+            f"{rep_p['kv_cow_forks']}, kv_blocks_hwm {rep_p['kv_blocks_hwm']}")
+        if (rep_p["requests"] != REQUESTS
+                or rep_p["total_tokens"] != REQUESTS * GEN):
+            raise AssertionError(f"paged path {name}: {rep_p['requests']} "
+                                 f"requests, {rep_p['total_tokens']} tokens; "
+                                 f"want {REQUESTS} x {GEN}")
+        for k in want:
+            if counts.get(k, 0) < 1:
+                raise AssertionError(f"paged path {name}: kernel {k} was "
+                                     "never launched")
+        paged[name] = (rep_p, counts)
+    return rep, seq, open_counts, paged
 
 
 def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
@@ -333,9 +493,12 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
     from repro_torch.configs import get_config
     from repro_torch.core import L3_NSS, preset
     from repro_torch.models import (ModelOptions, decode_step,
-                                    decode_step_slots, init_params, prefill)
+                                    decode_step_paged, decode_step_slots,
+                                    init_params, prefill,
+                                    serve_chunk_step_paged)
     from repro_torch.models.transformer import clone_cache
     from repro_torch.serve import ServeEngine, slotify, synthetic_requests
+    from repro_torch.serve.paging import init_paged_cache, scatter_kv
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -348,13 +511,38 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
     lp0, cp0 = prefill(params, toks, cfg, plain, MAX_LEN)
     lk0, ck0 = prefill(params, toks, cfg, kern, MAX_LEN)
     worst0 = (lp0 - lk0).abs().max().item()
-    # slotted decode (the engine's) and uniform decode (``--load seq``, the
-    # mask built from slot_pos/pos in ops.decode_attention), each from a
-    # copy of the prefilled caches
-    for what, step, layout in (("slotted", decode_step_slots, slotify),
-                               ("uniform", decode_step, clone_cache)):
+
+    def check(what, worst, scale):
+        log(f"teacher-forced ({what}) max |dlogit|: {worst:.3e} (tolerance "
+            f"{tol}; logit scale {scale:.3g})")
+        if not math.isfinite(worst) or worst > tol:
+            raise AssertionError(f"teacher-forced ({what}) logits differ by "
+                                 f"{worst}")
+
+    # paged: the prefill's first n positions scattered into a pool of
+    # 3 * NB blocks through a permuted, non-contiguous table
+    P = 3 * NB
+    table = torch.randperm(P, generator=torch.Generator().manual_seed(1))[
+        :NB].to(torch.int32)[None].cuda()
+
+    def paged_from(c, n):
+        pc = init_paged_cache(cfg, P, BS, 1, torch.float32, "cuda")
+        p = torch.arange(n, device="cuda")
+        scatter_kv(pc, [{"k": g["k"][:, :n], "v": g["v"][:, :n]} for g in c],
+                   table[0, p // BS].long(), p % BS, 0, n)
+        return pc
+
+    # slotted decode (the engine's), uniform decode (``--load seq``, the
+    # mask built from slot_pos/pos in ops.decode_attention) and paged
+    # decode (paths A and B), each from a copy of the prefilled caches
+    for what, step, layout in (
+            ("slotted", decode_step_slots, lambda c: slotify(clone_cache(c))),
+            ("uniform", decode_step, clone_cache),
+            ("paged", lambda p, c, t, cf, o: decode_step_paged(
+                p, c, t, table, cf, o, MAX_LEN),
+             lambda c: paged_from(c, PROMPT))):
         lp, lk = lp0, lk0
-        cp, ck = layout(clone_cache(cp0)), layout(clone_cache(ck0))
+        cp, ck = layout(cp0), layout(ck0)
         worst = worst0
         for _ in range(steps):
             nxt = torch.argmax(lp, -1).to(torch.int32)   # the plain token
@@ -362,60 +550,61 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
             lk, ck = step(params, ck, nxt, cfg, kern)
             worst = max(worst, (lp - lk).abs().max().item())
         torch.cuda.synchronize()
-        log(f"teacher-forced ({what}) max |dlogit| over prefill + {steps} "
-            f"decode steps: {worst:.3e} (tolerance {tol}; logit scale "
-            f"{lp.abs().max().item():.3g})")
-        if not math.isfinite(worst) or worst > tol:
-            raise AssertionError(f"teacher-forced ({what}) logits differ by "
-                                 f"{worst}")
+        check(f"{what}, prefill + {steps} decode steps", worst,
+              lp.abs().max().item())
+
+    # path B's chunk pass: positions 0..7 resident, then one 24-token chunk
+    # at position 8 (starting mid-block); its logits at position 31 are the
+    # prefill's
+    start = torch.tensor([8], dtype=torch.int32, device="cuda")
+    clen = torch.tensor([PROMPT - 8], dtype=torch.int32, device="cuda")
+    lp, _ = serve_chunk_step_paged(params, paged_from(cp0, 8), toks[:, 8:],
+                                   table, start, clen, cfg, plain, MAX_LEN)
+    lk, _ = serve_chunk_step_paged(params, paged_from(ck0, 8), toks[:, 8:],
+                                   table, start, clen, cfg, kern, MAX_LEN)
+    torch.cuda.synchronize()
+    log(f"serve_chunk_step_paged (plain) vs prefill (plain) at position "
+        f"{PROMPT - 1}: max |dlogit| {(lp - lp0).abs().max().item():.3e}")
+    check("paged chunk pass, 24 tokens at position 8",
+          (lp - lk).abs().max().item(), lp.abs().max().item())
 
     # engine streams (kernels) vs sequential streams (plain): printed only
     lk_cfg = dataclasses.replace(preset(PRESET), decode_steps=8)
     assert lk_cfg.level == L3_NSS
-    reqs = synthetic_requests(4, PROMPT, 16, cfg.vocab_size, seed=3)
-    eng = ServeEngine(cfg, params, kern, lk_cfg, n_slots=2, max_len=MAX_LEN)
-    comps, _ = eng.run(reqs, load="closed")
-    agree = total = 0
-    for c in comps:
-        req = reqs[c.rid]
+    reqs = synthetic_requests(4, PROMPT, 16, cfg.vocab_size, seed=3,
+                              shared_prefix_len=SHARED)
+    want = {}
+    for req in reqs:
         lg, cache = prefill(params, torch.from_numpy(req.prompt)[None].cuda(),
                             cfg, plain, MAX_LEN)
-        want = [int(torch.argmax(lg, -1))]
+        out = [int(torch.argmax(lg, -1))]
         for _ in range(req.max_new_tokens - 1):
-            nxt = torch.tensor(want[-1:], dtype=torch.int32, device="cuda")
+            nxt = torch.tensor(out[-1:], dtype=torch.int32, device="cuda")
             lg, cache = decode_step(params, cache, nxt, cfg, plain)
-            want.append(int(torch.argmax(lg, -1)))
-        agree += int(sum(a == b for a, b in zip(c.tokens.tolist(), want)))
-        total += len(want)
-    log(f"engine (kernels) vs sequential (plain) stream agreement: "
-        f"{agree}/{total} tokens")
-    return worst
+            out.append(int(torch.argmax(lg, -1)))
+        want[req.rid] = out
+    for what, kw in (("slotted", {}),
+                     ("paged", dict(kv="paged", block_size=BS)),
+                     ("paged chunked", dict(kv="paged", block_size=BS,
+                                            chunked=True, chunk_budget=BUDGET,
+                                            chunk_width=CHUNK_W))):
+        eng = ServeEngine(cfg, params, kern, lk_cfg, n_slots=2,
+                          max_len=MAX_LEN, **kw)
+        comps, _ = eng.run(reqs, load="closed")
+        agree = sum(int(a == b) for c in comps
+                    for a, b in zip(c.tokens.tolist(), want[c.rid]))
+        total = sum(len(w) for w in want.values())
+        log(f"engine ({what}, kernels) vs sequential (plain) stream "
+            f"agreement: {agree}/{total} tokens")
 
 
-def profile_phase():
-    """Where one engine run's time goes: 4 slots, each admitted with a
-    32-token prompt and then decoded by one 32-token L3 program, at full
-    width under ``nss_shortcut``. The wall time comes from an unprofiled
-    run (host clock, ending in a synchronise); the device busy time is the
-    kernels' own time under ``torch.profiler`` in a second, identical run.
-    Idle share = 1 - busy / wall."""
-    import dataclasses
-
+def _profile_run(label, eng, reqs):
+    """Wall time of ``eng`` serving ``reqs`` (host clock, unprofiled,
+    ending in a synchronise) after a warm run, then the device busy time
+    of an identical run under ``torch.profiler``. Idle share = 1 - busy /
+    wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.core import preset
-    from repro_torch.models import ModelOptions, init_params
-    from repro_torch.serve import ServeEngine, synthetic_requests
-
-    cfg = get_config(ARCH)
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
-    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
-    opts = lk.model_options(ModelOptions(attn_impl="ref",
-                                         dtype=torch.float32))
-    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS, max_len=MAX_LEN)
-    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
     eng.run(reqs, load="closed")                       # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -428,13 +617,54 @@ def profile_phase():
         torch.cuda.synchronize()
     events = sorted(_device_events(prof), key=_self_device_us, reverse=True)
     busy = sum(_self_device_us(e) for e in events) / 1e6
-    log(f"profile: {SLOTS} admissions + one {GEN}-step decode program: wall "
-        f"{wall:.6f} s, device busy {busy:.6f} s, idle share "
-        f"{1 - busy / wall:.4f}, tokens/s {SLOTS * (GEN + 1) / wall:.6g}")
+    tokens = sum(r.max_new_tokens for r in reqs)
+    log(f"profile ({label}): wall {wall:.6f} s, device busy {busy:.6f} s, "
+        f"idle share {1 - busy / wall:.4f}, tokens/s {tokens / wall:.6g}, "
+        f"programs {eng.programs_run}")
     for e in events[:12]:
         log(f"  device {_self_device_us(e) / 1e3:10.3f} ms  x{e.count:6d}  "
             f"{e.key[:110]}")
+    # host-to-device copies: the paged engine's block tables (built in
+    # numpy on the host) cross once per program
+    h2d = [e for e in events if "HtoD" in e.key]
+    log(f"  host-to-device copies: {sum(e.count for e in h2d)} taking "
+        f"{sum(_self_device_us(e) for e in h2d) / 1e3:.3f} ms of device time")
     return wall, busy
+
+
+def profile_phase():
+    """Where one engine run's time goes, at full width under
+    ``nss_shortcut``: (1) slotted two-phase — 4 slots, each admitted with a
+    32-token prompt and then decoded by one 32-token L3 program; (2) path
+    B, paged chunked — the same requests entering in chunks of at most 24
+    under a budget of 48, then decoded."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
+    out = {}
+    for label, kw in (
+            (f"slotted: {SLOTS} admissions + one {GEN}-step decode program",
+             {}),
+            (f"paged chunked (path B): {SLOTS} prompts in chunks of "
+             f"<= {CHUNK_W}, budget {BUDGET}, then decode",
+             dict(kv="paged", block_size=BS, chunked=True,
+                  chunk_budget=BUDGET, chunk_width=CHUNK_W))):
+        eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS,
+                          max_len=MAX_LEN, **kw)
+        out[label] = _profile_run(label, eng, reqs)
+    return out
 
 
 def main() -> int:
@@ -461,16 +691,28 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = kernel_phase(gen)
-    _, _, counts = path_phase()
+    _, _, counts, paged = path_phase()
     teacher_forced_phase()
     profile_phase()
 
+    # launches: each kernel's count in the run of the path that carries it
+    # (the slotted --load open run; paged path A for paged_decode, paged
+    # path B for paged_prefill), and every path's count beside it
+    by_path = {"slotted open": counts, "paged A": paged["A"][1],
+               "paged B": paged["B"][1]}
+    home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
+            "slot_decode": "slotted open", "paged_decode": "paged A",
+            "paged_prefill": "paged B"}
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:36"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:164"),
                "slot_decode": ("src/repro_torch/csrc/decode_attention.cu",
-                               "src/repro/kernels/slot_decode.py:52")}
+                               "src/repro/kernels/slot_decode.py:52"),
+               "paged_decode": ("src/repro_torch/csrc/paged_attention.cu",
+                                "src/repro/kernels/paged_decode.py:135"),
+               "paged_prefill": ("src/repro_torch/csrc/paged_attention.cu",
+                                 "src/repro/kernels/paged_prefill.py:185")}
     out = []
     for name, (src, replaces) in sources.items():
         rows = [r for r in records[name] if r["dtype"] == "torch.float32"]
@@ -480,7 +722,10 @@ def main() -> int:
         seq = [r for r in rows if r["label"].startswith("main seq")]
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts.get(name, 0),
+            "replaces": replaces,
+            "launches": by_path[home[name]].get(name, 0),
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -492,6 +737,8 @@ def main() -> int:
             "shape": main_row["label"],
             "large": extra,
         })
+        if "library_gather_ms" in main_row:
+            out[-1]["library_gather_ms"] = main_row["library_gather_ms"]
         if seq:       # slot_decode through the uniform wrapper (--load seq)
             out[-1]["seq"] = {k: v for k, v in seq[0].items()
                               if k != "dtype"}

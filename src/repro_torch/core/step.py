@@ -1,6 +1,7 @@
 """Serving programs of the port (``src/repro/core/step.py``, serving
-subset): the prefill program, the uniform and slotted decode programs, and
-the greedy sampler, each built at a point of the linkage spectrum.
+subset): the prefill program, the uniform, slotted and paged decode
+programs, the paged unified serve program of chunked prefill, and the
+greedy sampler, each built at a point of the linkage spectrum.
 
 PyTorch runs eagerly, so a "program" here is a Python callable: at L3 it
 runs ``decode_steps`` microsteps back to back without a host sync and
@@ -18,8 +19,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.models import decode_step as model_decode
+from repro_torch.models import decode_step_paged as model_decode_paged
 from repro_torch.models import decode_step_slots as model_decode_slots
 from repro_torch.models import prefill
+from repro_torch.models import serve_chunk_step_paged as model_chunk_paged
 from repro_torch.models.layers import ModelOptions
 
 
@@ -55,7 +58,8 @@ def make_sampler(sampling: Optional[SamplingConfig]) -> Callable:
 def program_label(cfg: ArchConfig, linkage: LinkageConfig,
                   kind: str) -> str:
     """A stable human-readable label for a serving program — ``kind`` is the
-    program family the engine dispatched ("decode", "prefill_admit").
+    program family the engine dispatched ("decode", "serve_chunk",
+    "prefill_admit").
     Telemetry stamps it on ``engine_step`` trace events."""
     tag = linkage.level
     if linkage.level == L3_NSS:
@@ -128,6 +132,87 @@ def build_slot_decode_step(cfg: ArchConfig, opts: ModelOptions,
     """(params, slot_cache, tokens (B,)) -> (slot_cache, tokens (B, K))."""
     linkage.validate()
     return make_slot_decode_fn(cfg, opts, linkage, sampling)
+
+
+def make_paged_decode_fn(cfg: ArchConfig, opts: ModelOptions,
+                         linkage: LinkageConfig, max_len: int,
+                         sampling: Optional[SamplingConfig] = None
+                         ) -> Callable:
+    """Paged-KV decode (``step.py:369``): the cache is one block pool per
+    layer, and each slot's view goes through its block table, passed per
+    call — the engine allocates and forks blocks between programs, so the
+    table is host state, not program state. Returns ``(params, cache,
+    tokens (B,), tables (B, nb)) -> (cache, tokens (B, K))``."""
+    sample = make_sampler(sampling)
+
+    def fn(params, cache, tokens, tables):
+        def one(params, cache, tokens):
+            logits, cache = model_decode_paged(params, cache, tokens, tables,
+                                               cfg, opts, max_len,
+                                               inplace=linkage.donate)
+            return cache, sample(logits)
+        return _serving_decode_fn(one, linkage)(params, cache, tokens)
+    return fn
+
+
+def build_paged_decode_step(cfg: ArchConfig, opts: ModelOptions,
+                            linkage: LinkageConfig, max_len: int,
+                            sampling: Optional[SamplingConfig] = None
+                            ) -> Callable:
+    """(params, paged_cache, tokens (B,), tables (B, nb)) ->
+    (paged_cache, tokens (B, K))."""
+    linkage.validate()
+    return make_paged_decode_fn(cfg, opts, linkage, max_len, sampling)
+
+
+def build_serve_step(cfg: ArchConfig, opts: ModelOptions,
+                     linkage: LinkageConfig, max_len: int,
+                     sampling: Optional[SamplingConfig] = None) -> Callable:
+    """The *unified* serve program of chunked prefill over the paged pools
+    (``step.py:555``, its ``kv_kind="paged"`` branch):
+    one program per engine step, [chunk pass] + [K decode microsteps].
+
+      1. Chunk pass: each slot absorbs its own variable-length prompt chunk
+         (decode and empty slots carry a zero-length chunk); K/V written,
+         then attended with per-row positions. Rows whose chunk completes
+         their prompt sample their first token from the chunk's last
+         position (the caller reads ``t0`` only where ``emit0``).
+      2. Decode scan: the linkage level's K microsteps — the two-phase
+         decode body — advance the rows past prefill (``dec_mask``). The
+         other rows ride the scan against ``scan_tables``, where their
+         whole row is the trash block, so their garbage never lands in a
+         live block; and they keep their position, which the engine's
+         pure-decode path trusts between programs.
+
+    Signature: (params, cache, chunk_tokens (B,W) i32, clen (B,) i32,
+    start (B,) i32, dec_tok (B,) i32, dec_mask (B,) bool, tables (B,nb)
+    i32, scan_tables (B,nb) i32) -> (cache, t0 (B,) i32, seq (B,K) i32).
+    Greedy decoding carries no key chains, so JAX's ``emit0`` and ``keys``
+    operands have nothing to gate. The slotted program is the rest of
+    ROADMAP module item 6.
+    """
+    linkage.validate()
+    sample = make_sampler(sampling)
+    K = linkage.decode_steps if linkage.level == L3_NSS else 1
+
+    def fn(params, cache, chunk_toks, clen, start, dec_tok, dec_mask, tables,
+           scan_tables):
+        logits, cache = model_chunk_paged(
+            params, cache, chunk_toks, tables, start, clen, cfg, opts,
+            max_len, inplace=linkage.donate)
+        t0 = sample(logits)
+        toks, seq = dec_tok, []
+        for _ in range(K):
+            held = [g["pos"].clone() for g in cache]
+            logits, cache = model_decode_paged(params, cache, toks,
+                                               scan_tables, cfg, opts,
+                                               max_len)
+            for g, pos in zip(cache, held):
+                g["pos"].copy_(torch.where(dec_mask, g["pos"], pos))
+            toks = sample(logits)
+            seq.append(toks)
+        return cache, t0, torch.stack(seq, dim=1)
+    return fn
 
 
 def build_prefill_fn(cfg: ArchConfig, opts: ModelOptions, max_len: int, *,

@@ -125,8 +125,14 @@ def library() -> ctypes.CDLL:
                                            I, I, F, I, P]
         lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, I, I, I, I,
                                                  I, P, F, I, P]
+        lib.rt_paged_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
+                                                  I, I, I, P, F, I, P]
+        lib.rt_paged_prefill_attention.argtypes = [P, P, P, P, P, P, I, I, I,
+                                                   I, I, I, I, P, F, I, P]
         for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
-                   lib.rt_slot_decode_attention):
+                   lib.rt_slot_decode_attention,
+                   lib.rt_paged_decode_attention,
+                   lib.rt_paged_prefill_attention):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -16,13 +16,16 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_decode as _paged
+from repro_torch.kernels import paged_prefill as _paged_pf
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import slot_decode as _slot
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since ``reset_launch_counts`` (keys: ``rmsnorm``,
-    ``flash_attention``, ``slot_decode``)."""
+    ``flash_attention``, ``slot_decode``, ``paged_decode``,
+    ``paged_prefill``)."""
     return dict(_build.launches)
 
 
@@ -54,6 +57,31 @@ def slot_decode_attention(q, ck, cv, slot_pos, pos, *, window: int = 0):
     if window > 0:
         valid &= pos[:, None] - slot_pos < window
     return _slot.slot_decode_attention(q[:, 0], ck, cv, valid)[:, None]
+
+
+def paged_decode_attention(q, kp, vp, tables, pos, ks=None, vs=None):
+    """Paged decode: block-table indirection instead of dense slot rows.
+
+    q: (B,1,HQ,dh) fresh query; kp/vp: (P+1,bs,HKV,dh) pools (row P is
+    the trash block); tables: (B,nb) int32; pos: (B,) per-slot positions.
+    Validity is logical-position order, ``arange(nb*bs) <= pos`` (JAX
+    ``ops.py:61-75``): block chains are never circular. ``ks``/``vs``
+    (quantized pools) raise ``NotImplementedError``.
+    """
+    nb, bs = tables.shape[1], kp.shape[1]
+    valid = torch.arange(nb * bs, dtype=torch.int32,
+                         device=q.device)[None] <= pos[:, None]
+    return _paged.paged_decode_attention(q[:, 0], kp, vp, tables, valid,
+                                         ks, vs)[:, None]
+
+
+def paged_prefill_attention(q, kp, vp, tables, start, ks=None, vs=None):
+    """Paged chunked prefill: every slot's prompt chunk attends over its
+    resident block chain (JAX ``ops.py:78-89``). q: (B,W,HQ,dh) with the
+    chunk's own K/V already in the pools; tables: (B,nb) int32; start: (B,)
+    first chunk position per row."""
+    return _paged_pf.paged_prefill_attention(q, kp, vp, tables,
+                                             start.to(torch.int32), ks, vs)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5):

@@ -2,7 +2,9 @@
 
 Each follows its JAX oracle in ``src/repro/kernels/ref.py`` line for line
 (``flash_attention_ref`` :11, ``decode_attention_ref`` :31,
-``slot_decode_attention_ref`` :45, ``rmsnorm_ref`` :108). The wrappers run
+``slot_decode_attention_ref`` :45, ``paged_decode_attention_ref`` :61,
+``paged_prefill_attention_ref`` :79, ``rmsnorm_ref`` :108; the paged ones
+without the quantized ``ks``/``vs`` path). The wrappers run
 them for tensors on the CPU; on the card they are what each kernel is held
 against. One rule is the kernels', not the JAX oracles': a decode row with
 no valid key gives zeros (the Pallas ``_decode_kernel`` clamps its
@@ -57,6 +59,45 @@ def decode_attention_ref(q, k, v, valid, *, scale=None):
     slots, shared by every row."""
     mask = valid[None].expand(q.shape[0], valid.shape[0])
     return slot_decode_attention_ref(q, k, v, mask, scale=scale)
+
+
+def gather_pool(pool, tables):
+    """(P+1,bs,HKV,dh) pool through (B,nb) tables -> (B, nb*bs, HKV, dh):
+    each slot's logical view, block i of the chain at keys i*bs..i*bs+bs-1."""
+    B, nb = tables.shape
+    return pool[tables.long()].reshape(B, nb * pool.shape[1], *pool.shape[2:])
+
+
+def paged_decode_attention_ref(q, kp, vp, tables, valid, *, scale=None):
+    """Paged decode: gather each slot's logical view through its block
+    table, then slot-decode over it (JAX ``ref.py:61``, unquantized).
+    q:(B,HQ,dh); kp,vp:(P+1,bs,HKV,dh); tables:(B,nb) int;
+    valid:(B,nb*bs) bool -> (B,HQ,dh)."""
+    return slot_decode_attention_ref(q, gather_pool(kp, tables),
+                                     gather_pool(vp, tables), valid,
+                                     scale=scale)
+
+
+def paged_prefill_attention_ref(q, kp, vp, tables, start, *, scale=None):
+    """Paged chunked prefill: gather each slot's logical view, then W
+    queries per row under the causal mask ``k_pos <= start + w`` (JAX
+    ``ref.py:79``, unquantized). q:(B,W,HQ,dh); kp,vp:(P+1,bs,HKV,dh);
+    tables:(B,nb) int; start:(B,) int -> (B,W,HQ,dh). Query rows past a
+    row's true chunk length are garbage by contract."""
+    B, W, HQ, dh = q.shape
+    HKV = kp.shape[2]
+    G = HQ // HKV
+    scale = scale or 1.0 / math.sqrt(dh)
+    kg, vg = gather_pool(kp, tables), gather_pool(vp, tables)
+    q_pos = start[:, None].long() + torch.arange(W, device=q.device)[None]
+    k_pos = torch.arange(kg.shape[1], device=q.device)
+    live = k_pos[None, None, :] <= q_pos[:, :, None]              # (B,W,T)
+    qg = q.reshape(B, W, HKV, G, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kg).float() * scale
+    s = s.masked_fill(~live[:, None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), vg)
+    return out.reshape(B, W, HQ, dh)
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-5):

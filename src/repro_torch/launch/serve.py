@@ -6,10 +6,18 @@ Two paths share one model/linkage setup:
   engine (default)  continuous-batching ``repro_torch.serve.ServeEngine``: a
                     slot pool served under open-loop (Poisson arrivals) or
                     closed-loop load, reporting tokens/s and p50/p99 latency.
+                    ``--kv paged`` swaps the dense slot rows for the paged
+                    block-table subsystem (demand allocation, CoW prefix
+                    sharing, recompute preemption); ``--chunked`` adds
+                    chunked prefill on it.
 
       python -m repro_torch.launch.serve --preset nss_shortcut --load open
       python -m repro_torch.launch.serve --preset ret_byp --load closed \\
           --slots 8 --requests 32
+      python -m repro_torch.launch.serve --kv paged --block-size 16 \\
+          --shared-prefix-len 16
+      python -m repro_torch.launch.serve --kv paged --chunked --budget 48 \\
+          --chunk-width 24
       python -m repro_torch.launch.serve --device cpu     # off the card
 
   sequential        one request batch at a time (``--load seq``, also
@@ -18,9 +26,9 @@ Two paths share one model/linkage setup:
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU, ``cuda``
 raises. The CLI serves the smoke model, as the JAX launcher does;
-``run_engine(..., smoke=False)`` serves the published widths. The paged
-backend, chunked prefill, speculation, quantized KV, swap, the prefix
-cache, meshes and sampling at temperature > 0 raise
+``run_engine(..., smoke=False)`` serves the published widths. Chunked
+prefill on the slotted backend, speculation, quantized KV, swap, the
+prefix cache, meshes and sampling at temperature > 0 raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -64,8 +72,13 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
                load: str = "open", rate: float = 25.0,
                concurrency: int = 0, decode_steps: int = 0,
                smoke: bool = True, seed: int = 0, device="cuda",
-               bucket_prompts: bool = False, temperature: float = 0.0,
-               eos_id: int = -1, trace: str = "", metrics: str = "",
+               kv: str = "slotted", block_size: int = 16,
+               num_blocks: int = 0, bucket_prompts: bool = False,
+               temperature: float = 0.0, eos_id: int = -1,
+               shared_prefix_len: int = 0, chunked: bool = False,
+               budget: int = 256, chunk_width: int = 0,
+               preempt: str = "recompute", victim: str = "youngest",
+               trace: str = "", metrics: str = "",
                log_interval: float = 0.0, profile_dir: str = ""):
     """Continuous-batching serving run; returns the engine report dict.
 
@@ -76,8 +89,8 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
     by default: the engine then runs with the zero-cost NULL_TELEMETRY.
     """
     from repro_torch.core import MetricWriter, SamplingConfig
-    from repro_torch.serve import (ServeEngine, Telemetry, serve_report,
-                                   synthetic_requests)
+    from repro_torch.serve import (PreemptionPolicy, ServeEngine, Telemetry,
+                                   serve_report, synthetic_requests)
 
     if requests < 1:
         raise ValueError("need --requests >= 1")
@@ -103,18 +116,26 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
             sink = MetricWriter(_append)
         tel = Telemetry(trace=bool(trace), log_interval=log_interval,
                         sink=sink,
-                        const_labels={"backend": "slotted",
-                                      "preset": preset_name})
+                        const_labels={"backend": kv, "preset": preset_name})
     eng = ServeEngine(cfg, params, opts, lk, n_slots=n_slots, max_len=max_len,
-                      sampling=sampling, bucket_prompts=bucket_prompts,
+                      kv=kv, block_size=block_size,
+                      num_blocks=num_blocks or None, sampling=sampling,
+                      bucket_prompts=bucket_prompts, chunked=chunked,
+                      chunk_budget=budget, chunk_width=chunk_width,
+                      preempt=PreemptionPolicy(mode=preempt, victim=victim),
                       telemetry=tel)
 
     # warmup: one request through prefill and one decode program, outside
     # the timed region (first launches load the kernel library and warm
-    # the allocator)
-    warm = synthetic_requests(1, prompt_len, eng.tokens_per_program + 1,
-                              cfg.vocab_size, seed=seed + 1)
+    # the allocator). With a shared prefix a second warmup request hits the
+    # radix index and runs the suffix-prefill path too.
+    warm = synthetic_requests(2 if shared_prefix_len else 1, prompt_len,
+                              eng.tokens_per_program + 1, cfg.vocab_size,
+                              seed=seed + 1,
+                              shared_prefix_len=shared_prefix_len)
     eng.run(warm, load="closed")
+    if hasattr(eng.kv, "drop_prefix_cache"):
+        eng.kv.drop_prefix_cache()  # shed warmup residue from the pool
     eng.reset_counters()          # also clears the warmup trace/metrics
     if tel is not None and profile_dir:
         tel.profile_dir = profile_dir
@@ -122,6 +143,7 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
     reqs = synthetic_requests(requests, prompt_len, gen_len, cfg.vocab_size,
                               seed=seed,
                               rate=rate if load == "open" else None,
+                              shared_prefix_len=shared_prefix_len,
                               eos_id=eos_id if eos_id >= 0 else None)
     completions, wall = eng.run(reqs, load=load,
                                 concurrency=concurrency or None)
@@ -231,6 +253,36 @@ def main(argv=None) -> int:
                         "--concurrency outstanding; seq: sequential baseline")
     p.add_argument("--slots", type=int, default=4,
                    help="engine cache slots (continuous-batching batch)")
+    p.add_argument("--kv", default="slotted", choices=["slotted", "paged"],
+                   help="KV backend: dense slot rows, or the paged "
+                        "block-table subsystem (demand allocation + CoW "
+                        "prefix sharing)")
+    p.add_argument("--block-size", type=int, default=16,
+                   help="paged: tokens per physical KV block")
+    p.add_argument("--num-blocks", type=int, default=0,
+                   help="paged: physical pool size (0 = slots*max_len/bs, "
+                        "the slotted-equivalent footprint)")
+    p.add_argument("--preempt", default="recompute",
+                   choices=["recompute", "swap"],
+                   help="paged pool-pressure policy: recompute replays the "
+                        "victim from scratch (swap is ROADMAP module item 8 "
+                        "and raises)")
+    p.add_argument("--victim", default="youngest",
+                   choices=["youngest", "lru"],
+                   help="preemption victim: youngest admission, or the "
+                        "least-recently-emitting slot")
+    p.add_argument("--chunked", action="store_true",
+                   help="paged: chunked prefill — one unified program per "
+                        "engine step (decode tokens first, budget-packed "
+                        "prompt chunks after)")
+    p.add_argument("--budget", type=int, default=256,
+                   help="chunked: target tokens per serve step")
+    p.add_argument("--chunk-width", type=int, default=0,
+                   help="chunked: per-row chunk width W "
+                        "(0 = min(budget, max_len))")
+    p.add_argument("--shared-prefix-len", type=int, default=0,
+                   help="prepend a common prefix of this many tokens to "
+                        "every prompt (exercises paged CoW prefix sharing)")
     p.add_argument("--bucket-prompts", action="store_true",
                    help="pad admitted prompts to power-of-two buckets")
     p.add_argument("--temperature", type=float, default=0.0,
@@ -264,14 +316,10 @@ def main(argv=None) -> int:
     p.add_argument("--report-json", default=None)
     # the JAX launcher's options that later slices bring (each raises
     # NotImplementedError unless left at its default)
-    p.add_argument("--kv", default="slotted", choices=["slotted", "paged"])
-    p.add_argument("--chunked", action="store_true")
     p.add_argument("--spec-decode", default="none", choices=["none", "ngram"])
     p.add_argument("--mesh", default="")
     p.add_argument("--kv-dtype", default="bf16",
                    choices=["bf16", "int8", "fp8"])
-    p.add_argument("--preempt", default="recompute",
-                   choices=["recompute", "swap"])
     p.add_argument("--prefix-cache", default="")
     args = p.parse_args(argv)
 
@@ -293,9 +341,15 @@ def main(argv=None) -> int:
                          rate=args.rate, concurrency=args.concurrency,
                          decode_steps=args.decode_steps,
                          seed=args.seed,
-                         device=args.device,
+                         device=args.device, kv=args.kv,
+                         block_size=args.block_size,
+                         num_blocks=args.num_blocks,
                          bucket_prompts=args.bucket_prompts,
                          temperature=args.temperature, eos_id=args.eos_id,
+                         shared_prefix_len=args.shared_prefix_len,
+                         chunked=args.chunked, budget=args.budget,
+                         chunk_width=args.chunk_width,
+                         preempt=args.preempt, victim=args.victim,
                          trace=args.trace, metrics=args.metrics,
                          log_interval=args.log_interval,
                          profile_dir=args.profile_dir)

@@ -1,11 +1,15 @@
 from repro_torch.models.layers import ModelOptions
 from repro_torch.models.transformer import (backbone, decode_step,
+                                            decode_step_paged,
                                             decode_step_slots, embed,
                                             init_cache, init_params,
                                             layer_specs, prefill,
+                                            prefill_suffix,
+                                            serve_chunk_step_paged,
                                             unembed_logits)
 
 __all__ = [
-    "ModelOptions", "backbone", "decode_step", "decode_step_slots", "embed",
-    "init_cache", "init_params", "layer_specs", "prefill", "unembed_logits",
+    "ModelOptions", "backbone", "decode_step", "decode_step_paged",
+    "decode_step_slots", "embed", "init_cache", "init_params", "layer_specs",
+    "prefill", "prefill_suffix", "serve_chunk_step_paged", "unembed_logits",
 ]

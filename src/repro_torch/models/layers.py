@@ -1,7 +1,7 @@
 """Layer library of the port, the ATTN/SWA + DENSE subset of
 ``src/repro/models/layers.py``: init + apply for RMSNorm, RoPE, GQA
-attention (full sequence, uniform decode, slotted decode) and the SwiGLU
-MLP.
+attention (full sequence, blockwise, uniform / slotted / paged decode, the
+paged serve chunk pass) and the SwiGLU MLP.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 ``(d_in, d_out)`` weight layout, so ``x @ w`` is the same product in both
@@ -23,6 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import SWA, ArchConfig, LayerSpec
+from repro_torch.kernels.ref import gather_pool
 
 Params = Dict[str, Any]
 
@@ -161,6 +162,59 @@ def _sdpa_ref(q, k, v, *, causal: bool, window: int, q_pos, k_pos):
     return out.reshape(B, Sq, HQ, dh)
 
 
+def _sdpa_chunked(q, k, v, *, causal: bool, window: int, q_pos, k_pos,
+                  q_chunk: int, kv_chunk: int):
+    """Blockwise flash-style attention in plain PyTorch (``layers.py:214``,
+    without the ``causal_skip`` schedule): an online softmax over kv chunks,
+    looped over q chunks, never materializing (Sq, Sk). q:(B,Sq,HQ,dh)
+    k/v:(B,Sk,HKV,dh); q_pos (Sq,), k_pos (Sk,) give the mask."""
+    B, Sq, HQ, dh = q.shape
+    Sk, HKV = k.shape[1], k.shape[2]
+    G = HQ // HKV
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    nq, nk = -(-Sq // qc), -(-Sk // kc)
+    pq, pk = nq * qc - Sq, nk * kc - Sk
+    pad = torch.nn.functional.pad
+    q = pad(q, (0, 0, 0, 0, 0, pq))
+    k, v = pad(k, (0, 0, 0, 0, 0, pk)), pad(v, (0, 0, 0, 0, 0, pk))
+    q_pos = pad(q_pos, (0, pq), value=-(10 ** 9))
+    k_pos = pad(k_pos, (0, pk), value=2 ** 30)
+    scale = 1.0 / math.sqrt(dh)
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = q[:, qi * qc:(qi + 1) * qc].reshape(B, qc, HKV, G, dh)
+        qp = q_pos[qi * qc:(qi + 1) * qc]
+        m = torch.full((B, HKV, G, qc), float("-inf"), device=q.device)
+        l = torch.zeros((B, HKV, G, qc), device=q.device)
+        o = torch.zeros((B, HKV, G, qc, dh), device=q.device)
+        for ki in range(nk):
+            kb, vb = k[:, ki * kc:(ki + 1) * kc], v[:, ki * kc:(ki + 1) * kc]
+            kp = k_pos[ki * kc:(ki + 1) * kc]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).float() * scale
+            msk = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                msk &= qp[:, None] >= kp[None, :]
+            if window > 0:
+                msk &= qp[:, None] - kp[None, :] < window
+            s = torch.where(msk, s, neg_inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully masked rows
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(msk, torch.exp(s - m_safe[..., None]), 0.0)
+            fin = torch.isfinite(m)
+            corr = torch.where(fin, torch.exp(torch.where(fin, m - m_safe,
+                                                          neg_inf)), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(qb.dtype), vb).float()
+            m = m_new
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(o.to(q.dtype))
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5)    # (B,nq,qc,HKV,G,dh)
+    return out.reshape(B, nq * qc, HQ, dh)[:, :Sq]
+
+
 def attention_kv(params: Params, x: torch.Tensor, cfg: ArchConfig,
                  spec: LayerSpec, opts: ModelOptions, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -189,16 +243,22 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return attention_kv(params, x, cfg, spec, opts, positions)[0]
 
 
-def _decode_ref(q, ck, cv, valid, dtype):
-    """Plain one-token attention: q (B,1,HQ,dh) against the cache under a
-    (B,T) validity mask — the inline path of layers.py:390-398/447-452."""
-    B, _, hq, dh = q.shape
+def _attend_ref(q, ck, cv, valid, dtype):
+    """Plain attention of S queries per row against the cache under a
+    per-row (B,S,T) validity mask — the inline paths of layers.py:390-398,
+    447-452, 529-534 and 667-672. q (B,S,HQ,dh), ck/cv (B,T,HKV,dh)."""
+    B, S, hq, dh = q.shape
     hkv = ck.shape[2]
-    qg = q.reshape(B, 1, hkv, hq // hkv, dh)
+    qg = q.reshape(B, S, hkv, hq // hkv, dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck).float() / math.sqrt(dh)
-    s = s.masked_fill(~valid[:, None, None, None, :], float("-inf"))
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
     p = torch.softmax(s, dim=-1).to(dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p, cv).reshape(B, 1, hq, dh)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, cv).reshape(B, S, hq, dh)
+
+
+def _decode_ref(q, ck, cv, valid, dtype):
+    """One-token ``_attend_ref``: q (B,1,HQ,dh) under a (B,T) mask."""
+    return _attend_ref(q, ck, cv, valid[:, None], dtype)
 
 
 def attention_decode(params: Params, x: torch.Tensor, cache: Params,
@@ -268,6 +328,100 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
         out = _decode_ref(q, ck, cv, valid, x.dtype)
     cache["pos"] += 1
     return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+
+
+def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
+                           tables: torch.Tensor, cfg: ArchConfig,
+                           opts: ModelOptions, max_len: int) -> torch.Tensor:
+    """One-token decode against a *paged* KV cache (``layers.py:463``).
+
+      cache:  {"kp": (P+1, bs, HKV, dh), "vp": (P+1, bs, HKV, dh),
+               "pos": (B,)}, updated in place
+      tables: (B, nb) int32 — per-slot logical-block -> pool-row map
+
+    Row P of the pool is the trash block: empty and finished slots point at
+    it, so their garbage writes never touch a live sequence. The fresh K/V
+    of slot b lands at (tables[b, pos // bs], pos % bs); the engine has
+    allocated (and copy-on-write forked) that block before the program.
+    Several dead slots may write the trash row at one offset; which write
+    wins is unspecified, and harmless because the trash row is never read
+    as live. The plain path gathers each slot's logical view, sliced to
+    ``max_len``, and runs exactly the slotted decode's masked softmax; the
+    kernel path reads the pool in place through the table.
+    """
+    B = x.shape[0]
+    q, k, v = _qkv(params, x, cfg)  # S == 1
+    pos = cache["pos"]                                   # (B,)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+    kp, vp = cache["kp"], cache["vp"]
+    bs, nb = kp.shape[1], tables.shape[1]
+    logical = torch.clamp(pos // bs, 0, nb - 1).long()
+    blk = torch.gather(tables, 1, logical[:, None])[:, 0].long()
+    off = (pos % bs).long()
+    kp[blk, off] = k[:, 0].to(kp.dtype)
+    vp[blk, off] = v[:, 0].to(vp.dtype)
+
+    if opts.attn_impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        out = kops.paged_decode_attention(q, kp, vp, tables, pos)
+    else:
+        valid = (torch.arange(max_len, device=x.device)[None]
+                 <= pos[:, None])
+        out = _decode_ref(q, gather_pool(kp, tables)[:, :max_len],
+                          gather_pool(vp, tables)[:, :max_len], valid,
+                          x.dtype)
+    cache["pos"] += 1
+    return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+
+
+def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
+                                cache: Params, tables: torch.Tensor,
+                                cfg: ArchConfig, opts: ModelOptions,
+                                start: torch.Tensor, clen: torch.Tensor,
+                                max_len: int) -> torch.Tensor:
+    """Variable-length *chunk* attention against the paged pools — the
+    unified serve step's prefill half (``layers.py:606``).
+
+      x:     (B, W, D) chunk hidden states, right-padded per row
+      start: (B,) first position each row's chunk occupies
+      clen:  (B,) real tokens in the row's chunk (0 = no chunk)
+
+    Real chunk K/V lands at (tables[b, p // bs], p % bs); padding rows
+    write the trash row (the engine allocated and forked every block of the
+    real span, so those destinations belong to the row alone). Then all W
+    queries attend with the per-query causal mask ``t <= start + w``:
+    garbage past a row's resident end sits above every real query's
+    position. ``pos`` becomes ``start + clen``: positions are the host's in
+    chunked serving.
+    """
+    B, W, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)                       # (B, W, H, dh)
+    q_pos = start[:, None] + torch.arange(W, dtype=start.dtype,
+                                          device=x.device)[None]
+    q = rope(q, q_pos, cfg.rope_theta)
+    k = rope(k, q_pos, cfg.rope_theta)
+    kp, vp = cache["kp"], cache["vp"]
+    bs, nb, trash = kp.shape[1], tables.shape[1], kp.shape[0] - 1
+    real = torch.arange(W, device=x.device)[None] < clen[:, None]  # (B, W)
+    logical = torch.clamp(q_pos // bs, 0, nb - 1).long()
+    blk = torch.where(real, torch.gather(tables, 1, logical),
+                      trash).long()
+    off = (q_pos % bs).long()
+    kp[blk, off] = k.to(kp.dtype)
+    vp[blk, off] = v.to(vp.dtype)
+
+    if opts.attn_impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        out = kops.paged_prefill_attention(q, kp, vp, tables, start)
+    else:
+        valid = (torch.arange(max_len, device=x.device)[None, None, :]
+                 <= q_pos[:, :, None])                    # (B, W, max_len)
+        out = _attend_ref(q, gather_pool(kp, tables)[:, :max_len],
+                          gather_pool(vp, tables)[:, :max_len], valid,
+                          x.dtype)
+    cache["pos"].copy_(start + clen)
+    return out.reshape(B, W, -1) @ params["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

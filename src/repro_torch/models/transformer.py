@@ -1,6 +1,7 @@
-"""Model assembly of the port: init, embed/unembed, backbone, prefill and
-one-token decode for the ATTN/SWA + DENSE architectures
-(``src/repro/models/transformer.py``).
+"""Model assembly of the port: init, embed/unembed, backbone, prefill,
+one-token decode (uniform, slotted and paged), the paged serve chunk pass
+and the shared-prefix suffix prefill, for the ATTN/SWA + DENSE
+architectures (``src/repro/models/transformer.py``).
 
 JAX stacks each block-pattern position's parameters and scans over blocks;
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in
@@ -20,6 +21,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions, Params
 
 Cache = List[Dict[str, torch.Tensor]]
+
+#: q and kv tiles of the suffix prefill's blockwise attention under the
+#: shortcut (the JAX ``ModelOptions`` defaults)
+SUFFIX_Q_CHUNK, SUFFIX_KV_CHUNK = 512, 1024
 
 
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
@@ -141,10 +146,16 @@ def clone_cache(cache: Cache) -> Cache:
 
 def apply_layer_decode(p: Params, x: torch.Tensor, cache_l: Params,
                        cfg: ArchConfig, spec: LayerSpec, opts: ModelOptions,
-                       slots: bool = False) -> torch.Tensor:
+                       slots: bool = False, paged_tables=None,
+                       paged_max_len: int = 0) -> torch.Tensor:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
-    attn_fn = L.attention_decode_slots if slots else L.attention_decode
-    x = x + attn_fn(p["mixer"], h, cache_l, cfg, spec, opts)
+    if paged_tables is not None:
+        mix = L.attention_decode_paged(p["mixer"], h, cache_l, paged_tables,
+                                       cfg, opts, paged_max_len)
+    else:
+        attn_fn = L.attention_decode_slots if slots else L.attention_decode
+        mix = attn_fn(p["mixer"], h, cache_l, cfg, spec, opts)
+    x = x + mix
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
     return x + L.mlp(p["mlp"], h)
 
@@ -175,6 +186,94 @@ def decode_step_slots(params: Params, cache: Cache, tokens: torch.Tensor,
     """Slot-layout decode: each batch row at its own position (serving)."""
     return decode_step(params, cache, tokens, cfg, opts, slots=True,
                        inplace=inplace)
+
+
+def _check_pageable(cfg: ArchConfig, what: str) -> None:
+    """Paged KV (and shared-prefix prefill) covers full-window attention
+    only (``transformer.py:343``): a sliding-window layer's circular buffer
+    has no block chain."""
+    for spec in cfg.block_pattern:
+        if spec.mixer != ATTN:
+            raise ValueError(
+                f"{what} supports plain-attention architectures only (got "
+                f"mixer={spec.mixer!r}); run this arch with the slotted KV "
+                "backend")
+
+
+def decode_step_paged(params: Params, cache: Cache, tokens: torch.Tensor,
+                      tables: torch.Tensor, cfg: ArchConfig,
+                      opts: ModelOptions, max_len: int, inplace: bool = True
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """Paged-KV decode (``transformer.py:355``): tokens (B,), tables (B, nb)
+    block map shared by every layer (one virtual address space per slot,
+    one pool per layer). Per layer the cache is {"kp","vp": (P+1, bs, HKV,
+    dh), "pos": (B,)} — the port keeps one dict per layer where JAX stacks
+    the layers. ``inplace=False`` returns an updated copy."""
+    _check_pageable(cfg, "decode_step_paged")
+    if not inplace:
+        cache = clone_cache(cache)
+    h = embed(params, tokens[:, None], cfg, opts)
+    for p, spec, cl in zip(params["layers"], layer_specs(cfg), cache):
+        h = apply_layer_decode(p, h, cl, cfg, spec, opts, paged_tables=tables,
+                               paged_max_len=max_len)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
+    return unembed_logits(params, h, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Serve chunk step: the unified serve program's prefill half
+# ---------------------------------------------------------------------------
+
+def _serve_chunk_block(params: Params, cache: Cache, h: torch.Tensor,
+                       cfg: ArchConfig, layer_fn) -> torch.Tensor:
+    """The layer loop of the serve chunk passes (``transformer.py:397``)."""
+    for p, spec, cl in zip(params["layers"], layer_specs(cfg), cache):
+        h = layer_fn(spec, p, h, cl)
+    return h
+
+
+def _chunk_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig,
+               opts: ModelOptions) -> torch.Tensor:
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
+    return x + L.mlp(p["mlp"], h)
+
+
+def _chunk_logits(params: Params, h: torch.Tensor, clen: torch.Tensor,
+                  cfg: ArchConfig, opts: ModelOptions) -> torch.Tensor:
+    """Logits at each row's last real chunk position (clamped for rows with
+    no chunk — the caller's emit mask discards them)."""
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
+    last = torch.clamp(clen.long() - 1, 0, h.shape[1] - 1)
+    h_last = torch.gather(h, 1, last[:, None, None].expand(-1, 1,
+                                                           h.shape[2]))
+    return unembed_logits(params, h_last, cfg)[:, 0]
+
+
+def serve_chunk_step_paged(params: Params, cache: Cache,
+                           tokens: torch.Tensor, tables: torch.Tensor,
+                           start: torch.Tensor, clen: torch.Tensor,
+                           cfg: ArchConfig, opts: ModelOptions, max_len: int,
+                           inplace: bool = True
+                           ) -> Tuple[torch.Tensor, Cache]:
+    """Chunked-prefill pass over the paged pools (``transformer.py:472``):
+    every row absorbs its own variable-length prompt chunk in one program.
+    tokens: (B, W) right-padded chunk ids; start/clen: (B,) write position
+    and true length. Returns (logits at ``start + clen - 1`` per row,
+    cache). No reset mask: paged validity is positional, and released slots
+    point at the trash block."""
+    _check_pageable(cfg, "serve_chunk_step_paged")
+    if not inplace:
+        cache = clone_cache(cache)
+    h = embed(params, tokens, cfg, opts)
+
+    def layer_fn(spec, p, x, cl):
+        hh = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
+        mix = L.attention_serve_chunk_paged(p["mixer"], hh, cl, tables, cfg,
+                                            opts, start, clen, max_len)
+        return _chunk_mlp(p, x + mix, cfg, opts)
+
+    h = _serve_chunk_block(params, cache, h, cfg, layer_fn)
+    return _chunk_logits(params, h, clen, cfg, opts), cache
 
 
 # ---------------------------------------------------------------------------
@@ -235,3 +334,65 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
         sp = g["slot_pos"]
         sp.masked_fill_((sp < 0) | (sp >= true_len), -1)
     return logits, cache
+
+
+def prefill_suffix(params: Params, tokens: torch.Tensor, prefix_kv: Cache,
+                   prefix_len: int, cfg: ArchConfig, opts: ModelOptions,
+                   true_len: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Cache]:
+    """Prefill only the *suffix* of a prompt whose first ``prefix_len``
+    positions' K/V are already resident (``transformer.py:622``): the paged
+    engine found the prefix in its radix index, so a shared system prompt
+    is prefilled once and each request runs only its tail.
+
+    tokens:    (B, S) suffix ids at positions ``prefix_len + i``
+               (right-padded to a bucket when ``true_len`` is given).
+    prefix_kv: one {"k","v"}: (B, Tpre, HKV, dh) per layer, gathered from
+               the pool; entries at ``>= prefix_len`` are garbage.
+
+    Returns (logits at suffix position ``(true_len or S) - 1``, one
+    {"k","v"}: (B, S, HKV, dh) per layer for the caller to scatter). The
+    suffix K/V is written into the prefix buffer at ``prefix_len`` (the
+    caller guarantees ``prefix_len + S <= Tpre``), so valid entries sit at
+    index == position as in a full prefill and the causal mask alone
+    separates real keys from garbage.
+    """
+    _check_pageable(cfg, "prefill_suffix")
+    B, S = tokens.shape
+    Tpre = prefix_kv[0]["k"].shape[1]
+    dev = params["embed"].device
+    h = embed(params, tokens, cfg, opts)
+    q_pos = prefix_len + torch.arange(S, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(Tpre, dtype=torch.int32, device=dev)
+    suffix_kv = []
+    for p, spec, pkv in zip(params["layers"], layer_specs(cfg), prefix_kv):
+        h, kv = _prefill_suffix_layer(p, h, pkv, cfg, spec, opts, q_pos,
+                                      k_pos)
+        suffix_kv.append(kv)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
+    last = S if true_len is None else true_len
+    return unembed_logits(params, h[:, last - 1:last], cfg)[:, 0], suffix_kv
+
+
+def _prefill_suffix_layer(p, x, pkv, cfg, spec, opts, q_pos, k_pos):
+    """One attention layer of the suffix prefill. Returns (x, {k, v})."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
+    B, S, _ = x.shape
+    q, k, v = L._qkv(p["mixer"], h, cfg)
+    q = L.rope(q, q_pos, cfg.rope_theta)
+    k = L.rope(k, q_pos, cfg.rope_theta)
+    p0 = int(q_pos[0])
+    k_full = pkv["k"].to(k.dtype).clone()
+    v_full = pkv["v"].to(v.dtype).clone()
+    k_full[:, p0:p0 + S] = k
+    v_full[:, p0:p0 + S] = v
+    kwargs = dict(causal=True, window=0, q_pos=q_pos, k_pos=k_pos)
+    if opts.attn_impl == "ref":
+        out = L._sdpa_ref(q, k_full, v_full, **kwargs)
+    else:
+        # rectangular q/kv: the blockwise form takes it; the flash kernel
+        # is square, so the shortcut lowers through here too (as in JAX)
+        out = L._sdpa_chunked(q, k_full, v_full, q_chunk=SUFFIX_Q_CHUNK,
+                              kv_chunk=SUFFIX_KV_CHUNK, **kwargs)
+    x = x + out.reshape(B, S, -1) @ p["mixer"]["wo"].to(x.dtype)
+    return _chunk_mlp(p, x, cfg, opts), {"k": k, "v": v}

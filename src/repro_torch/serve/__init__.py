@@ -5,14 +5,19 @@ at any point of the linkage spectrum, with ordinary co-processes
 from repro_torch.serve.cache import (KVBackend, SlottedKV, init_slot_cache,
                                      slotify, write_slot)
 from repro_torch.serve.engine import ServeEngine, check_slice, serve_report
-from repro_torch.serve.scheduler import (MIN_BUCKET, Completion, Request,
+from repro_torch.serve.paging import (BlockPool, BlockTable, PagedKV,
+                                      PrefixIndex, init_paged_cache)
+from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
+                                         PreemptionPolicy, Request,
                                          SlotScheduler, SlotState, bucket_len,
-                                         synthetic_requests)
+                                         pack_chunks, synthetic_requests)
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
 __all__ = [
-    "Completion", "KVBackend", "MIN_BUCKET", "NULL_TELEMETRY", "Request",
-    "ServeEngine", "SlotScheduler", "SlotState", "SlottedKV", "Telemetry",
-    "bucket_len", "check_slice", "init_slot_cache", "serve_report",
-    "slotify", "synthetic_requests", "write_slot",
+    "BlockPool", "BlockTable", "Completion", "KVBackend", "MIN_BUCKET",
+    "NULL_TELEMETRY", "PagedKV", "PreemptionPolicy", "PrefixIndex",
+    "Request", "ServeEngine", "SlotScheduler", "SlotState", "SlottedKV",
+    "Telemetry", "bucket_len", "check_slice", "init_paged_cache",
+    "init_slot_cache", "pack_chunks", "serve_report", "slotify",
+    "synthetic_requests", "write_slot",
 ]

@@ -77,9 +77,10 @@ def write_slot(dst: Cache, src: Cache, slot: int) -> None:
 class KVBackend(Protocol):
     """What ``ServeEngine`` needs from a KV-memory subsystem.
 
-    ``SlottedKV`` (dense: one ``max_len`` row per slot) is the port's one
-    implementation so far; the paged subsystem of the JAX package
-    (``repro.serve.paging.PagedKV``) is ROADMAP module item 5.
+    ``SlottedKV`` (dense: one ``max_len`` row per slot) and
+    ``repro_torch.serve.paging.PagedKV`` (demand-allocated blocks) implement
+    it; the chunked-prefill methods are the paged backend's only (slotted
+    chunked prefill is the rest of ROADMAP module item 6).
     """
     kind: str
     #: telemetry hook bundle (``repro_torch.serve.telemetry.Telemetry``);
@@ -95,6 +96,27 @@ class KVBackend(Protocol):
 
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
         """Run one decode program over all slots; returns tokens (B, K)."""
+        ...
+
+    def reserve(self, slot: int, k: int) -> bool:
+        """Make room for the slot's next ``k`` decode writes. False = out
+        of memory: the engine preempts a slot and retries."""
+        ...
+
+    def admit_chunked(self, slot: int, prompt: np.ndarray) -> int:
+        """Begin a chunked admission (no program runs); returns the prompt
+        tokens already resident (a shared prefix)."""
+        ...
+
+    def append_chunk(self, slot: int, start: int, tokens: np.ndarray) -> bool:
+        """Make room for the chunk [start, start+len). False = out of
+        memory: the engine preempts a slot and replans."""
+        ...
+
+    def serve_step(self, chunk_tokens, clen, start, reset, emit0, dec_mask,
+                   dec_tok):
+        """Run one unified serve program; returns (first tokens (B,),
+        decode tokens (B, K))."""
         ...
 
     def fits(self, prompt_len: int, max_new: int) -> bool:
@@ -144,6 +166,9 @@ class SlottedKV:
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
         self.cache, toks = self._dec(self.params, self.cache, next_tokens)
         return toks
+
+    def reserve(self, slot: int, k: int) -> bool:
+        return True                     # the slot's row is always there
 
     def fits(self, prompt_len: int, max_new: int) -> bool:
         return prompt_len + max_new <= self.max_len

@@ -1,5 +1,6 @@
 """Continuous-batching serving engine over the UKL linkage spectrum — the
-two-phase slotted path of ``src/repro/serve/engine.py``.
+two-phase (slotted or paged) and the paged chunked paths of
+``src/repro/serve/engine.py``.
 
 One persistent KV store lives on the device; between decode programs the
 engine evicts finished sequences and prefills newly admitted prompts into
@@ -14,18 +15,32 @@ program is built by ``repro_torch.core`` at the level the preset names:
              only when a request *finishes* (completion is length-based, so
              the host detects it without reading token values).
   shortcut   the hand-written Hopper kernels (flash attention at admission,
-             slot decode, fused RMSNorm).
+             slot, paged decode and paged prefill attention, fused RMSNorm).
+
+Device memory is owned by a ``KVBackend`` (``kv=``):
+
+  slotted    one dense ``max_len`` row per slot (``SlottedKV``).
+  paged      demand-allocated fixed-size blocks, per-slot block tables,
+             copy-on-write prefix sharing and recompute preemption under
+             pool pressure (``repro_torch.serve.paging.PagedKV``). Admission
+             is gated on free *blocks*.
+
+Two step disciplines: two-phase (admission runs a blocking prefill, then
+the occupied slots decode together) and, on the paged backend, chunked
+(``chunked=True``): every step is one program with a token budget, decode
+tokens first and prompt chunks after, so admission never stalls decode.
 
 The engine is deterministic for a fixed request list: admission is FIFO,
 slots are assigned lowest-index-first, eviction happens only at program
 boundaries, and decoding is greedy — so each request's tokens are the ones
-it would get alone through prefill + decode (tests/test_torch_serve.py).
+it would get alone through prefill + decode, whichever backend and step
+discipline serve it (tests/test_torch_serve.py, test_torch_paging.py).
 
 Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
-item: the paged KV backend (item 5), chunked prefill (item 6), speculative
-decoding (item 7), swap preemption and the prefix cache (item 8),
-quantized KV (item 9), device meshes (item 13) and sampling at
-temperature > 0 (item 3).
+item: slotted chunked prefill (the rest of item 6), speculative decoding
+(item 7), swap preemption and the prefix cache (item 8), quantized KV
+(item 9), device meshes (item 13) and sampling at temperature > 0
+(item 3).
 """
 from __future__ import annotations
 
@@ -41,9 +56,13 @@ from repro_torch.core.coprocess import AdmissionWorker
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.core.step import SamplingConfig, program_label
 from repro_torch.serve.cache import KVBackend, SlottedKV
-from repro_torch.serve.scheduler import (MIN_BUCKET, Completion, Request,
-                                         SlotScheduler, bucket_len)
+from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
+                                         PreemptionPolicy, Request,
+                                         SlotScheduler, bucket_len,
+                                         pack_chunks)
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
+
+KV_BACKENDS = ("slotted", "paged")
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -56,10 +75,10 @@ def check_slice(*, kv: str = "slotted", chunked: bool = False,
                 preempt: str = "recompute", prefix_cache=None) -> None:
     """Raise ``NotImplementedError`` for a serving option this port does not
     have yet, naming the ROADMAP item that brings it."""
-    if kv != "slotted":
-        raise _not_in_slice(f"kv={kv!r} (the paged KV backend)", "5")
-    if chunked:
-        raise _not_in_slice("chunked prefill", "6")
+    if kv not in KV_BACKENDS:
+        raise ValueError(f"unknown kv backend {kv!r}; known: {KV_BACKENDS}")
+    if chunked and kv == "slotted":
+        raise _not_in_slice("chunked prefill on the slotted backend", "6")
     if spec_decode != "none":
         raise _not_in_slice(f"spec_decode={spec_decode!r}", "7")
     if preempt != "recompute":
@@ -78,19 +97,31 @@ def _host(t) -> np.ndarray:
 
 
 class ServeEngine:
-    """Request-level continuous batching over a fixed slot pool, two-phase:
-    admission runs a blocking full-prompt prefill, then occupied slots
-    decode together."""
+    """Request-level continuous batching over a fixed slot pool.
+
+    two-phase (default)  admission runs a blocking full-prompt prefill,
+                         then occupied slots decode together.
+    chunked              (``chunked=True``, paged only) no prefill phase:
+                         every step is ONE program with a token budget,
+                         filled with decode tokens from occupied slots first
+                         and prompt *chunks* of admitting requests after;
+                         pure-decode steps dispatch the plain decode
+                         program. Token streams are identical to the
+                         two-phase engine's.
+    """
 
     #: smallest admission bucket (owned by the scheduler)
     MIN_BUCKET = MIN_BUCKET
 
     def __init__(self, cfg: ArchConfig, params, opts, linkage: LinkageConfig,
                  n_slots: int, max_len: int, *, kv: str = "slotted",
+                 block_size: int = 16, num_blocks: Optional[int] = None,
                  sampling: Optional[SamplingConfig] = None,
-                 bucket_prompts: bool = False,
+                 bucket_prompts: bool = False, chunked: bool = False,
+                 chunk_budget: int = 256, chunk_width: int = 0,
+                 preempt="recompute",
                  telemetry: Optional[Telemetry] = None):
-        check_slice(kv=kv)
+        check_slice(kv=kv, chunked=chunked)
         linkage.validate()
         if n_slots < 1:
             raise ValueError("serving engine needs n_slots >= 1")
@@ -103,21 +134,44 @@ class ServeEngine:
         self.sampling = (sampling or SamplingConfig()).validate()
         self.tokens_per_program = (linkage.decode_steps
                                    if linkage.level == L3_NSS else 1)
+        self.chunked = chunked
+        if chunked:
+            if chunk_budget < 1:
+                raise ValueError("chunked serving needs chunk_budget >= 1")
+            self.chunk_budget = chunk_budget
+            # W: the per-row chunk width — every step pads to this one shape
+            self.chunk_width = chunk_width or min(chunk_budget, max_len)
+            if not 1 <= self.chunk_width <= max_len:
+                raise ValueError(f"chunk_width must be in [1, max_len] "
+                                 f"(got {self.chunk_width})")
+        self.preempt = PreemptionPolicy.parse(preempt)
         bucket_fn = self._bucket if bucket_prompts else None
-        self.kv: KVBackend = SlottedKV(cfg, params, opts, linkage, n_slots,
-                                       max_len, self.sampling, bucket_fn)
+        if kv == "paged":
+            from repro_torch.serve.paging import PagedKV
+            self.kv: KVBackend = PagedKV(
+                cfg, params, opts, linkage, n_slots, max_len, self.sampling,
+                bucket_fn, block_size=block_size, num_blocks=num_blocks,
+                chunked=chunked)
+        else:
+            self.kv = SlottedKV(cfg, params, opts, linkage, n_slots, max_len,
+                                self.sampling, bucket_fn)
         # NULL_TELEMETRY is the zero-cost disabled bundle (every hook a
         # no-op, now() never reads a clock)
         self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self.kv.tel = self.tel
         self._labels = {k: program_label(cfg, linkage, k)
-                        for k in ("decode", "prefill_admit")}
+                        for k in ("decode", "serve_chunk", "prefill_admit")}
         self._next = torch.zeros((n_slots,), dtype=torch.int32,
                                  device=params["embed"].device)
         self.sched = SlotScheduler(n_slots)
+        # next-step chunk grants packed under the device step, keyed on the
+        # exact pack_chunks inputs; _plan_chunks uses them only on an exact
+        # key match (pack_chunks is pure, so a hit equals recomputing)
+        self._pack_memo: Optional[Tuple[tuple, List[int]]] = None
         self.programs_run = 0
         self.tokens_wasted = 0       # decoded past a request's budget/EOS
-        self.prefill_tokens = 0      # prompt tokens admitted
+        self.preemptions = 0         # paged: recompute-preempted admissions
+        self.prefill_tokens = 0      # prompt tokens admitted (incl. shared)
         self.decode_tokens = 0       # decode tokens produced
 
     def _bucket(self, n: int) -> int:
@@ -126,15 +180,23 @@ class ServeEngine:
 
     # -- admission ----------------------------------------------------------
 
-    def _admit(self, now_fn: Callable[[], float]) -> List[Completion]:
-        tel = self.tel
-        adm = now_fn()
-        slot, req = self.sched.admit_next(adm)
-        if not self.kv.fits(int(req.prompt.shape[0]), req.max_new_tokens):
+    def _check_fits(self, slot: int, req: Request) -> None:
+        if req.prompt.shape[0] + req.max_new_tokens > self.max_len:
             self.sched.release(slot)
             raise ValueError(
                 f"request {req.rid}: prompt+budget exceeds max_len "
                 f"{self.max_len}")
+        if not self.kv.fits(int(req.prompt.shape[0]), req.max_new_tokens):
+            self.sched.release(slot)
+            raise ValueError(
+                f"request {req.rid}: prompt+budget can never fit the "
+                f"{self.kv.kind} KV store (pool too small)")
+
+    def _admit(self, now_fn: Callable[[], float]) -> List[Completion]:
+        tel = self.tel
+        adm = now_fn()
+        slot, req = self.sched.admit_next(adm)
+        self._check_fits(slot, req)
         tel.admit(req.rid, slot, int(req.prompt.shape[0]), adm)
         t0 = tel.now()
         first = self.kv.admit(slot, np.asarray(req.prompt, np.int32))
@@ -155,6 +217,8 @@ class ServeEngine:
                 st.eos_seen = True
         st.first_token_s = st.prefill_done_s = now_fn()
         st.note_emit(st.first_token_s)
+        st.prefill_pos = int(req.prompt.shape[0])   # two-phase: all at once
+        st.fresh = False
         st.produced = 1
         tel.state(req.rid, "decoding", st.first_token_s)
         tel.step("prefill_admit", self.programs_run, t0, 0.0, t1 - t0,
@@ -167,6 +231,38 @@ class ServeEngine:
 
     # -- decode -------------------------------------------------------------
 
+    def _reserve_all(self) -> None:
+        """Demand-allocate the blocks this program will write, preempting
+        the youngest slot (recompute on re-admission) while the pool is dry.
+        Oldest-first order keeps the head of the line progressing."""
+        K = self.tokens_per_program
+        while True:
+            order = sorted(self.sched.active,
+                           key=lambda s: self.sched.active[s].admit_seq)
+            if all(self.kv.reserve(slot, K) for slot in order):
+                return
+            self._preempt_one()
+
+    def _preempt_one(self) -> None:
+        if len(self.sched.active) == 1:
+            raise RuntimeError(
+                "paged KV pool cannot hold a single active request; "
+                "fits() should have rejected it")
+        self._preempt(self.sched.choose_victim(self.preempt.victim))
+
+    def _preempt(self, slot: int) -> None:
+        """Recompute preemption: release everything the slot holds and
+        requeue its request at the head of the line (re-admission replays
+        its stream exactly)."""
+        st = self.sched.release(slot)
+        self.kv.release(slot)
+        self.sched.requeue_front(st.req)
+        self.preemptions += 1
+        rid, now = st.req.rid, self.tel.now()
+        self.tel.preempt(rid, slot, "recompute", now)
+        self.tel.state(rid, "preempted", now)
+        self.tel.state(rid, "queued", now)
+
     def step(self, now_fn: Callable[[], float]) -> List[Completion]:
         """Run one decode program; harvest tokens; evict finished slots.
         Split at the blocking host sync (``_step_begin``/``_step_end``), as
@@ -175,32 +271,38 @@ class ServeEngine:
         return self._step_end(self._step_begin(now_fn), now_fn)
 
     def _step_begin(self, now_fn: Callable[[], float]):
-        """Dispatch half: launch the decode program, everything up to
-        (excluding) the blocking host copy."""
+        """Dispatch half: reserve, launch the decode program, everything up
+        to (excluding) the blocking host copy."""
         tel = self.tel
         t0 = tel.now()
+        self._reserve_all()
+        t1 = tel.now()
         toks = self.kv.decode(self._next)
         # a copy: later admissions write _next in place, and toks' rows
         # stay referenced by the slots' RET chunks
         self._next = toks[:, -1].clone()
         self.programs_run += 1
         t2 = tel.now()
-        return toks, t0, t2
+        return ("decode", (toks, t0, t1, t2))
 
     def _step_end(self, pending, now_fn: Callable[[], float]
                   ) -> List[Completion]:
         """Commit half: block on the device result (iret), harvest tokens,
-        evict finished slots, stamp the step trace event."""
+        evict finished slots, stamp the step trace event. Dispatches on the
+        ticket tag of ``_step_begin`` / ``_chunk_begin``."""
+        tag, data = pending
+        if tag == "chunk":
+            return self._chunk_end(data, now_fn)
         tel = self.tel
-        toks, t0, t2 = pending
+        toks, t0, t1, t2 = data
         toks_host = None
         if not self.linkage.ret_async:
             toks_host = _host(toks)                 # "iret": sync every program
         t3 = tel.now()
         slots = sorted(self.sched.active)
-        tel.decode_microsteps(len(slots), self.tokens_per_program, t0)
+        tel.decode_microsteps(len(slots), self.tokens_per_program, t1)
         finished = self._harvest_decode(slots, toks, toks_host, now_fn)
-        tel.step("decode", self.programs_run, t0, 0.0, t2 - t0, t3 - t2,
+        tel.step("decode", self.programs_run, t0, t1 - t0, t2 - t1, t3 - t2,
                  tel.now() - t3, queued=self.sched.n_queued,
                  active=len(self.sched.active),
                  program=self._labels["decode"])
@@ -209,7 +311,8 @@ class ServeEngine:
     def _harvest_decode(self, slots, toks, toks_host,
                         now_fn: Callable[[], float]) -> List[Completion]:
         """Collect this program's decode tokens for ``slots``: append (up to
-        the request budget), check EOS at the sync point, finalize finished."""
+        the request budget), check EOS at the sync point, finalize finished.
+        Shared by the two-phase step and the chunked step's decode half."""
         now = now_fn()
         finished = []
         for slot in slots:
@@ -235,10 +338,162 @@ class ServeEngine:
                 finished.append(self._finalize(slot, now_fn))
         return finished
 
+    # -- chunked prefill: the unified serve step ---------------------------
+
+    def _admit_chunked(self, now_fn: Callable[[], float]) -> None:
+        """Chunked admission is host bookkeeping only — no program runs, so
+        admission never stalls occupied decode slots. The prompt enters the
+        device chunk by chunk through later serve steps."""
+        slot, req = self.sched.admit_next(now_fn())
+        self._check_fits(slot, req)
+        self.tel.admit(req.rid, slot, int(req.prompt.shape[0]),
+                       self.sched.active[slot].admit_s)
+        shared = self.kv.admit_chunked(slot, np.asarray(req.prompt, np.int32))
+        # count the radix-shared prefix so prefill_tokens means the same in
+        # both step modes (prompt tokens admitted, shared or computed)
+        self.prefill_tokens += shared
+        self.tel.prefill_tokens(shared)
+        self.sched.active[slot].prefill_pos = shared   # already resident
+
+    def _plan_chunks(self):
+        """Pack this step's token budget and reserve the memory it needs,
+        preempting the youngest slot (recompute on re-admission) while the
+        pool is dry. Returns (decode slots, prefill slots, grants) in FIFO
+        admission order."""
+        K = self.tokens_per_program
+        while True:
+            order = sorted(self.sched.active,
+                           key=lambda s: self.sched.active[s].admit_seq)
+            dec = [s for s in order if not self.sched.active[s].prefilling]
+            pre = [s for s in order if self.sched.active[s].prefilling]
+            remaining = [self.sched.active[s].prompt_len
+                         - self.sched.active[s].prefill_pos for s in pre]
+            key = (self.chunk_budget, self.chunk_width, K * len(dec),
+                   tuple(remaining))
+            if self._pack_memo is not None and self._pack_memo[0] == key:
+                grants = self._pack_memo[1]
+            else:
+                grants = pack_chunks(self.chunk_budget, self.chunk_width,
+                                     K * len(dec), remaining)
+            self._pack_memo = None       # single-shot; replans recompute
+            ok = all(self.kv.reserve(s, K) for s in dec)
+            if ok:
+                for s, g in zip(pre, grants):
+                    st = self.sched.active[s]
+                    if g and not self.kv.append_chunk(
+                            s, st.prefill_pos,
+                            st.req.prompt[st.prefill_pos:st.prefill_pos + g]):
+                        ok = False
+                        break
+            if ok:
+                return dec, pre, grants
+            self._preempt_one()
+
+    def _step_chunked(self, now_fn: Callable[[], float]) -> List[Completion]:
+        """One unified serve program: decode tokens for occupied slots plus
+        budget-packed prompt chunks; harvest both halves; evict finished.
+        Pure-decode steps (no slot mid-prefill) dispatch the two-phase
+        decode program instead. The unified program runs whenever ANY slot
+        is mid-prefill, even on a step that grants it no chunk tokens: the
+        plain decode program would decode it as a decode row and write its
+        garbage through its real block table."""
+        return self._step_end(self._chunk_begin(now_fn), now_fn)
+
+    def _chunk_begin(self, now_fn: Callable[[], float]):
+        """Dispatch half of the chunked serve step (see ``_step_begin``)."""
+        if not any(self.sched.active[s].prefilling for s in self.sched.active):
+            return self._step_begin(now_fn)
+        tel = self.tel
+        w0 = tel.now()
+        B, W, K = self.n_slots, self.chunk_width, self.tokens_per_program
+        dec, pre, grants = self._plan_chunks()
+        tel.pack(self.chunk_budget, K * len(dec), int(sum(grants)), w0)
+        toks = np.zeros((B, W), np.int32)
+        clen = np.zeros(B, np.int32)
+        start = np.zeros(B, np.int32)
+        reset = np.zeros(B, bool)
+        emit0 = np.zeros(B, bool)
+        dec_mask = np.zeros(B, bool)
+        for s in dec:
+            st = self.sched.active[s]
+            start[s] = st.prompt_len + st.produced - 1   # next write position
+            dec_mask[s] = True
+        for s, g in zip(pre, grants):
+            st = self.sched.active[s]
+            start[s] = st.prefill_pos
+            clen[s] = g
+            toks[s, :g] = st.req.prompt[st.prefill_pos:st.prefill_pos + g]
+            if g:
+                reset[s] = st.fresh
+                st.fresh = False
+                emit0[s] = st.prefill_pos + g == st.prompt_len
+                tel.prefill_chunk(s, st.req.rid, st.prefill_pos, g, w0)
+
+        w1 = tel.now()
+        t0, seq = self.kv.serve_step(toks, clen, start, reset, emit0,
+                                     dec_mask, self._next)
+        self._next = torch.where(
+            torch.from_numpy(emit0).to(seq.device), t0, seq[:, -1])
+        self.programs_run += 1
+        self.prefill_tokens += int(clen.sum())
+        w2 = tel.now()
+        tel.decode_microsteps(len(dec), K, w1)
+        # pack the next step's grants now, under the dispatched device
+        # step, keyed on the exact inputs _plan_chunks will see; a miss
+        # (admission or preemption changed the picture) just recomputes
+        nxt_rem = [r for s, g in zip(pre, grants)
+                   for r in [self.sched.active[s].prompt_len
+                             - (self.sched.active[s].prefill_pos + g)]
+                   if r > 0]
+        if nxt_rem:
+            t = tel.now()
+            ndec = len(dec) + sum(1 for s, g in zip(pre, grants) if emit0[s])
+            key = (self.chunk_budget, W, K * ndec, tuple(nxt_rem))
+            self._pack_memo = (key, pack_chunks(self.chunk_budget, W,
+                                                K * ndec, nxt_rem))
+            tel.overlap("pack", tel.now() - t)
+        return ("chunk", (pre, grants, dec, emit0, t0, seq, w0, w1, w2))
+
+    def _chunk_end(self, data, now_fn: Callable[[], float]
+                   ) -> List[Completion]:
+        """Commit half of the chunked serve step: sync, harvest prefill
+        first-tokens and decode tokens, evict finished slots."""
+        pre, grants, dec, emit0, t0, seq, w0, w1, w2 = data
+        tel = self.tel
+        t0_host = seq_host = None
+        if not self.linkage.ret_async:
+            t0_host, seq_host = _host(t0), _host(seq)
+        w3 = tel.now()
+        now = now_fn()
+        finished = []
+        for s, g in zip(pre, grants):
+            st = self.sched.active[s]
+            st.prefill_pos += g
+            if not emit0[s]:
+                continue
+            # the chunk that completed the prompt yields generated token #1
+            first = t0[s:s + 1] if t0_host is None else t0_host[s:s + 1]
+            st.chunks.append(first)
+            if (t0_host is not None and st.req.eos_id is not None
+                    and int(first[0]) == st.req.eos_id):
+                st.eos_seen = True
+            st.first_token_s = st.prefill_done_s = now
+            st.note_emit(now)
+            st.produced = 1
+            tel.state(st.req.rid, "decoding", now)
+            if st.remaining == 0 or st.eos_seen:
+                finished.append(self._finalize(s, now_fn))
+        finished += self._harvest_decode(dec, seq, seq_host, now_fn)
+        tel.step("serve_chunk", self.programs_run, w0, w1 - w0, w2 - w1,
+                 w3 - w2, tel.now() - w3, queued=self.sched.n_queued,
+                 active=len(self.sched.active),
+                 program=self._labels["serve_chunk"])
+        return finished
+
     def _finalize(self, slot: int,
                   now_fn: Callable[[], float]) -> Completion:
         st = self.sched.release(slot)
-        self.kv.release(slot)
+        self.kv.release(slot)                       # paged: free blocks now
         # RET mode synchronizes here, once per completed request
         tokens = np.concatenate([_host(c) for c in st.chunks])
         if st.req.eos_id is not None:
@@ -260,16 +515,20 @@ class ServeEngine:
     # -- driving loop -------------------------------------------------------
 
     def _admit_and_step(self, now_fn) -> List[Completion]:
-        """One engine tick: FIFO admissions into free slots, then one decode
+        """One engine tick: FIFO admissions into free slots, then one
         program over the occupied ones."""
         finished = []
         self.tel.profile_tick(self.programs_run)
         while self.sched.can_admit():
             if not self.kv.has_room(int(self.sched.peek().prompt.shape[0])):
                 break                # FIFO: wait for memory, don't skip ahead
-            finished += self._admit(now_fn)
+            if self.chunked:
+                self._admit_chunked(now_fn)   # bookkeeping only, no program
+            else:
+                finished += self._admit(now_fn)
         if self.sched.active:
-            finished += self.step(now_fn)
+            finished += (self._step_chunked(now_fn) if self.chunked
+                         else self.step(now_fn))
         return finished
 
     def run(self, requests: List[Request], *, load: str = "closed",
@@ -328,11 +587,11 @@ class ServeEngine:
         """Engine + backend utilization counters (merged into serve_report)."""
         u = {
             "kv_backend": self.kv.kind,
-            "step_mode": "two_phase",
+            "step_mode": "chunked" if self.chunked else "two_phase",
             "programs_run": self.programs_run,
             "tokens_wasted": self.tokens_wasted,
-            "preemptions": 0,
-            "preempt_policy": "recompute/youngest",
+            "preemptions": self.preemptions,
+            "preempt_policy": f"{self.preempt.mode}/{self.preempt.victim}",
             "swap_preemptions": 0,
             "swap_resumes": 0,
             "prefill_tokens": self.prefill_tokens,
@@ -343,14 +602,23 @@ class ServeEngine:
                 self.prefill_tokens / self.programs_run, 2)
             u["decode_tokens_per_step"] = round(
                 self.decode_tokens / self.programs_run, 2)
+        if self.chunked:
+            u["chunk_budget"] = self.chunk_budget
+            u["chunk_width"] = self.chunk_width
         u.update(self.kv.utilization())
         u["kv_bytes_per_shard"] = _kv_bytes(self.kv.cache)
+        if "kv_blocks_hwm" in u:
+            # resident high-watermark in bytes (+1: the trash row)
+            u["kv_hwm_bytes_per_shard"] = int(
+                u["kv_bytes_per_shard"] * u["kv_blocks_hwm"]
+                / (u["kv_blocks_total"] + 1))
         return u
 
     def reset_counters(self) -> None:
         """Zero the utilization counters (after a warmup run)."""
         self.programs_run = 0
         self.tokens_wasted = 0
+        self.preemptions = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.kv.reset_counters()

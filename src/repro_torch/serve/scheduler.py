@@ -1,11 +1,11 @@
 """Request/slot scheduling for the continuous-batching engine.
 
-The part of ``src/repro/serve/scheduler.py`` that the slotted two-phase
-engine uses, copied (numpy only): the port imports nothing of the JAX
-package, and a fixed seed must give the same requests and the same
-schedule in both. Preemption, the chunk packer, the budget tuner and the
-n-gram drafter come with the slices that port paging, chunked prefill and
-speculation (ROADMAP module items 5-8).
+The part of ``src/repro/serve/scheduler.py`` that the two-phase and the
+paged chunked engine use, copied (numpy only): the port imports nothing of
+the JAX package, and a fixed seed must give the same requests and the same
+schedule in both. Recompute preemption and the chunk packer are here; swap
+preemption, the budget tuner and the n-gram drafter come with the slices
+that port speculation and the host tier (ROADMAP module items 7-8).
 
 Deterministic by construction: admission is FIFO over arrival order (ties
 broken by request id) and free slots are handed out lowest-index-first, so a
@@ -30,6 +30,47 @@ import numpy as np
 MIN_BUCKET = 8
 
 
+@dataclasses.dataclass(frozen=True)
+class PreemptionPolicy:
+    """What the engine does when the paged pool runs dry mid-flight.
+
+    ``mode``:
+      recompute  release the victim's blocks and requeue its request at the
+                 head of the line — re-admission replays the stream from
+                 scratch (prefill included).
+      swap       park the victim's blocks in a host tier and resume without
+                 re-prefill: not ported yet (ROADMAP module item 8).
+
+    ``victim`` names the ``SlotScheduler.choose_victim`` policy — victim
+    selection is the scheduler's call, not the memory subsystem's.
+    """
+    mode: str = "recompute"
+    victim: str = "youngest"
+
+    MODES = ("recompute", "swap")
+    VICTIMS = ("youngest", "lru")
+
+    def validate(self) -> "PreemptionPolicy":
+        if self.mode not in self.MODES:
+            raise ValueError(f"unknown preemption mode {self.mode!r}; "
+                             f"known: {self.MODES}")
+        if self.victim not in self.VICTIMS:
+            raise ValueError(f"unknown victim policy {self.victim!r}; "
+                             f"known: {self.VICTIMS}")
+        if self.mode == "swap":
+            raise NotImplementedError(
+                "swap preemption (the host tier) is not ported yet (ROADMAP "
+                "module item 8)")
+        return self
+
+    @classmethod
+    def parse(cls, spec) -> "PreemptionPolicy":
+        """A PreemptionPolicy, or a bare mode string ("recompute"|"swap")."""
+        if isinstance(spec, cls):
+            return spec.validate()
+        return cls(mode=str(spec)).validate()
+
+
 def bucket_len(n: int, max_len: int) -> int:
     """Power-of-two prompt bucket, floored at MIN_BUCKET and clipped to
     ``max_len``: bounds the jit prefill cache under mixed-length load. The
@@ -41,6 +82,40 @@ def bucket_len(n: int, max_len: int) -> int:
         raise ValueError("cannot bucket an empty prompt (true_len == 0 "
                          "would read logits from pure padding)")
     return min(max(1 << max(n - 1, 0).bit_length(), MIN_BUCKET), max_len)
+
+
+def pack_chunks(budget: int, width: int, decode_tokens: int,
+                remaining: Sequence[int]) -> List[int]:
+    """Token-budget packer for the unified (chunked-prefill) serve step.
+
+    One engine step runs one program with a fixed token budget. Decode
+    tokens are mandatory — occupied decode slots always advance, so decode
+    never stalls behind admission — and whatever budget is left is handed
+    to mid-prefill slots as prompt chunks, FIFO by admission order.
+
+    budget:        target tokens per step (the --budget knob).
+    width:         compiled per-row chunk width W (a grant never exceeds it).
+    decode_tokens: tokens the decode scan will consume this step.
+    remaining:     per mid-prefill slot, prompt tokens still to prefill,
+                   in FIFO admission order.
+
+    Returns per-slot grants (same order): ``sum(grants) <= max(budget -
+    decode_tokens, 0)``, FIFO-greedy, ``0 <= grants[i] <= min(width,
+    remaining[i])``, and the head slot gets a token whenever budget is left.
+    """
+    if budget < 1:
+        raise ValueError("pack_chunks needs budget >= 1")
+    if width < 1:
+        raise ValueError("pack_chunks needs width >= 1")
+    left = max(budget - decode_tokens, 0)
+    grants = []
+    for rem in remaining:
+        if rem < 0:
+            raise ValueError("negative remaining prompt length")
+        g = min(width, rem, left)
+        grants.append(g)
+        left -= g
+    return grants
 
 
 @dataclasses.dataclass
@@ -64,10 +139,18 @@ class SlotState:
     """Host-side bookkeeping for one occupied cache slot."""
     req: Request
     admit_s: float
+    admit_seq: int = 0               # monotonic admission order (preemption
+                                     # evicts the youngest = max admit_seq)
     produced: int = 0                # generated tokens so far (incl. prefill's)
     eos_seen: bool = False           # EOS observed at a host sync point
     first_token_s: Optional[float] = None
     chunks: List[np.ndarray] = dataclasses.field(default_factory=list)
+    # chunked prefill (unified serve step): prompt tokens already resident —
+    # radix-shared prefix at admission, then += each granted chunk. A slot
+    # is in *decode phase* once prefill_pos reaches the prompt length.
+    prefill_pos: int = 0
+    fresh: bool = True               # no chunk written yet: the first chunk
+                                     # must reset the slot's stale cache marks
     prefill_done_s: Optional[float] = None   # last prompt chunk absorbed
     first_decode_s: Optional[float] = None   # first decode-phase tokens
     last_emit_s: Optional[float] = None      # last time this slot emitted
@@ -84,6 +167,14 @@ class SlotState:
     @property
     def remaining(self) -> int:
         return self.req.max_new_tokens - self.produced
+
+    @property
+    def prompt_len(self) -> int:
+        return int(np.asarray(self.req.prompt).shape[0])
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_pos < self.prompt_len
 
 
 @dataclasses.dataclass
@@ -137,6 +228,7 @@ class SlotScheduler:
         heapq.heapify(self._free)
         self._queue: Deque[Request] = deque()
         self.active: Dict[int, SlotState] = {}
+        self._admit_seq = 0
 
     @property
     def n_free(self) -> int:
@@ -158,6 +250,11 @@ class SlotScheduler:
                 "pure padding)")
         self._queue.append(req)
 
+    def requeue_front(self, req: Request) -> None:
+        """Put a preempted request back at the head of the queue (it keeps
+        its original arrival; re-admission replays its stream exactly)."""
+        self._queue.appendleft(req)
+
     def peek(self) -> Optional[Request]:
         """The request the next admit would take, without taking it."""
         return self._queue[0] if self._queue else None
@@ -169,13 +266,37 @@ class SlotScheduler:
         """Pop the oldest queued request into the lowest free slot."""
         req = self._queue.popleft()
         slot = heapq.heappop(self._free)
-        self.active[slot] = SlotState(req=req, admit_s=now)
+        self._admit_seq += 1
+        self.active[slot] = SlotState(req=req, admit_s=now,
+                                      admit_seq=self._admit_seq)
         return slot, req
 
     def release(self, slot: int) -> SlotState:
         st = self.active.pop(slot)
         heapq.heappush(self._free, slot)
         return st
+
+    def choose_victim(self, policy: str = "youngest") -> int:
+        """Pick the preemption victim among active slots.
+
+        youngest  max ``admit_seq`` — the last admission loses (the default:
+                  it has the least sunk work and the head of the line keeps
+                  progressing).
+        lru       the slot that least recently emitted a token (a slot that
+                  never emitted counts as its admission time); ties go to
+                  the youngest.
+        """
+        if policy == "youngest":
+            return max(self.active, key=lambda s: self.active[s].admit_seq)
+        if policy == "lru":
+            def staleness(s):
+                st = self.active[s]
+                last = (st.last_emit_s if st.last_emit_s is not None
+                        else st.admit_s)
+                return (last, -st.admit_seq)
+            return min(self.active, key=staleness)
+        raise ValueError(f"unknown victim policy {policy!r}; known: "
+                         f"{PreemptionPolicy.VICTIMS}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """Engine telemetry: structured step tracing, metrics, lifecycle spans.
 
-The part of ``src/repro/serve/telemetry.py`` that the slotted two-phase
-engine calls, copied near-verbatim (numpy and the standard library only);
-the device-trace capture uses ``torch.profiler`` where the JAX package used
-``jax.profiler``. The hooks of the paged tier, chunked prefill,
+The part of ``src/repro/serve/telemetry.py`` that the two-phase and the
+paged chunked engine call, copied near-verbatim (numpy and the standard
+library only); the device-trace capture uses ``torch.profiler`` where the
+JAX package used ``jax.profiler``. The hooks of the host tier,
 speculation and the fleet come with the slices that port those features
-(ROADMAP module items 5-8 and 10).
+(ROADMAP module items 7, 8 and 10).
 
 UKL's pitch is that linking the hot process into the kernel *keeps* Linux's
 battle-tested observability — perf, ftrace, /proc — where classic unikernels
@@ -57,31 +57,41 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 #: event type -> required arg keys (the trace schema; ``validate_events``)
 EVENT_SCHEMA: Dict[str, frozenset] = {
     # one engine step: phase durations in seconds; ``kind`` names the
-    # program family (decode | prefill_admit)
+    # program family (decode | serve_chunk | prefill_admit)
     "engine_step": frozenset({"step", "kind", "pack_s", "dispatch_s",
                               "device_s", "host_s"}),
     # child duration event of an engine_step (one per non-empty phase)
     "step_phase": frozenset({"phase"}),
+    # one granted prompt chunk entering the device this step
+    "prefill_chunk": frozenset({"slot", "rid", "start", "len"}),
     # the decode half of a step: how many slots advanced by k tokens
     "decode_microsteps": frozenset({"slots", "k"}),
+    # the chunk packer's decision for this step
+    "pack": frozenset({"budget", "decode_tokens", "granted"}),
     "admit": frozenset({"rid", "slot", "prompt_len"}),
     "complete": frozenset({"rid", "tokens", "ttft_s"}),
+    "preempt": frozenset({"rid", "slot", "mode"}),
+    # host-side work hidden under device execution (dispatch pipelining):
+    # ``kind`` is pack; ``hidden_s`` the overlapped time
+    "overlap": frozenset({"kind", "hidden_s"}),
     # per-request lifecycle span transition (rid/state at top level)
     "span": frozenset(),
 }
 
 #: request lifecycle states, in nominal order
-SPAN_STATES = ("queued", "prefilling", "decoding", "done")
+SPAN_STATES = ("queued", "prefilling", "decoding", "preempted", "done")
 
-#: the two-phase engine's legal lifecycle transitions (None = not yet
-#: seen). queued->prefilling is admission; prefilling->decoding is the
-#: prompt absorbed (the first generated token); a request whose budget is
-#: that one token goes straight to done.
+#: the engine's legal lifecycle transitions (None = not yet seen).
+#: queued->prefilling is admission; prefilling->decoding is the last prompt
+#: chunk absorbed (the first generated token); a request whose budget is
+#: that one token goes straight to done; recompute preemption requeues the
+#: request (preempted->queued), mid-prefill or mid-decode.
 SPAN_TRANSITIONS: Dict[Optional[str], frozenset] = {
     None: frozenset({"queued"}),
     "queued": frozenset({"prefilling"}),
-    "prefilling": frozenset({"decoding", "done"}),
-    "decoding": frozenset({"done"}),
+    "prefilling": frozenset({"decoding", "preempted", "done"}),
+    "decoding": frozenset({"preempted", "done"}),
+    "preempted": frozenset({"queued"}),
     "done": frozenset(),
 }
 
@@ -316,6 +326,8 @@ _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 #: default histogram buckets for latencies (seconds, exponential)
 LATENCY_BUCKETS = (.0001, .00025, .0005, .001, .0025, .005, .01, .025, .05,
                    .1, .25, .5, 1.0, 2.5, 5.0, 10.0, 30.0)
+#: buckets for 0..1 ratios (chunk budget utilization)
+RATIO_BUCKETS = (.1, .2, .3, .4, .5, .6, .7, .8, .9, 1.0)
 
 
 class _Metric:
@@ -588,6 +600,12 @@ class Telemetry:
                                      "requests admitted to a slot")
             self._completes = m.counter("engine_completions_total",
                                         "requests finished")
+            self._preempts = m.counter("engine_preemptions_total",
+                                       "pool-pressure preemptions",
+                                       labels=("mode",))
+            self._overlap_s = m.counter(
+                "engine_overlap_seconds_total",
+                "host work hidden under device execution", labels=("kind",))
             self._queue_g = m.gauge("queue_depth", "requests waiting")
             self._active_g = m.gauge("active_slots", "occupied slots")
             self._ttft_h = m.histogram("ttft_seconds",
@@ -598,6 +616,9 @@ class Telemetry:
                                       "gap between token emissions")
             self._step_h = m.histogram("step_seconds",
                                        "engine step duration")
+            self._util_h = m.histogram("chunk_utilization_ratio",
+                                       "packed tokens / budget",
+                                       buckets=RATIO_BUCKETS)
     # -- clock / lifecycle --------------------------------------------------
 
     def now(self) -> float:
@@ -674,11 +695,25 @@ class Telemetry:
             self._ttft_h.observe(c.ttft_s)
             self._lat_h.observe(c.latency_s)
 
+    def preempt(self, rid: int, slot: int, mode: str, ts: float) -> None:
+        if self.trace is not None:
+            self.trace.emit("preempt", ts, rid=rid, slot=slot, mode=mode)
+        if self.metrics is not None:
+            self._preempts.labels(mode=mode).inc()
+
     def emit_gap(self, gap_s: float) -> None:
         if self.metrics is not None:
             self._gap_h.observe(gap_s)
 
     # -- step internals -----------------------------------------------------
+
+    def prefill_chunk(self, slot: int, rid: int, start: int, n: int,
+                      ts: float) -> None:
+        if self.trace is not None:
+            self.trace.emit("prefill_chunk", ts, slot=slot, rid=rid,
+                            start=start, len=n)
+        if self.metrics is not None:
+            self._tokens.labels(phase="prefill").inc(n)
 
     def prefill_tokens(self, n: int) -> None:
         if self.metrics is not None:
@@ -689,6 +724,24 @@ class Telemetry:
             self.trace.emit("decode_microsteps", ts, slots=slots, k=k)
         if self.metrics is not None:
             self._tokens.labels(phase="decode").inc(slots * k)
+
+    def pack(self, budget: int, decode_tokens: int, granted: int,
+             ts: float) -> None:
+        if self.trace is not None:
+            self.trace.emit("pack", ts, budget=budget,
+                            decode_tokens=decode_tokens, granted=granted)
+        if self.metrics is not None and budget > 0:
+            self._util_h.observe(min((decode_tokens + granted) / budget,
+                                     1.0))
+
+    def overlap(self, kind: str, hidden_s: float) -> None:
+        """Host-side work run under device execution (pack) — this time
+        lands inside the step's device phase instead of its pack phase."""
+        if self.trace is not None:
+            self.trace.emit("overlap", self._clock(), kind=kind,
+                            hidden_s=hidden_s)
+        if self.metrics is not None:
+            self._overlap_s.labels(kind=kind).inc(hidden_s)
 
     # -- torch.profiler capture ---------------------------------------------
 
@@ -761,13 +814,25 @@ class _NullTelemetry(Telemetry):
     def complete(self, *a, **k) -> None:
         pass
 
+    def preempt(self, *a, **k) -> None:
+        pass
+
     def emit_gap(self, *a, **k) -> None:
+        pass
+
+    def prefill_chunk(self, *a, **k) -> None:
         pass
 
     def prefill_tokens(self, *a, **k) -> None:
         pass
 
     def decode_microsteps(self, *a, **k) -> None:
+        pass
+
+    def pack(self, *a, **k) -> None:
+        pass
+
+    def overlap(self, *a, **k) -> None:
         pass
 
     def profile_tick(self, *a, **k) -> None:

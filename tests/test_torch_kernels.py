@@ -22,6 +22,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build, ops as tops, ref as tref  # noqa: E402
 from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import paged_decode as tpd  # noqa: E402
+from repro_torch.kernels import paged_prefill as tpp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels import slot_decode as tsd  # noqa: E402
 
@@ -225,6 +227,8 @@ def _meta_calls():
     q4, k4 = torch.empty(1, 8, 4, 16, **m), torch.empty(1, 8, 2, 16, **m)
     q3 = torch.empty(1, 4, 16, **m)
     valid = torch.empty(1, 8, dtype=torch.bool, **m)
+    pool = torch.empty(3, 4, 2, 16, **m)
+    tables = torch.empty(1, 2, dtype=torch.int32, **m)
     return {
         "rmsnorm": lambda: trms.rmsnorm(torch.empty(2, 16, **m),
                                         torch.empty(16, **m)),
@@ -232,11 +236,17 @@ def _meta_calls():
         "slot_decode": lambda: tsd.slot_decode_attention(q3, k4, k4, valid),
         "decode_attention": lambda: tdec.decode_attention(q3, k4, k4,
                                                           valid[0]),
+        "paged_decode": lambda: tpd.paged_decode_attention(q3, pool, pool,
+                                                           tables, valid),
+        "paged_prefill": lambda: tpp.paged_prefill_attention(
+            q4[:, :2], pool, pool, tables,
+            torch.empty(1, dtype=torch.int32, **m)),
     }
 
 
 @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "slot_decode",
-                                  "decode_attention"])
+                                  "decode_attention", "paged_decode",
+                                  "paged_prefill"])
 def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
     """Tensors off the CPU (here: meta tensors) go to the kernel or raise;
     the plain version is never called for them."""
@@ -245,6 +255,8 @@ def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
     monkeypatch.setattr(trms, "rmsnorm_ref", boom)
     monkeypatch.setattr(tfa, "flash_attention_ref", boom)
     monkeypatch.setattr(tsd, "slot_decode_attention_ref", boom)
+    monkeypatch.setattr(tpd, "paged_decode_attention_ref", boom)
+    monkeypatch.setattr(tpp, "paged_prefill_attention_ref", boom)
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         _meta_calls()[name]()
 
@@ -273,7 +285,8 @@ def test_build_fingerprint_tracks_sources(tmp_path):
     assert _build._fingerprint([a], []) != h1
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {"rmsnorm.cu", "flash_attention.cu",
-                                      "decode_attention.cu"}
+                                      "decode_attention.cu",
+                                      "paged_attention.cu"}
 
 
 # ---------------------------------------------------------------------------

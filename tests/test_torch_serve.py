@@ -287,7 +287,7 @@ def test_launcher_writes_trace_and_metrics(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--kv", "paged"], "item 5"),
+    (["--kv", "paged", "--kv-dtype", "int8"], "item 9"),
     (["--chunked"], "item 6"),
     (["--spec-decode", "ngram"], "item 7"),
     (["--preempt", "swap"], "item 8"),
@@ -364,6 +364,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
         "assert len(names) >= 20, names\n"
+        "assert {'repro_torch.serve.paging', 'repro_torch.kernels.paged_decode',\n"
+        "        'repro_torch.kernels.paged_prefill'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

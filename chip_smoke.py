@@ -17,7 +17,12 @@ non-zero before the result line):
    chunks of 24 starting mid-block) and over a sweep (HKV=3, odd dh, a
    sliding window, non-power-of-two lengths, block sizes 8 and 16, chunks
    of 1, 7 and to a block boundary, paged prefill at W=1 against paged
-   decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2).
+   decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2). The
+   fused-dequant paged kernels (``paged_decode_quant``,
+   ``paged_prefill_quant``) run the same main, sweep and large shapes over
+   int8 and fp8 pools quantized per (block, KV head), for float32 and
+   bfloat16 queries, against their plain versions (decode after the
+   gather) at the same tolerances.
 3. timings — per kernel, with CUDA events over back-to-back calls: the
    kernel, its plain version, the one PyTorch library call computing the
    same function (``F.rms_norm``, ``F.scaled_dot_product_attention``; for
@@ -25,22 +30,36 @@ non-zero before the result line):
    apart; the port never calls them), and the bound: the larger of bytes
    moved over 3.35 TB/s and operations over the peak for the input type
    (67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s bf16), from the H100
-   SXM data sheet, counting the keys this run's data makes live. Also at
-   one larger shape per kernel, where the bound is not just launch cost.
+   SXM data sheet, counting the keys this run's data makes live (for the
+   quantized kernels at 1 byte per element plus the live blocks' scales;
+   their yardstick is SDPA over chains gathered and decoded beforehand,
+   the gather and decode timed apart). Also at one larger shape per
+   kernel, where the bound is not just launch cost. The plain
+   ``quant_insert`` (the quantized write; plain PyTorch in both packages,
+   no TPU kernel) is timed per call at path C's pool and at the large
+   decode's pool.
 4. path — the main paths through their entry points, full-width
    tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
    requests each: slotted ``--load open`` and ``--load seq``; paged path A
    (``--kv paged --shared-prefix-len 16``, open load) and paged path B
-   (``--kv paged --chunked --budget 48 --chunk-width 24``, open load).
-   Launch counts are zeroed just before each and read just after; every
-   kernel of a path must have launched, and every request must complete
-   with its budget.
+   (``--kv paged --chunked --budget 48 --chunk-width 24``, open load);
+   the quantized paths C (path A with ``--kv-dtype int8``) and D (path B
+   with ``--kv-dtype fp8``). Launch counts are zeroed just before each and
+   read just after; every kernel of a path must have launched (and no
+   unquantized paged kernel on C and D, nor a quantized one on A and B),
+   every request must complete with its budget, and C's and D's blocks
+   must be >= 1.9x smaller than A's.
 5. teacher-forced check — prefill, then 8 slotted decode steps (the
    engine's), 8 uniform decode steps (``--load seq``) and 8 paged decode
    steps over a pool filled through a permuted table, each from the same
-   prefill, and one paged chunk pass of 24 tokens at position 8; at full
-   width, kernels against plain versions on the card, fed the plain path's
-   tokens: max |Δlogit| <= 2e-3. The agreement of engine streams (slotted,
+   prefill, and one paged chunk pass of 24 tokens at position 8; then 8
+   paged decode steps over an int8 pool and the chunk pass over an fp8
+   pool, where the kernel path also replays the plain path's K/V writes
+   (an ulp of difference in K can move a code by a whole quantization
+   step); at full width, kernels against plain versions on the card, fed
+   the plain path's tokens: max |Δlogit| <= 2e-3. The quantized kernel
+   path writing its own K/V, and the quantized plain logits against the
+   fp32 control's (the formats' own error), are printed, not gated. The agreement of engine streams (slotted,
    paged, paged chunked) with sequential streams is printed and does not
    gate (greedy streams of a random-init model flip on near-ties).
 6. profile — where one engine run's time goes (``profile_phase``), slotted
@@ -57,6 +76,7 @@ per-kernel JSON record. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -170,7 +190,7 @@ def make_cases(gen, dtype):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import kv_quant, ops, ref
     from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import paged_prefill as kpp
     from repro_torch.kernels import rmsnorm as krms
@@ -333,6 +353,93 @@ def make_cases(gen, dtype):
             lambda: kpd.paged_decode_attention(q, kp, vp, tables, valid),
             None, 0, 0.0, None))
 
+    def quantized(kp, vp, kvd):
+        """The pools' int8 / fp8 codes and per-(block, KV head) scales, as
+        the engine's write path encodes them."""
+        store = kv_quant.storage_dtype(kvd, torch.float32)
+        out = []
+        for p in (kp, vp):
+            s = kv_quant.block_scales(p.float().abs().amax(dim=(1, 3)), store)
+            out += [kv_quant.quantize(p.float(), s[:, None, :, None], store), s]
+        return out
+
+    def decoded(kq, ks, vq, vs, tables):
+        """The quantized yardstick's input: each slot's logical view
+        gathered and decoded to q's dtype, (B, HKV, nb*bs, dh)."""
+        def g(p, sc):
+            return ref.gather_pool(p, tables, sc).to(dtype).transpose(
+                1, 2).contiguous()
+        return g(kq, ks), g(vq, vs)
+
+    def live_blocks(lens, bs):
+        return sum(-(-n // bs) for n in lens)
+
+    def paged_decode_quant_case(label, kvd, B, nb, bs, HQ, HKV, dh, pos,
+                                spare=1):
+        kp, vp, tables = pool_case(B, nb, bs, HKV, dh, spare,
+                                   [p + 1 for p in pos])
+        kq, ks, vq, vs = quantized(kp, vp, kvd)
+        q = rn(B, HQ, dh)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        valid = torch.arange(nb * bs, device="cuda")[None] <= pos_t[:, None]
+        lens = [p + 1 for p in pos]
+        keys = sum(lens)
+        kg, vg = decoded(kq, ks, vq, vs, tables)
+        cases.append((
+            "paged_decode_quant", f"{label} {kvd}",
+            lambda: kpd.paged_decode_attention(q, kq, vq, tables, valid, ks,
+                                               vs),
+            lambda: ref.paged_decode_attention_ref(q, kq, vq, tables, valid,
+                                                   ks=ks, vs=vs),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=valid[:, None, None],
+                enable_gqa=True),
+            nbytes(q, tables, valid, q) + 2 * keys * HKV * dh
+            + 2 * live_blocks(lens, bs) * HKV * 4, 4.0 * dh * HQ * keys,
+            lambda: decoded(kq, ks, vq, vs, tables)))
+
+    def paged_prefill_quant_case(label, kvd, B, W, nb, bs, HQ, HKV, dh,
+                                 starts, spare=1):
+        T = nb * bs
+        lens = [min(s + W, T) for s in starts]
+        kp, vp, tables = pool_case(B, nb, bs, HKV, dh, spare, lens)
+        kq, ks, vq, vs = quantized(kp, vp, kvd)
+        q = rn(B, W, HQ, dh)
+        start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        qpos = start[:, None] + torch.arange(W, device="cuda")[None]
+        live = torch.arange(T, device="cuda")[None, None] <= qpos[:, :, None]
+        pairs = int(live.sum().item()) * HQ
+        kg, vg = decoded(kq, ks, vq, vs, tables)
+        cases.append((
+            "paged_prefill_quant", f"{label} {kvd}",
+            lambda: kpp.paged_prefill_attention(q, kq, vq, tables, start, ks,
+                                                vs),
+            lambda: ref.paged_prefill_attention_ref(q, kq, vq, tables, start,
+                                                    ks=ks, vs=vs),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kg, vg, attn_mask=live[:, None],
+                enable_gqa=True),
+            nbytes(q, tables, start, q) + 2 * sum(lens) * HKV * dh
+            + 2 * live_blocks(lens, bs) * HKV * 4, 4.0 * dh * pairs,
+            lambda: decoded(kq, ks, vq, vs, tables)))
+
+    def prefill_is_decode_quant_case(label, kvd, B, nb, bs, HQ, HKV, dh, pos):
+        """The quantized kernels: paged_prefill at W = 1 against
+        paged_decode at pos = start on the same codes and scales."""
+        kp, vp, tables = pool_case(B, nb, bs, HKV, dh, 1,
+                                   [p + 1 for p in pos])
+        kq, ks, vq, vs = quantized(kp, vp, kvd)
+        q = rn(B, HQ, dh)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        valid = torch.arange(nb * bs, device="cuda")[None] <= pos_t[:, None]
+        cases.append((
+            "paged_prefill_quant", f"{label} {kvd}",
+            lambda: kpp.paged_prefill_attention(q[:, None], kq, vq, tables,
+                                                pos_t, ks, vs)[:, 0],
+            lambda: kpd.paged_decode_attention(q, kq, vq, tables, valid, ks,
+                                               vs),
+            None, 0, 0.0, None))
+
     # main-path shapes first (the first case of each kernel is its record)
     rms_case("main: decode rows (4,1,2048)", (SLOTS, 1, 2048))
     rms_case("main: prefill rows (1,32,2048)", (1, PROMPT, 2048))
@@ -348,6 +455,14 @@ def make_cases(gen, dtype):
     paged_prefill_case("main: paged prefill q (4,24,32,64) starts "
                        "(0,8,24,40)", SLOTS, CHUNK_W, NB, BS, 32, 4, 64,
                        (0, 8, 24, 40))
+    # paths C and D: the same shapes over int8 and fp8 pools
+    for kvd in ("int8", "fp8"):
+        paged_decode_quant_case("main: paged decode q (4,32,64) pools "
+                                "(22,16,4,64)", kvd, SLOTS, NB, BS, 32, 4,
+                                64, (32, 48, 71, 0))
+        paged_prefill_quant_case("main: paged prefill q (4,24,32,64) starts "
+                                 "(0,8,24,40)", kvd, SLOTS, CHUNK_W, NB, BS,
+                                 32, 4, 64, (0, 8, 24, 40))
     # sweep
     rms_case("sweep (3,40,96)", (3, 40, 96))
     rms_case("sweep odd D (5,7,33)", (5, 7, 33))
@@ -376,6 +491,24 @@ def make_cases(gen, dtype):
                            "dh=33 bs=8", 3, 4, 8, 6, 3, 33, (0, 13, 31))
     prefill_is_decode_case("sweep paged prefill W=1 == paged decode dh=129 "
                            "bs=16", 2, 3, 16, 8, 2, 129, (47, 5))
+    for kvd in ("int8", "fp8"):
+        paged_decode_quant_case("sweep paged decode HKV=3 dh=33 bs=8", kvd,
+                                3, 4, 8, 6, 3, 33, (0, 13, 31))
+        paged_decode_quant_case("sweep paged decode MQA dh=129 bs=16", kvd,
+                                2, 3, 16, 4, 1, 129, (47, 16), spare=3)
+        paged_prefill_quant_case("sweep paged prefill HKV=3 dh=33 bs=8 W=7",
+                                 kvd, 3, 7, 4, 8, 6, 3, 33, (0, 5, 25))
+        paged_prefill_quant_case("sweep paged prefill dh=129 bs=16 W=1", kvd,
+                                 2, 1, 3, 16, 4, 1, 129, (0, 40))
+        paged_prefill_quant_case("sweep paged prefill W at a block boundary "
+                                 "bs=8 W=8", kvd, 2, 8, 4, 8, 6, 3, 64,
+                                 (8, 16))
+        prefill_is_decode_quant_case("sweep paged prefill W=1 == paged "
+                                     "decode HKV=3 dh=33 bs=8", kvd, 3, 4, 8,
+                                     6, 3, 33, (0, 13, 31))
+        prefill_is_decode_quant_case("sweep paged prefill W=1 == paged "
+                                     "decode dh=129 bs=16", kvd, 2, 3, 16, 8,
+                                     2, 129, (47, 5))
     # larger shapes, where the bound is more than launch cost
     rms_case("large (4096,2048)", (4096, 2048))
     flash_case("large prefill q (1,2048,32,64)", 1, 2048, 32, 4, 64)
@@ -385,7 +518,48 @@ def make_cases(gen, dtype):
                       "bs=16", 32, 128, 16, 32, 4, 64, (2047,) * 32)
     paged_prefill_case("large paged prefill q (4,256,32,64) T=2048 bs=16", 4,
                        256, 128, 16, 32, 4, 64, (0, 512, 1024, 1792))
+    for kvd in ("int8", "fp8"):
+        paged_decode_quant_case("large paged decode q (32,32,64) 32 slots x "
+                                "2048 bs=16", kvd, 32, 128, 16, 32, 4, 64,
+                                (2047,) * 32)
+        paged_prefill_quant_case("large paged prefill q (4,256,32,64) T=2048 "
+                                 "bs=16", kvd, 4, 256, 128, 16, 32, 4, 64,
+                                 (0, 512, 1024, 1792))
     return cases
+
+
+def quant_insert_phase():
+    """The plain ``quant_insert`` (the quantized write; plain PyTorch in
+    both packages, no TPU kernel) per call: one decode step's K write of 4
+    slots into path C's pool (22,16,4,64), and of 32 slots into the large
+    decode's pool (4098,16,4,64). Bound: the touched blocks read and
+    written once, with their scales, plus the values and indices."""
+    import torch
+    from repro_torch.kernels import kv_quant
+    out = []
+    for label, P1, B in (("path C pool (22,16,4,64), 4 writes", NB * SLOTS + 2,
+                          SLOTS),
+                         ("large pool (4098,16,4,64), 32 writes",
+                          32 * 128 + 2, 32)):
+        g = torch.Generator(device="cuda").manual_seed(P1)
+        for kvd in ("int8", "fp8"):
+            store = kv_quant.storage_dtype(kvd, torch.float32)
+            f = torch.randn(P1, BS, 4, 64, generator=g, device="cuda")
+            sc = kv_quant.block_scales(f.abs().amax(dim=(1, 3)), store)
+            pool = kv_quant.quantize(f, sc[:, None, :, None], store)
+            blk = torch.randperm(P1 - 1, device="cuda")[:B]
+            off = torch.randint(0, BS, (B,), device="cuda")
+            vals = torch.randn(B, 4, 64, generator=g, device="cuda")
+            call = lambda: kv_quant.quant_insert(pool, sc, blk, off, vals)
+            touched = B * (2 * BS * 4 * 64 + 2 * 4 * 4)
+            b_ms, b_by = bound(touched + nbytes(vals, blk, off), 0.0,
+                               torch.float32)
+            row = {"label": label, "kv_dtype": kvd, "ms": cuda_ms(call),
+                   "device_ms": device_ms(call), "bound_ms": b_ms,
+                   "bound_by": b_by}
+            log("quant_insert", json.dumps(row))
+            out.append(row)
+    return out
 
 
 def kernel_phase(gen):
@@ -455,12 +629,23 @@ def path_phase():
     # take the suffix prefill over a radix-shared block); B, chunked, each
     # 32-token prompt entering in chunks of at most 24 (the second one
     # starting mid-block)
+    # C and D: A and B over quantized pools (int8, fp8), through the
+    # fused-dequant kernels only
     paged = {}
-    for name, kw, want in (
+    unquantized = ("paged_decode", "paged_prefill")
+    quantized = ("paged_decode_quant", "paged_prefill_quant")
+    for name, kw, want, never in (
             ("A", dict(shared_prefix_len=SHARED),
-             ("paged_decode", "flash_attention", "rmsnorm")),
+             ("paged_decode", "flash_attention", "rmsnorm"), quantized),
             ("B", dict(chunked=True, budget=BUDGET, chunk_width=CHUNK_W),
-             ("paged_decode", "paged_prefill", "rmsnorm"))):
+             ("paged_decode", "paged_prefill", "rmsnorm"), quantized),
+            ("C", dict(shared_prefix_len=SHARED, kv_dtype="int8"),
+             ("paged_decode_quant", "flash_attention", "rmsnorm"),
+             unquantized),
+            ("D", dict(chunked=True, budget=BUDGET, chunk_width=CHUNK_W,
+                       kv_dtype="fp8"),
+             ("paged_prefill_quant", "paged_decode_quant", "rmsnorm"),
+             unquantized)):
         ops.reset_launch_counts()
         rep_p = run_engine(ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
                            gen_len=GEN, requests=REQUESTS, load="open",
@@ -481,8 +666,43 @@ def path_phase():
             if counts.get(k, 0) < 1:
                 raise AssertionError(f"paged path {name}: kernel {k} was "
                                      "never launched")
+        for k in never:
+            if counts.get(k, 0):
+                raise AssertionError(f"paged path {name} ({rep_p['kv_dtype']}"
+                                     f" pools) launched {k}")
+        ratio = (paged["A"][0]["kv_bytes_per_block"]
+                 / rep_p["kv_bytes_per_block"]) if paged else 1.0
+        log(f"paged path {name}: kv_dtype {rep_p['kv_dtype']}, "
+            f"kv_bytes_per_block {rep_p['kv_bytes_per_block']}, "
+            f"kv_bytes_per_shard {rep_p['kv_bytes_per_shard']}, "
+            f"path A's bytes per block / this path's {ratio:.4f}")
+        if name in ("C", "D") and ratio < 1.9:
+            raise AssertionError(f"paged path {name}: blocks only "
+                                 f"{ratio:.3f}x smaller than path A's")
         paged[name] = (rep_p, counts)
     return rep, seq, open_counts, paged
+
+
+@contextlib.contextmanager
+def paged_writes(log: list, replay: bool):
+    """The paged attention layers' K/V writes, in call order: recorded into
+    ``log``, or (``replay``) replaced by its entries, so a second run
+    writes exactly what the first one wrote."""
+    from repro_torch.models import layers
+    orig, recorded = layers._paged_write, iter(log)
+
+    def write(cache, blk, off, k, v):
+        if replay:
+            k, v = next(recorded)
+        else:
+            log.append((k, v))
+        return orig(cache, blk, off, k, v)
+
+    layers._paged_write = write
+    try:
+        yield
+    finally:
+        layers._paged_write = orig
 
 
 def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
@@ -525,8 +745,9 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
     table = torch.randperm(P, generator=torch.Generator().manual_seed(1))[
         :NB].to(torch.int32)[None].cuda()
 
-    def paged_from(c, n):
-        pc = init_paged_cache(cfg, P, BS, 1, torch.float32, "cuda")
+    def paged_from(c, n, kv_dtype="bf16"):
+        pc = init_paged_cache(cfg, P, BS, 1, torch.float32, "cuda",
+                              kv_dtype=kv_dtype)
         p = torch.arange(n, device="cuda")
         scatter_kv(pc, [{"k": g["k"][:, :n], "v": g["v"][:, :n]} for g in c],
                    table[0, p // BS].long(), p % BS, 0, n)
@@ -535,12 +756,13 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
     # slotted decode (the engine's), uniform decode (``--load seq``, the
     # mask built from slot_pos/pos in ops.decode_attention) and paged
     # decode (paths A and B), each from a copy of the prefilled caches
+    paged_step = lambda p, c, t, cf, o: decode_step_paged(  # noqa: E731
+        p, c, t, table, cf, o, MAX_LEN)
+    control = []                      # the fp32 paged run's (token, logits)
     for what, step, layout in (
             ("slotted", decode_step_slots, lambda c: slotify(clone_cache(c))),
             ("uniform", decode_step, clone_cache),
-            ("paged", lambda p, c, t, cf, o: decode_step_paged(
-                p, c, t, table, cf, o, MAX_LEN),
-             lambda c: paged_from(c, PROMPT))):
+            ("paged", paged_step, lambda c: paged_from(c, PROMPT))):
         lp, lk = lp0, lk0
         cp, ck = layout(cp0), layout(ck0)
         worst = worst0
@@ -549,9 +771,39 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
             lp, cp = step(params, cp, nxt, cfg, plain)
             lk, ck = step(params, ck, nxt, cfg, kern)
             worst = max(worst, (lp - lk).abs().max().item())
+            if what == "paged":
+                control.append((nxt, lp))
         torch.cuda.synchronize()
         check(f"{what}, prefill + {steps} decode steps", worst,
               lp.abs().max().item())
+
+    # path C's decode over an int8 pool, fed the fp32 paged run's tokens.
+    # Quantization is discontinuous: an ulp of difference in K (the
+    # kernels' summation order upstream) can move a code by a whole step.
+    # So the gated comparison starts both paths from the plain prefill's
+    # pool and has the kernel path replay the plain path's K/V writes
+    # (``paged_writes``): the pools stay bit-identical and only the
+    # kernels' arithmetic differs. The kernel path writing its own K/V
+    # from its own prefill, and the plain path against the fp32 control
+    # (the format's error), are printed, not gated.
+    cp, ck = paged_from(cp0, PROMPT, "int8"), paged_from(cp0, PROMPT, "int8")
+    ck_own = paged_from(ck0, PROMPT, "int8")
+    worst, own, fmt = worst0, 0.0, 0.0
+    for nxt, lctl in control:
+        writes = []
+        with paged_writes(writes, replay=False):
+            lp, cp = paged_step(params, cp, nxt, cfg, plain)
+        with paged_writes(writes, replay=True):
+            lk, ck = paged_step(params, ck, nxt, cfg, kern)
+        lko, ck_own = paged_step(params, ck_own, nxt, cfg, kern)
+        worst = max(worst, (lp - lk).abs().max().item())
+        own = max(own, (lp - lko).abs().max().item())
+        fmt = max(fmt, (lp - lctl).abs().max().item())
+    torch.cuda.synchronize()
+    check(f"int8 paged, prefill + {steps} decode steps, K/V writes shared",
+          worst, lp.abs().max().item())
+    log(f"int8 paged decode, each path writing its own K/V: max |dlogit| "
+        f"{own:.4e}; plain vs the fp32 control: {fmt:.4e} (not gated)")
 
     # path B's chunk pass: positions 0..7 resident, then one 24-token chunk
     # at position 8 (starting mid-block); its logits at position 31 are the
@@ -567,6 +819,25 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
         f"{PROMPT - 1}: max |dlogit| {(lp - lp0).abs().max().item():.3e}")
     check("paged chunk pass, 24 tokens at position 8",
           (lp - lk).abs().max().item(), lp.abs().max().item())
+    # path D's chunk pass over an fp8 pool, gated as path C's decode (K/V
+    # writes shared); each path's own writes and the fp32 control printed
+    def fp8_chunk(c0, opts):
+        return serve_chunk_step_paged(params, paged_from(c0, 8, "fp8"),
+                                      toks[:, 8:], table, start, clen, cfg,
+                                      opts, MAX_LEN)[0]
+
+    writes = []
+    with paged_writes(writes, replay=False):
+        lq = fp8_chunk(cp0, plain)
+    with paged_writes(writes, replay=True):
+        lkq = fp8_chunk(cp0, kern)
+    lko = fp8_chunk(ck0, kern)
+    torch.cuda.synchronize()
+    check("fp8 paged chunk pass, 24 tokens at position 8, K/V writes "
+          "shared", (lq - lkq).abs().max().item(), lq.abs().max().item())
+    log(f"fp8 paged chunk pass, each path writing its own K/V: max |dlogit| "
+        f"{(lq - lko).abs().max().item():.4e}; plain vs the fp32 control: "
+        f"{(lq - lp).abs().max().item():.4e} (not gated)")
 
     # engine streams (kernels) vs sequential streams (plain): printed only
     lk_cfg = dataclasses.replace(preset(PRESET), decode_steps=8)
@@ -691,6 +962,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = kernel_phase(gen)
+    quant_insert_phase()
     _, _, counts, paged = path_phase()
     teacher_forced_phase()
     profile_phase()
@@ -698,11 +970,12 @@ def main() -> int:
     # launches: each kernel's count in the run of the path that carries it
     # (the slotted --load open run; paged path A for paged_decode, paged
     # path B for paged_prefill), and every path's count beside it
-    by_path = {"slotted open": counts, "paged A": paged["A"][1],
-               "paged B": paged["B"][1]}
+    by_path = {"slotted open": counts,
+               **{f"paged {n}": paged[n][1] for n in "ABCD"}}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
-            "paged_prefill": "paged B"}
+            "paged_prefill": "paged B", "paged_decode_quant": "paged C",
+            "paged_prefill_quant": "paged D"}
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:36"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -712,7 +985,13 @@ def main() -> int:
                "paged_decode": ("src/repro_torch/csrc/paged_attention.cu",
                                 "src/repro/kernels/paged_decode.py:135"),
                "paged_prefill": ("src/repro_torch/csrc/paged_attention.cu",
-                                 "src/repro/kernels/paged_prefill.py:185")}
+                                 "src/repro/kernels/paged_prefill.py:185"),
+               "paged_decode_quant": (
+                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_decode.py:37"),
+               "paged_prefill_quant": (
+                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_prefill.py:82")}
     out = []
     for name, (src, replaces) in sources.items():
         rows = [r for r in records[name] if r["dtype"] == "torch.float32"]
@@ -741,6 +1020,11 @@ def main() -> int:
             out[-1]["library_gather_ms"] = main_row["library_gather_ms"]
         if seq:       # slot_decode through the uniform wrapper (--load seq)
             out[-1]["seq"] = {k: v for k, v in seq[0].items()
+                              if k != "dtype"}
+        fp8 = [r for r in rows if r["label"].startswith("main")
+               and r["label"].endswith("fp8")]
+        if fp8:       # the quantized kernels: the record is int8, then fp8
+            out[-1]["fp8"] = {k: v for k, v in fp8[0].items()
                               if k != "dtype"}
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi(), flush=True)

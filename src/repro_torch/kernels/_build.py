@@ -38,6 +38,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 launches = collections.Counter()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: storage codes of quantized pools (``RT_I8`` / ``RT_E4M3`` in the sources)
+KV_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -129,10 +131,16 @@ def library() -> ctypes.CDLL:
                                                   I, I, I, P, F, I, P]
         lib.rt_paged_prefill_attention.argtypes = [P, P, P, P, P, P, I, I, I,
                                                    I, I, I, I, P, F, I, P]
+        lib.rt_paged_decode_attention_quant.argtypes = [
+            P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, F, I, I, P]
+        lib.rt_paged_prefill_attention_quant.argtypes = [
+            P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, I, I, P]
         for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
                    lib.rt_slot_decode_attention,
                    lib.rt_paged_decode_attention,
-                   lib.rt_paged_prefill_attention):
+                   lib.rt_paged_prefill_attention,
+                   lib.rt_paged_decode_attention_quant,
+                   lib.rt_paged_prefill_attention_quant):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -25,7 +25,8 @@ from repro_torch.kernels import slot_decode as _slot
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since ``reset_launch_counts`` (keys: ``rmsnorm``,
     ``flash_attention``, ``slot_decode``, ``paged_decode``,
-    ``paged_prefill``)."""
+    ``paged_prefill``, and the fused-dequant ``paged_decode_quant`` and
+    ``paged_prefill_quant``)."""
     return dict(_build.launches)
 
 
@@ -66,7 +67,8 @@ def paged_decode_attention(q, kp, vp, tables, pos, ks=None, vs=None):
     the trash block); tables: (B,nb) int32; pos: (B,) per-slot positions.
     Validity is logical-position order, ``arange(nb*bs) <= pos`` (JAX
     ``ops.py:61-75``): block chains are never circular. ``ks``/``vs``
-    (quantized pools) raise ``NotImplementedError``.
+    (P+1,HKV) f32 mark int8 / fp8 pools: the fused-dequant kernel decodes
+    each tile with its block's scale.
     """
     nb, bs = tables.shape[1], kp.shape[1]
     valid = torch.arange(nb * bs, dtype=torch.int32,
@@ -79,7 +81,8 @@ def paged_prefill_attention(q, kp, vp, tables, start, ks=None, vs=None):
     """Paged chunked prefill: every slot's prompt chunk attends over its
     resident block chain (JAX ``ops.py:78-89``). q: (B,W,HQ,dh) with the
     chunk's own K/V already in the pools; tables: (B,nb) int32; start: (B,)
-    first chunk position per row."""
+    first chunk position per row; ``ks``/``vs``: quantized pools, as in
+    ``paged_decode_attention``."""
     return _paged_pf.paged_prefill_attention(q, kp, vp, tables,
                                              start.to(torch.int32), ks, vs)
 

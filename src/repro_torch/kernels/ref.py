@@ -3,8 +3,9 @@
 Each follows its JAX oracle in ``src/repro/kernels/ref.py`` line for line
 (``flash_attention_ref`` :11, ``decode_attention_ref`` :31,
 ``slot_decode_attention_ref`` :45, ``paged_decode_attention_ref`` :61,
-``paged_prefill_attention_ref`` :79, ``rmsnorm_ref`` :108; the paged ones
-without the quantized ``ks``/``vs`` path). The wrappers run
+``paged_prefill_attention_ref`` :79, ``rmsnorm_ref`` :108). The paged
+ones take the quantized pools' per-block scales (``ks``/``vs``), the plain
+versions of the fused-dequant kernels. The wrappers run
 them for tensors on the CPU; on the card they are what each kernel is held
 against. One rule is the kernels', not the JAX oracles': a decode row with
 no valid key gives zeros (the Pallas ``_decode_kernel`` clamps its
@@ -15,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.kv_quant import dequantize, raw
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
@@ -39,19 +42,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
 
 def slot_decode_attention_ref(q, k, v, valid, *, scale=None):
     """Every batch row is an independent serving slot with its own validity
-    mask. q:(B,HQ,dh); k,v:(B,T,HKV,dh); valid:(B,T) bool -> (B,HQ,dh)."""
+    mask. q:(B,HQ,dh); k,v:(B,T,HKV,dh); valid:(B,T) bool -> (B,HQ,dh).
+    f32 K/V under a bf16 q (decoded quantized pools) compute in f32, as
+    JAX promotes: q widened, p rounded to q's dtype before the product."""
     B, HQ, dh = q.shape
     HKV = k.shape[2]
     G = HQ // HKV
     scale = scale or 1.0 / math.sqrt(dh)
-    qg = q.reshape(B, HKV, G, dh)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k).float() * scale
+    ct = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(B, HKV, G, dh).to(ct)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.to(ct)).float() * scale
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(q.dtype), v)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(q.dtype).to(ct), v.to(ct))
     out = torch.where(valid.any(-1)[:, None, None, None], out,
                       torch.zeros((), dtype=out.dtype, device=out.device))
-    return out.reshape(B, HQ, dh)
+    return out.reshape(B, HQ, dh).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, valid, *, scale=None):
@@ -61,43 +67,55 @@ def decode_attention_ref(q, k, v, valid, *, scale=None):
     return slot_decode_attention_ref(q, k, v, mask, scale=scale)
 
 
-def gather_pool(pool, tables):
+def gather_pool(pool, tables, scales=None):
     """(P+1,bs,HKV,dh) pool through (B,nb) tables -> (B, nb*bs, HKV, dh):
-    each slot's logical view, block i of the chain at keys i*bs..i*bs+bs-1."""
+    each slot's logical view, block i of the chain at keys i*bs..i*bs+bs-1.
+    With ``scales`` (P+1, HKV) the quantized view is decoded to f32 after
+    the gather: the same products as decoding the whole pool first (JAX
+    ``ref.py:71-73``), for the gathered blocks only."""
     B, nb = tables.shape
-    return pool[tables.long()].reshape(B, nb * pool.shape[1], *pool.shape[2:])
+    idx = tables.long()
+    g = raw(pool)[idx].view(pool.dtype)                 # (B, nb, bs, HKV, dh)
+    if scales is not None:
+        g = dequantize(g, scales[idx][:, :, None, :, None])
+    return g.reshape(B, nb * pool.shape[1], *pool.shape[2:])
 
 
-def paged_decode_attention_ref(q, kp, vp, tables, valid, *, scale=None):
+def paged_decode_attention_ref(q, kp, vp, tables, valid, *, scale=None,
+                               ks=None, vs=None):
     """Paged decode: gather each slot's logical view through its block
-    table, then slot-decode over it (JAX ``ref.py:61``, unquantized).
-    q:(B,HQ,dh); kp,vp:(P+1,bs,HKV,dh); tables:(B,nb) int;
-    valid:(B,nb*bs) bool -> (B,HQ,dh)."""
-    return slot_decode_attention_ref(q, gather_pool(kp, tables),
-                                     gather_pool(vp, tables), valid,
+    table, then slot-decode over it (JAX ``ref.py:61``). q:(B,HQ,dh);
+    kp,vp:(P+1,bs,HKV,dh); tables:(B,nb) int; valid:(B,nb*bs) bool ->
+    (B,HQ,dh). ``ks``/``vs`` (P+1,HKV) f32: quantized pools, decoded as
+    ``q.float() * s`` (the plain version of the fused-dequant kernel)."""
+    return slot_decode_attention_ref(q, gather_pool(kp, tables, ks),
+                                     gather_pool(vp, tables, vs), valid,
                                      scale=scale)
 
 
-def paged_prefill_attention_ref(q, kp, vp, tables, start, *, scale=None):
+def paged_prefill_attention_ref(q, kp, vp, tables, start, *, scale=None,
+                                ks=None, vs=None):
     """Paged chunked prefill: gather each slot's logical view, then W
     queries per row under the causal mask ``k_pos <= start + w`` (JAX
-    ``ref.py:79``, unquantized). q:(B,W,HQ,dh); kp,vp:(P+1,bs,HKV,dh);
-    tables:(B,nb) int; start:(B,) int -> (B,W,HQ,dh). Query rows past a
-    row's true chunk length are garbage by contract."""
+    ``ref.py:79``). q:(B,W,HQ,dh); kp,vp:(P+1,bs,HKV,dh); tables:(B,nb)
+    int; start:(B,) int -> (B,W,HQ,dh). Query rows past a row's true chunk
+    length are garbage by contract. ``ks``/``vs``: quantized pools, as in
+    ``paged_decode_attention_ref``."""
     B, W, HQ, dh = q.shape
     HKV = kp.shape[2]
     G = HQ // HKV
     scale = scale or 1.0 / math.sqrt(dh)
-    kg, vg = gather_pool(kp, tables), gather_pool(vp, tables)
+    kg, vg = gather_pool(kp, tables, ks), gather_pool(vp, tables, vs)
+    ct = torch.promote_types(q.dtype, kg.dtype)
     q_pos = start[:, None].long() + torch.arange(W, device=q.device)[None]
     k_pos = torch.arange(kg.shape[1], device=q.device)
     live = k_pos[None, None, :] <= q_pos[:, :, None]              # (B,W,T)
-    qg = q.reshape(B, W, HKV, G, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kg).float() * scale
+    qg = q.reshape(B, W, HKV, G, dh).to(ct)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kg.to(ct)).float() * scale
     s = s.masked_fill(~live[:, None, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), vg)
-    return out.reshape(B, W, HQ, dh)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype).to(ct), vg.to(ct))
+    return out.reshape(B, W, HQ, dh).to(q.dtype)
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-5):

@@ -9,7 +9,9 @@ Two paths share one model/linkage setup:
                     ``--kv paged`` swaps the dense slot rows for the paged
                     block-table subsystem (demand allocation, CoW prefix
                     sharing, recompute preemption); ``--chunked`` adds
-                    chunked prefill on it.
+                    chunked prefill on it, and ``--kv-dtype int8|fp8``
+                    stores its blocks quantized (per-block scales, read by
+                    the fused-dequant kernels).
 
       python -m repro_torch.launch.serve --preset nss_shortcut --load open
       python -m repro_torch.launch.serve --preset ret_byp --load closed \\
@@ -18,6 +20,8 @@ Two paths share one model/linkage setup:
           --shared-prefix-len 16
       python -m repro_torch.launch.serve --kv paged --chunked --budget 48 \\
           --chunk-width 24
+      python -m repro_torch.launch.serve --kv paged --kv-dtype int8 \\
+          [--chunked]
       python -m repro_torch.launch.serve --device cpu     # off the card
 
   sequential        one request batch at a time (``--load seq``, also
@@ -27,9 +31,10 @@ Two paths share one model/linkage setup:
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU, ``cuda``
 raises. The CLI serves the smoke model, as the JAX launcher does;
 ``run_engine(..., smoke=False)`` serves the published widths. Chunked
-prefill on the slotted backend, speculation, quantized KV, swap, the
-prefix cache, meshes and sampling at temperature > 0 raise
-``NotImplementedError`` naming their ROADMAP item.
+prefill on the slotted backend, speculation, swap (quantized blocks
+included), the prefix cache, meshes and sampling at temperature > 0 raise
+``NotImplementedError`` naming their ROADMAP item; ``--kv-dtype int8|fp8``
+without ``--kv paged`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -78,7 +83,7 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
                shared_prefix_len: int = 0, chunked: bool = False,
                budget: int = 256, chunk_width: int = 0,
                preempt: str = "recompute", victim: str = "youngest",
-               trace: str = "", metrics: str = "",
+               kv_dtype: str = "bf16", trace: str = "", metrics: str = "",
                log_interval: float = 0.0, profile_dir: str = ""):
     """Continuous-batching serving run; returns the engine report dict.
 
@@ -123,7 +128,7 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
                       bucket_prompts=bucket_prompts, chunked=chunked,
                       chunk_budget=budget, chunk_width=chunk_width,
                       preempt=PreemptionPolicy(mode=preempt, victim=victim),
-                      telemetry=tel)
+                      kv_dtype=kv_dtype, telemetry=tel)
 
     # warmup: one request through prefill and one decode program, outside
     # the timed region (first launches load the kernel library and warm
@@ -314,12 +319,15 @@ def main(argv=None) -> int:
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--report-json", default=None)
+    p.add_argument("--kv-dtype", default="bf16",
+                   choices=["bf16", "int8", "fp8"],
+                   help="paged: block storage — bf16 keeps the activation "
+                        "dtype (the uncompressed control), int8/fp8 store "
+                        "per-block scaled codes")
     # the JAX launcher's options that later slices bring (each raises
     # NotImplementedError unless left at its default)
     p.add_argument("--spec-decode", default="none", choices=["none", "ngram"])
     p.add_argument("--mesh", default="")
-    p.add_argument("--kv-dtype", default="bf16",
-                   choices=["bf16", "int8", "fp8"])
     p.add_argument("--prefix-cache", default="")
     args = p.parse_args(argv)
 
@@ -350,6 +358,7 @@ def main(argv=None) -> int:
                          chunked=args.chunked, budget=args.budget,
                          chunk_width=args.chunk_width,
                          preempt=args.preempt, victim=args.victim,
+                         kv_dtype=args.kv_dtype,
                          trace=args.trace, metrics=args.metrics,
                          log_interval=args.log_interval,
                          profile_dir=args.profile_dir)

@@ -23,6 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import SWA, ArchConfig, LayerSpec
+from repro_torch.kernels.kv_quant import quant_insert
 from repro_torch.kernels.ref import gather_pool
 
 Params = Dict[str, Any]
@@ -330,13 +331,36 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
     return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
 
 
+def _paged_write(cache: Params, blk: torch.Tensor, off: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor):
+    """Write K/V at pool positions (blk, off), in place: a plain store on
+    an unquantized pool, ``quant_insert`` on a quantized one. Returns the
+    scale tensors (``None, None`` when unquantized)."""
+    kp, vp = cache["kp"], cache["vp"]
+    if "ks" not in cache:
+        kp[blk, off] = k.to(kp.dtype)
+        vp[blk, off] = v.to(vp.dtype)
+        return None, None
+    quant_insert(kp, cache["ks"], blk, off, k)
+    quant_insert(vp, cache["vs"], blk, off, v)
+    return cache["ks"], cache["vs"]
+
+
+def _paged_view(pool, tables, scales, max_len: int, dtype):
+    """Each slot's logical view of a pool, (B, max_len, HKV, dh), in the
+    activation dtype; a quantized pool is decoded after the gather (the
+    same bits as JAX's decode of the whole pool, for less work)."""
+    return gather_pool(pool, tables, scales)[:, :max_len].to(dtype)
+
+
 def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
                            tables: torch.Tensor, cfg: ArchConfig,
                            opts: ModelOptions, max_len: int) -> torch.Tensor:
     """One-token decode against a *paged* KV cache (``layers.py:463``).
 
       cache:  {"kp": (P+1, bs, HKV, dh), "vp": (P+1, bs, HKV, dh),
-               "pos": (B,)}, updated in place
+               "pos": (B,)}, updated in place; quantized pools (int8 /
+               fp8) add their per-block scales "ks"/"vs": (P+1, HKV)
       tables: (B, nb) int32 — per-slot logical-block -> pool-row map
 
     Row P of the pool is the trash block: empty and finished slots point at
@@ -345,9 +369,12 @@ def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
     allocated (and copy-on-write forked) that block before the program.
     Several dead slots may write the trash row at one offset; which write
     wins is unspecified, and harmless because the trash row is never read
-    as live. The plain path gathers each slot's logical view, sliced to
-    ``max_len``, and runs exactly the slotted decode's masked softmax; the
-    kernel path reads the pool in place through the table.
+    as live. A quantized pool takes the write through ``quant_insert``,
+    which re-encodes the touched blocks (``layers.py:501-508``). The plain
+    path gathers each slot's logical view (decoded to the activation dtype
+    when quantized), sliced to ``max_len``, and runs exactly the slotted
+    decode's masked softmax; the kernel path reads the pool in place
+    through the table, fusing the decode.
     """
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg)  # S == 1
@@ -359,18 +386,17 @@ def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
     logical = torch.clamp(pos // bs, 0, nb - 1).long()
     blk = torch.gather(tables, 1, logical[:, None])[:, 0].long()
     off = (pos % bs).long()
-    kp[blk, off] = k[:, 0].to(kp.dtype)
-    vp[blk, off] = v[:, 0].to(vp.dtype)
+    ks, vs = _paged_write(cache, blk, off, k[:, 0], v[:, 0])
 
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
-        out = kops.paged_decode_attention(q, kp, vp, tables, pos)
+        out = kops.paged_decode_attention(q, kp, vp, tables, pos, ks, vs)
     else:
         valid = (torch.arange(max_len, device=x.device)[None]
                  <= pos[:, None])
-        out = _decode_ref(q, gather_pool(kp, tables)[:, :max_len],
-                          gather_pool(vp, tables)[:, :max_len], valid,
-                          x.dtype)
+        out = _decode_ref(q, _paged_view(kp, tables, ks, max_len, x.dtype),
+                          _paged_view(vp, tables, vs, max_len, x.dtype),
+                          valid, x.dtype)
     cache["pos"] += 1
     return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
 
@@ -389,8 +415,10 @@ def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
 
     Real chunk K/V lands at (tables[b, p // bs], p % bs); padding rows
     write the trash row (the engine allocated and forked every block of the
-    real span, so those destinations belong to the row alone). Then all W
-    queries attend with the per-query causal mask ``t <= start + w``:
+    real span, so those destinations belong to the row alone). On a
+    quantized pool the writes go through ``quant_insert``
+    (``layers.py:640-646``): padding requantizes only the trash row. Then
+    all W queries attend with the per-query causal mask ``t <= start + w``:
     garbage past a row's resident end sits above every real query's
     position. ``pos`` becomes ``start + clen``: positions are the host's in
     chunked serving.
@@ -408,18 +436,17 @@ def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
     blk = torch.where(real, torch.gather(tables, 1, logical),
                       trash).long()
     off = (q_pos % bs).long()
-    kp[blk, off] = k.to(kp.dtype)
-    vp[blk, off] = v.to(vp.dtype)
+    ks, vs = _paged_write(cache, blk, off, k, v)
 
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
-        out = kops.paged_prefill_attention(q, kp, vp, tables, start)
+        out = kops.paged_prefill_attention(q, kp, vp, tables, start, ks, vs)
     else:
         valid = (torch.arange(max_len, device=x.device)[None, None, :]
                  <= q_pos[:, :, None])                    # (B, W, max_len)
-        out = _attend_ref(q, gather_pool(kp, tables)[:, :max_len],
-                          gather_pool(vp, tables)[:, :max_len], valid,
-                          x.dtype)
+        out = _attend_ref(q, _paged_view(kp, tables, ks, max_len, x.dtype),
+                          _paged_view(vp, tables, vs, max_len, x.dtype),
+                          valid, x.dtype)
     cache["pos"].copy_(start + clen)
     return out.reshape(B, W, -1) @ params["wo"].to(x.dtype)
 

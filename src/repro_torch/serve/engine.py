@@ -36,11 +36,15 @@ boundaries, and decoding is greedy — so each request's tokens are the ones
 it would get alone through prefill + decode, whichever backend and step
 discipline serve it (tests/test_torch_serve.py, test_torch_paging.py).
 
+The paged backend stores its blocks at ``kv_dtype`` "bf16" (the
+activation dtype, the uncompressed control), "int8" or "fp8" (per-block
+scaled codes, read by the fused-dequant kernels); the slotted backend
+takes only "bf16" and raises ``ValueError`` otherwise.
+
 Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
 item: slotted chunked prefill (the rest of item 6), speculative decoding
-(item 7), swap preemption and the prefix cache (item 8), quantized KV
-(item 9), device meshes (item 13) and sampling at temperature > 0
-(item 3).
+(item 7), swap preemption and the prefix cache (item 8), device meshes
+(item 13) and sampling at temperature > 0 (item 3).
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ def check_slice(*, kv: str = "slotted", chunked: bool = False,
                 spec_decode: str = "none", mesh=None, kv_dtype: str = "bf16",
                 preempt: str = "recompute", prefix_cache=None) -> None:
     """Raise ``NotImplementedError`` for a serving option this port does not
-    have yet, naming the ROADMAP item that brings it."""
+    have yet, naming the ROADMAP item that brings it, and ``ValueError``
+    for a combination the reference rejects too."""
     if kv not in KV_BACKENDS:
         raise ValueError(f"unknown kv backend {kv!r}; known: {KV_BACKENDS}")
     if chunked and kv == "slotted":
@@ -85,10 +90,11 @@ def check_slice(*, kv: str = "slotted", chunked: bool = False,
         raise _not_in_slice(f"preempt={preempt!r} (the host tier)", "8")
     if prefix_cache:
         raise _not_in_slice("the persistent prefix cache", "8")
-    if kv_dtype != "bf16":
-        raise _not_in_slice(f"kv_dtype={kv_dtype!r} (quantized KV)", "9")
     if mesh:
         raise _not_in_slice("mesh serving", "13")
+    if kv == "slotted" and kv_dtype != "bf16":
+        raise ValueError("kv_dtype quantization needs kv='paged': dense "
+                         "slot rows have no per-block scale tables")
 
 
 def _host(t) -> np.ndarray:
@@ -119,9 +125,9 @@ class ServeEngine:
                  sampling: Optional[SamplingConfig] = None,
                  bucket_prompts: bool = False, chunked: bool = False,
                  chunk_budget: int = 256, chunk_width: int = 0,
-                 preempt="recompute",
+                 preempt="recompute", kv_dtype: str = "bf16",
                  telemetry: Optional[Telemetry] = None):
-        check_slice(kv=kv, chunked=chunked)
+        check_slice(kv=kv, chunked=chunked, kv_dtype=kv_dtype)
         linkage.validate()
         if n_slots < 1:
             raise ValueError("serving engine needs n_slots >= 1")
@@ -151,7 +157,7 @@ class ServeEngine:
             self.kv: KVBackend = PagedKV(
                 cfg, params, opts, linkage, n_slots, max_len, self.sampling,
                 bucket_fn, block_size=block_size, num_blocks=num_blocks,
-                chunked=chunked)
+                chunked=chunked, kv_dtype=kv_dtype)
         else:
             self.kv = SlottedKV(cfg, params, opts, linkage, n_slots, max_len,
                                 self.sampling, bucket_fn)

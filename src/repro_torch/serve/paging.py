@@ -22,8 +22,12 @@ bounded by the tokens actually resident:
                 to a shared block, and recompute preemption under pool
                 pressure (the engine's ``PreemptionPolicy``).
 
-The host tier (``HostBlockStore``, swap, demotion, persistence), quantized
-pools and meshes of the JAX module are ROADMAP module items 8, 9 and 13.
+Quantized pools (``kv_dtype`` int8 / fp8, ``repro_torch.kernels.kv_quant``)
+store per-(block, KV head) scales beside the pools; every write re-encodes
+the blocks it touches, CoW copies the scales, and a block is cleared when
+it is allocated. The host tier (``HostBlockStore``, swap, demotion,
+persistence) and meshes of the JAX module are ROADMAP module items 8 and
+13.
 
 The pool operations (scatter a prefilled run, gather a slot's view, copy a
 block) update the pools in place: the L2 analogue of JAX buffer donation.
@@ -44,6 +48,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linkage import L3_NSS
 from repro_torch.core.step import (build_paged_decode_step, build_prefill_fn,
                                    build_serve_step, make_sampler)
+from repro_torch.kernels import kv_quant
+from repro_torch.kernels.kv_quant import quant_insert, raw
 from repro_torch.kernels.ref import gather_pool
 from repro_torch.models.transformer import (Cache, _check_pageable,
                                             layer_specs, prefill_suffix)
@@ -239,43 +245,78 @@ class PrefixIndex:
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
-                     n_slots: int, dtype=torch.bfloat16,
-                     device="cuda") -> Cache:
+                     n_slots: int, dtype=torch.bfloat16, device="cuda",
+                     kv_dtype: str = "bf16") -> Cache:
     """One dict per layer: {"kp","vp": (P+1, bs, HKV, dh) zeros (row P =
     trash block), "pos": (B,) int32}. JAX stacks the layers of a pattern
-    position into (L, P+1, ...) pools; the port keeps its per-layer list."""
+    position into (L, P+1, ...) pools; the port keeps its per-layer list.
+
+    A quantized ``kv_dtype`` (int8 / fp8) stores the pools in its codes
+    and adds the per-block scales {"ks","vs"}: (P+1, HKV) f32 ones
+    (``paging.py:512-537``). ``kv_dtype="bf16"`` stores ``dtype`` and adds
+    nothing."""
+    store = kv_quant.storage_dtype(kv_dtype, dtype)
     shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
-    return [{"kp": torch.zeros(shape, dtype=dtype, device=device),
-             "vp": torch.zeros(shape, dtype=dtype, device=device),
+    out = []
+    for _ in layer_specs(cfg):
+        g = {"kp": torch.zeros(shape, dtype=store, device=device),
+             "vp": torch.zeros(shape, dtype=store, device=device),
              "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
-            for _ in layer_specs(cfg)]
+        if kv_dtype != "bf16":
+            for name in ("ks", "vs"):
+                g[name] = torch.ones((num_blocks + 1, cfg.n_kv_heads),
+                                     dtype=torch.float32, device=device)
+        out.append(g)
+    return out
 
 
 def scatter_kv(cache: Cache, kvs: Cache, blks: torch.Tensor,
                offs: torch.Tensor, slot: int, new_pos: int) -> None:
     """Write a prefilled K/V run (per layer {"k","v"}: (1, S, HKV, dh)) into
     pool destinations (blks[i], offs[i]) and set the slot's position, in
-    place. Padding rows target the trash block."""
+    place. Padding rows target the trash block. Quantized pools take the
+    run through ``quant_insert`` (``paging.py:563-570``)."""
     for g, kv in zip(cache, kvs):
-        g["kp"][blks, offs] = kv["k"][0].to(g["kp"].dtype)
-        g["vp"][blks, offs] = kv["v"][0].to(g["vp"].dtype)
+        if "ks" in g:
+            quant_insert(g["kp"], g["ks"], blks, offs, kv["k"][0])
+            quant_insert(g["vp"], g["vs"], blks, offs, kv["v"][0])
+        else:
+            g["kp"][blks, offs] = kv["k"][0].to(g["kp"].dtype)
+            g["vp"][blks, offs] = kv["v"][0].to(g["vp"].dtype)
         g["pos"][slot] = new_pos
 
 
 def gather_prefix(cache: Cache, row: torch.Tensor, max_len: int) -> Cache:
     """One slot's logical view, per layer {"k","v"}: (1, max_len, HKV, dh),
     gathered through its table row (nb,) — what the shared-prefix suffix
-    prefill attends over."""
-    return [{"k": gather_pool(g["kp"], row[None])[:, :max_len],
-             "v": gather_pool(g["vp"], row[None])[:, :max_len]}
+    prefill attends over. Quantized pools give their decoded f32 view
+    (``paging.py:592-600``)."""
+    return [{"k": gather_pool(g["kp"], row[None], g.get("ks"))[:, :max_len],
+             "v": gather_pool(g["vp"], row[None], g.get("vs"))[:, :max_len]}
             for g in cache]
 
 
 def copy_block(cache: Cache, src: int, dst: int) -> None:
-    """Device-side block copy, in place: the copy half of copy-on-write."""
+    """Device-side block copy, in place: the copy half of copy-on-write.
+    Quantized pools copy the block's scales with its codes."""
     for g in cache:
-        g["kp"][dst].copy_(g["kp"][src])
-        g["vp"][dst].copy_(g["vp"][src])
+        for name in ("kp", "vp", "ks", "vs"):
+            if name in g:
+                raw(g[name])[dst].copy_(raw(g[name])[src])
+
+
+def zero_block(cache: Cache, blk: int) -> None:
+    """Clear one block's codes and reset its scales to 1, in place
+    (``paging.py:627-651``). Run when a quantized pool allocates a block:
+    ``quant_insert`` takes each touched block's amax over all its lanes, so
+    a previous tenant's stale bytes would leak into the new scale and make
+    token streams depend on allocation history. The unquantized control
+    masks stale lanes at attention time and needs no clearing."""
+    for g in cache:
+        raw(g["kp"])[blk].zero_()
+        raw(g["vp"])[blk].zero_()
+        g["ks"][blk].fill_(1.0)
+        g["vs"][blk].fill_(1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +335,10 @@ class PagedKV:
     def __init__(self, cfg: ArchConfig, params, opts, linkage, n_slots: int,
                  max_len: int, sampling=None, bucket_fn=None,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 chunked: bool = False):
+                 chunked: bool = False, kv_dtype: str = "bf16"):
         _check_pageable(cfg, "PagedKV")
         self.cfg, self.params, self.opts = cfg, params, opts
+        self.kv_dtype = kv_dtype
         self.n_slots, self.max_len = n_slots, max_len
         self.bs = block_size
         self.nb = -(-max_len // block_size)          # logical blocks per slot
@@ -315,11 +357,16 @@ class PagedKV:
         self.tables_host = np.full((n_slots, self.nb), self.trash, np.int32)
         self.pos_host = np.zeros(n_slots, np.int64)
         self.cache = init_paged_cache(cfg, num_blocks, block_size, n_slots,
-                                      opts.dtype, self.device)
+                                      opts.dtype, self.device, kv_dtype)
         self.cow_forks = 0
         self.prefix_shared_tokens = 0
-        self._block_bytes = sum(2 * g["kp"][0].numel()
-                                * g["kp"].element_size() for g in self.cache)
+        # one block across all layers: K and V codes plus, when quantized,
+        # their (HKV,) f32 scales (``paging.py:783-793``)
+        self._block_bytes = sum(
+            2 * g["kp"][0].numel() * g["kp"].element_size()
+            + (2 * g["ks"][0].numel() * g["ks"].element_size()
+               if "ks" in g else 0)
+            for g in self.cache)
 
         self.chunked = chunked
         # the decode program serves both step disciplines: two-phase decode
@@ -348,6 +395,10 @@ class PagedKV:
         blk = self.pool.alloc()
         if blk is None and self.index.evict(self.pool, 1):
             blk = self.pool.alloc()
+        if blk is not None and self.kv_dtype != "bf16":
+            # quantized pools: scrub the previous tenant's bytes so block
+            # scales stay a function of the sequence's own content
+            zero_block(self.cache, blk)
         return blk
 
     def _cow(self, slot: int, chain: BlockTable, bi: int) -> bool:
@@ -551,8 +602,7 @@ class PagedKV:
             "kv_blocks_hwm": self.pool.hwm,
             "kv_cow_forks": self.cow_forks,
             "kv_prefix_shared_tokens": self.prefix_shared_tokens,
-            # unquantized pools (quantized KV is ROADMAP module item 9)
-            "kv_dtype": "bf16",
+            "kv_dtype": self.kv_dtype,
             "kv_bytes_per_block": self._block_bytes,
         }
 

@@ -162,18 +162,32 @@ def test_paged_prefill_width_one_is_decode(bs, HKV, dh):
 
 @pytest.mark.parametrize("fn", ["decode", "prefill"])
 def test_paged_quantized_pools_raise(fn):
+    """The quantization arguments are checked on every device: scales on an
+    fp32 pool, one scale tensor without the other, scales of the wrong
+    shape, and codes without scales all raise (tests/test_torch_quant.py
+    holds the quantized kernels' values)."""
     q, kp = torch.zeros(1, 2, 8), torch.zeros(3, 4, 1, 8)
+    codes = torch.zeros(3, 4, 1, 8, dtype=torch.int8)
     tables = torch.zeros(1, 2, dtype=torch.int32)
     scales = torch.ones(3, 1)
-    with pytest.raises(NotImplementedError, match="kernel item 6.*item 9"):
+
+    def call(kp, ks, vs):
         if fn == "decode":
-            tpd.paged_decode_attention(q, kp, kp, tables,
-                                       torch.ones(1, 8, dtype=torch.bool),
-                                       scales, scales)
-        else:
-            tpp.paged_prefill_attention(q[:, None], kp, kp, tables,
-                                        torch.zeros(1, dtype=torch.int32),
-                                        scales, scales)
+            return tpd.paged_decode_attention(
+                q, kp, kp, tables, torch.ones(1, 8, dtype=torch.bool), ks, vs)
+        return tpp.paged_prefill_attention(
+            q[:, None], kp, kp, tables, torch.zeros(1, dtype=torch.int32), ks,
+            vs)
+
+    with pytest.raises(TypeError, match="int8 or float8"):
+        call(kp, scales, scales)
+    with pytest.raises(ValueError, match="both ks and vs"):
+        call(codes, scales, None)
+    with pytest.raises(ValueError, match="ks must be a float32"):
+        call(codes, torch.ones(3, 2), scales)
+    with pytest.raises(TypeError, match="share q's dtype"):
+        call(codes, None, None)
+    assert call(codes, scales, scales).shape[-1] == 8
 
 
 # ---------------------------------------------------------------------------

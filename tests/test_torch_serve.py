@@ -287,12 +287,13 @@ def test_launcher_writes_trace_and_metrics(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--kv", "paged", "--kv-dtype", "int8"], "item 9"),
+    (["--kv", "paged", "--kv-dtype", "int8", "--preempt", "swap"], "item 8"),
     (["--chunked"], "item 6"),
     (["--spec-decode", "ngram"], "item 7"),
     (["--preempt", "swap"], "item 8"),
     (["--prefix-cache", "x.npz"], "item 8"),
-    (["--kv-dtype", "int8"], "item 9"),
+    (["--kv", "paged", "--kv-dtype", "fp8", "--prefix-cache", "x.npz"],
+     "item 8"),
     (["--mesh", "1,2"], "item 13"),
     (["--temperature", "0.7"], "item 3"),
 ])
@@ -365,7 +366,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or m.startswith('repro.'))\n"
         "assert len(names) >= 20, names\n"
         "assert {'repro_torch.serve.paging', 'repro_torch.kernels.paged_decode',\n"
-        "        'repro_torch.kernels.paged_prefill'} <= set(names), names\n"
+        "        'repro_torch.kernels.paged_prefill',\n"
+        "        'repro_torch.kernels.kv_quant'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py route   # the build and the moe_route phase only
+    python3 chip_smoke.py moe     # the build, the MoE path and its profile
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -17,7 +19,9 @@ non-zero before the result line):
    chunks of 24 starting mid-block) and over a sweep (HKV=3, odd dh, a
    sliding window, non-power-of-two lengths, block sizes 8 and 16, chunks
    of 1, 7 and to a block boundary, paged prefill at W=1 against paged
-   decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2). The
+   decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm,
+   flash attention and slot decode also at the MoE path's shapes
+   (moonshot-v1-16b-a3b: D 2048, HQ = HKV = 16, dh 128, G = 1). The
    fused-dequant paged kernels (``paged_decode_quant``,
    ``paged_prefill_quant``) run the same main, sweep and large shapes over
    int8 and fp8 pools quantized per (block, KV head), for float32 and
@@ -37,7 +41,12 @@ non-zero before the result line):
    kernel, where the bound is not just launch cost. The plain
    ``quant_insert`` (the quantized write; plain PyTorch in both packages,
    no TPU kernel) is timed per call at path C's pool and at the large
-   decode's pool.
+   decode's pool. ``moe_route`` against ``moe_route_ref`` (``route_phase``):
+   the MoE path's shapes (N 4 and 32, D 2048, E 64, k 6), a sweep, an
+   exact-tie case and N 4096, float32 and bfloat16 inputs; gates within
+   1e-5, indices equal except where the plain probabilities tie within
+   1e-6 (``check_route`` counts those rows); timed the same way, the
+   library yardstick being three calls (matmul, softmax, topk).
 4. path — the main paths through their entry points, full-width
    tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
    requests each: slotted ``--load open`` and ``--load seq``; paged path A
@@ -48,7 +57,12 @@ non-zero before the result line):
    read just after; every kernel of a path must have launched (and no
    unquantized paged kernel on C and D, nor a quantized one on A and B),
    every request must complete with its budget, and C's and D's blocks
-   must be >= 1.9x smaller than A's.
+   must be >= 1.9x smaller than A's. Then, the tinyllama phases'
+   tensors released, the MoE path: ``run_engine`` on full-width,
+   full-depth moonshot-v1-16b-a3b with ``dtype="bf16"`` (56.1 GB of
+   parameters), the same traffic; moe_route must launch once per layer of
+   every admission and decode microstep, beside rmsnorm, flash and slot
+   decode; its peak device memory is printed.
 5. teacher-forced check — prefill, then 8 slotted decode steps (the
    engine's), 8 uniform decode steps (``--load seq``) and 8 paged decode
    steps over a pool filled through a permuted table, each from the same
@@ -61,10 +75,15 @@ non-zero before the result line):
    path writing its own K/V, and the quantized plain logits against the
    fp32 control's (the formats' own error), are printed, not gated. The agreement of engine streams (slotted,
    paged, paged chunked) with sequential streams is printed and does not
-   gate (greedy streams of a random-init model flip on near-ties).
+   gate (greedy streams of a random-init model flip on near-ties). The
+   MoE model (``moe_teacher_forced_phase``): prefill, then 8 slotted
+   decode steps with float32 activations over its bf16 parameters, the
+   kernel path replaying the plain path's routing (``routes``): max
+   |dlogit| <= 2e-3. The kernel path routing on its own, its differing
+   expert choices, and the bf16-activation run are printed, not gated.
 6. profile — where one engine run's time goes (``profile_phase``), slotted
-   and paged chunked: wall time, device busy time, the device's idle
-   share, the top kernels.
+   and paged chunked, and the MoE model's slotted run in bf16: wall
+   time, device busy time, the device's idle share, the top kernels.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -93,6 +112,8 @@ TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 
 # the main path: full-width tinyllama-1.1b, 4 slots, prompt 32, gen 32
 ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
+# the MoE path: full-width moonshot-v1-16b-a3b in bf16, the same traffic
+MOE_ARCH = "moonshot-v1-16b-a3b"
 SLOTS, PROMPT, GEN, REQUESTS = 4, 32, 32, 8
 MAX_LEN = PROMPT + GEN + 8
 # the paged paths: blocks of 16 (5 per slot at max_len 72), a 16-token
@@ -201,9 +222,10 @@ def make_cases(gen, dtype):
 
     cases = []
 
-    def rms_case(label, shape):
+    def rms_case(label, shape, scale_dtype=torch.float32):
         x = rn(*shape)
-        s = torch.randn(shape[-1], generator=gen, device="cuda") * 0.1 + 1.0
+        s = (torch.randn(shape[-1], generator=gen, device="cuda") * 0.1
+             + 1.0).to(scale_dtype)
         s_lib = s.to(dtype)
         cases.append(("rmsnorm", label, lambda: krms.rmsnorm(x, s),
                       lambda: ref.rmsnorm_ref(x, s),
@@ -463,6 +485,15 @@ def make_cases(gen, dtype):
         paged_prefill_quant_case("main: paged prefill q (4,24,32,64) starts "
                                  "(0,8,24,40)", kvd, SLOTS, CHUNK_W, NB, BS,
                                  32, 4, 64, (0, 8, 24, 40))
+    # the MoE path's shapes: moonshot-v1-16b-a3b, D 2048, HQ = HKV = 16,
+    # dh 128 (G = 1), the same slots, prompt and cache length; the norm
+    # scales in bf16, as all of its parameters
+    rms_case("moe: decode rows (4,1,2048)", (SLOTS, 1, 2048), torch.bfloat16)
+    rms_case("moe: prefill rows (1,32,2048)", (1, PROMPT, 2048),
+             torch.bfloat16)
+    flash_case("moe: prefill q (1,32,16,128)", 1, PROMPT, 16, 16, 128)
+    slot_case("moe: decode q (4,16,128) kv (4,72,16,128)", SLOTS, MAX_LEN,
+              16, 16, 128, (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
     # sweep
     rms_case("sweep (3,40,96)", (3, 40, 96))
     rms_case("sweep odd D (5,7,33)", (5, 7, 33))
@@ -573,7 +604,7 @@ def kernel_phase(gen):
             torch.cuda.synchronize()
             err = check_close(f"{name} [{label}] {dtype}", got, want, dtype)
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
-            if label.startswith(("main", "large")):
+            if label.startswith(("main", "large", "moe")):
                 b_ms, b_by = bound(nb, ops, dtype)
                 row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(lib), bound_ms=b_ms,
@@ -588,6 +619,123 @@ def kernel_phase(gen):
                            if k not in ("label", "dtype")))
             records.setdefault(name, []).append(row)
     return records
+
+
+def route_cases(gen, dtype):
+    """moe_route cases: (label, x, router, k, exact). The main path's
+    shapes (a decode microstep's 4 tokens and an admission's 32, D 2048,
+    E 64, k 6), a sweep (tests/test_kernels.py's shapes, N 1 / 33 / 100,
+    E 4-256, k 1 / 2 / 4 / E, D 16-8192), one case of exact ties and one
+    large N. x at unit scale and the router at the init's std 0.02, as
+    the model feeds it (an RMS-normed x). The tie case (``exact``) has
+    small-integer x and a router of equal column pairs at multiples of
+    2^-5: every logit is exact in any summation order, every probability
+    comes twice, and the lower index must win each pair."""
+    import torch
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    cases = []
+    for label, N, D, E, k in (
+            ("main: decode microstep x (4,2048) router (2048,64) k=6",
+             SLOTS, 2048, 64, 6),
+            ("main: admission x (32,2048) router (2048,64) k=6", PROMPT,
+             2048, 64, 6),
+            ("sweep N=100 D=64 E=16 k=4", 100, 64, 16, 4),
+            ("sweep N=64 D=32 E=8 k=1", 64, 32, 8, 1),
+            ("sweep N=33 D=16 E=4 k=2", 33, 16, 4, 2),
+            ("sweep N=1 D=64 E=8 k=2", 1, 64, 8, 2),
+            ("sweep N=33 D=100 E=16 k=4", 33, 100, 16, 4),
+            ("sweep k=E N=3 D=96 E=8 k=8", 3, 96, 8, 8),
+            ("sweep N=5 D=8192 E=256 k=8", 5, 8192, 256, 8),
+            ("large N=4096 D=2048 E=64 k=6", 4096, 2048, 64, 6)):
+        cases.append((label, rn(N, D), rn(D, E, scale=0.02), k, False))
+    x = torch.randint(-1, 2, (64, 2048), generator=gen, device="cuda")
+    half = torch.randint(-1, 2, (2048, 32), generator=gen, device="cuda")
+    cases.append(("ties: x (64,2048) integers, router column pairs equal "
+                  "k=6", x.to(dtype),
+                  (half * 2.0 ** -5).repeat_interleave(2, dim=1).to(dtype),
+                  6, True))
+    return cases
+
+
+def check_route(name, got, want, x, w, k, exact):
+    """The router kernel against its plain version: gates within 1e-5 on
+    every row; indices equal, except where the plain probabilities nearly
+    tie and a summation order decides. A row may differ only (a) in the
+    order of experts whose plain gates lie within 1e-6 of each other, or
+    (b) in its k-th expert when the plain k-th and (k+1)-th probabilities
+    lie within 1e-6. The ``exact`` (tie) case allows neither, and its
+    equal column pairs must come out lower index first. Returns (max |gate
+    error|, rows of kind a, rows of kind b)."""
+    import torch
+    from repro_torch.kernels import ref
+    (gg, gi), (wg, wi) = got, want
+    err = (gg - wg).abs().max().item()
+    if not bool(torch.isfinite(gg).all()) or err > 1e-5:
+        raise AssertionError(f"{name}: gates differ by {err:.3e} (tolerance "
+                             "1e-5)")
+    E = w.shape[1]
+    differ = (gi != wi).any(-1).nonzero()[:, 0].tolist()
+    reordered = swapped = 0
+    top = ref.moe_route_ref(x, w, min(k + 1, E))[0] if differ else None
+    for r in differ:
+        a, b = gi[r].tolist(), wi[r].tolist()
+        pos = gi[r] != wi[r]
+        if not exact and sorted(a) == sorted(b) and (
+                wg[r][pos].max() - wg[r][pos].min()).item() <= 1e-6:
+            reordered += 1
+        elif (not exact and k < E and a[:-1] == b[:-1]
+              and (top[r, k - 1] - top[r, k]).item() <= 1e-6):
+            swapped += 1
+        else:
+            raise AssertionError(f"{name}: row {r} routes to {a}, the plain "
+                                 f"version to {b}")
+    if exact and not (bool((gi[:, 0::2] % 2 == 0).all())
+                      and torch.equal(gi[:, 1::2], gi[:, 0::2] + 1)):
+        raise AssertionError(f"{name}: a tie did not go to the lower index")
+    return err, reordered, swapped
+
+
+def route_phase(gen):
+    """moe_route against ``moe_route_ref`` on the card, float32 and
+    bfloat16 inputs; the main and large cases timed like the other
+    kernels. Library yardstick: ``torch.topk(torch.softmax(x.float() @
+    router.float(), -1), k)``, three PyTorch calls (the port never makes
+    them). Bound: bytes of x, router, gates and indices over 3.35 TB/s, or
+    the 2·N·D·E operations over the input type's peak."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, x, w, k, exact in route_cases(gen, dtype):
+            call = lambda: ops.moe_route(x, w, k)  # noqa: E731
+            plain = lambda: ref.moe_route_ref(x, w, k)  # noqa: E731
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            err, reordered, swapped = check_route(
+                f"moe_route [{label}] {dtype}", got, want, x, w, k, exact)
+            row = {"label": label, "dtype": str(dtype), "max_abs_err": err,
+                   "near_tie_rows_reordered": reordered,
+                   "near_tie_rows_kth_swapped": swapped}
+            if label.startswith(("main", "large")):
+                N, D = x.shape
+                lib = lambda: torch.topk(torch.softmax(  # noqa: E731
+                    x.float() @ w.float(), -1), k)
+                b_ms, b_by = bound(nbytes(x, w, *got), 2.0 * N * D *
+                                   w.shape[1], dtype)
+                row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
+                           library_ms=cuda_ms(lib), bound_ms=b_ms,
+                           bound_by=b_by, device_ms=device_ms(call),
+                           plain_device_ms=device_ms(plain),
+                           library_device_ms=device_ms(lib))
+            log(f"kernel {'moe_route':15s} {str(dtype):15s} {label:45s} "
+                + " ".join(f"{k_}={v!r}" for k_, v in row.items()
+                           if k_ not in ("label", "dtype")))
+            rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -869,11 +1017,12 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
             f"agreement: {agree}/{total} tokens")
 
 
-def _profile_run(label, eng, reqs):
+def _profile_run(label, eng, reqs, also=()):
     """Wall time of ``eng`` serving ``reqs`` (host clock, unprofiled,
     ending in a synchronise) after a warm run, then the device busy time
     of an identical run under ``torch.profiler``. Idle share = 1 - busy /
-    wall."""
+    wall. Kernels whose names hold one of ``also`` are printed too, below
+    the top ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     eng.run(reqs, load="closed")                       # warm
@@ -892,7 +1041,8 @@ def _profile_run(label, eng, reqs):
     log(f"profile ({label}): wall {wall:.6f} s, device busy {busy:.6f} s, "
         f"idle share {1 - busy / wall:.4f}, tokens/s {tokens / wall:.6g}, "
         f"programs {eng.programs_run}")
-    for e in events[:12]:
+    named = [e for e in events[12:] if any(a in e.key for a in also)]
+    for e in events[:12] + named:
         log(f"  device {_self_device_us(e) / 1e3:10.3f} ms  x{e.count:6d}  "
             f"{e.key[:110]}")
     # host-to-device copies: the paged engine's block tables (built in
@@ -938,6 +1088,215 @@ def profile_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE path: full-width, full-depth moonshot-v1-16b-a3b in bf16
+# ---------------------------------------------------------------------------
+
+def _release():
+    """Free what earlier phases left to the collector and the caching
+    allocator, and say how much device memory is still held."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated after release: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+
+def moe_path_phase():
+    """The MoE main path through its entry point: ``run_engine`` on
+    moonshot-v1-16b-a3b at full width and depth, bf16 parameters and
+    activations, ``nss_shortcut``, 4 slots, prompt 32, gen 32, 8 requests
+    at open load. Every request must finish with its budget; moe_route,
+    rmsnorm, flash_attention and slot_decode must launch, moe_route once
+    per layer of every forward pass (48 per admission, 48 per decode
+    microstep: flash counts the admissions, slot decode the microsteps).
+    Prints the report, the counts and the peak device memory; returns the
+    counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_engine
+
+    n_layers = get_config(MOE_ARCH).num_layers
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = run_engine(MOE_ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
+                     gen_len=GEN, requests=REQUESTS, load="open",
+                     smoke=False, device="cuda", dtype="bf16")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("serve report (moe, open):", json.dumps(rep))
+    log("launches (moe, open):", counts)
+    log(f"moe path: peak device memory {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated)")
+    if rep["requests"] != REQUESTS or rep["total_tokens"] != REQUESTS * GEN:
+        raise AssertionError(f"moe path: {rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{REQUESTS} x {GEN}")
+    for k in ("moe_route", "rmsnorm", "flash_attention", "slot_decode"):
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"moe path: kernel {k} was never launched")
+    admissions = counts["flash_attention"] / n_layers
+    microsteps = counts["slot_decode"] / n_layers
+    log(f"moe path: {admissions:g} admissions, {microsteps:g} decode "
+        f"microsteps (warm-up included); moe_route {counts['moe_route']} = "
+        f"{counts['moe_route'] / n_layers:g} x {n_layers} layers")
+    if counts["moe_route"] != n_layers * (admissions + microsteps):
+        raise AssertionError("moe path: moe_route did not launch once per "
+                             "layer of every admission and microstep")
+    return counts
+
+
+@contextlib.contextmanager
+def routes(log: list, replay: bool):
+    """The MoE layers' routing steps (``layers._route``), in call order:
+    recorded into the list ``log`` as (output, router, tokens), or
+    (``replay``) replaced by the outputs of the next entries of the
+    iterator ``log``, so a second run routes exactly as the first one
+    did."""
+    from repro_torch.models import layers
+    orig, recorded = layers._route, iter(log)
+
+    def route(router, xt, K, opts):
+        if replay:
+            return next(recorded)[0]
+        out = orig(router, xt, K, opts)
+        log.append((out, router, xt))
+        return out
+
+    layers._route = route
+    try:
+        yield
+    finally:
+        layers._route = orig
+
+
+def moe_teacher_forced_phase(params, cfg, steps: int = 8, tol: float = 2e-3):
+    """Prefill 32 tokens, then ``steps`` slotted decode steps, at full
+    width over the bf16 parameters: kernels against plain versions on the
+    card, both fed the plain path's tokens. Gated: float32 activations
+    (each bf16 weight cast on use, as JAX's ``.astype(x.dtype)``), the
+    kernel path replaying the plain path's routing (``routes``): top-k
+    routing is discontinuous, and an ulp of difference upstream flips a
+    near-tied 6th/7th expert, so the gate holds the kernels' arithmetic
+    with the expert choice shared, max |dlogit| <= ``tol``. Printed: the
+    kernel path routing on its own, how many (token, layer) choices it
+    made differently with the smallest plain probability gap among them,
+    and the bf16-activation run (each path its own routing)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, decode_step_slots, prefill
+    from repro_torch.models.layers import router_probs
+    from repro_torch.serve import slotify
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PROMPT),
+                                         dtype=np.int32)).cuda()
+
+    def run(opts, log, replay, feed=None):
+        """Logits of the prefill and of each decode step; the tokens fed
+        are ``feed``'s, or this run's own greedy ones."""
+        with routes(log, replay):
+            lg, cache = prefill(params, toks, cfg, opts, MAX_LEN)
+        cache, out, fed = slotify(cache), [lg], []
+        for i in range(steps):
+            nxt = (feed[i] if feed is not None
+                   else torch.argmax(lg, -1).to(torch.int32))
+            fed.append(nxt)
+            with routes(log, replay):
+                lg, cache = decode_step_slots(params, cache, nxt, cfg, opts)
+            out.append(lg)
+        return out, fed
+
+    def worst(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+    plain_log, own_log = [], []
+    lp, feed = run(plain, plain_log, replay=False)
+    lk, _ = run(kern, iter(plain_log), replay=True, feed=feed)
+    torch.cuda.synchronize()
+    w = worst(lp, lk)
+    log(f"teacher-forced (moe, f32 activations over bf16 parameters, "
+        f"prefill + {steps} slotted decode steps, routing replayed) max "
+        f"|dlogit|: {w:.3e} (tolerance {tol}; logit scale "
+        f"{lp[-1].abs().max().item():.3g})")
+    if not math.isfinite(w) or w > tol:
+        raise AssertionError(f"teacher-forced (moe) logits differ by {w}")
+    lo, _ = run(kern, own_log, replay=False, feed=feed)
+    K = cfg.moe.top_k
+    differ, total, gaps = 0, 0, []
+    for ((_, pi), w, xt), ((_, oi), _, _) in zip(plain_log, own_log):
+        bad = (torch.sort(pi, -1).values != torch.sort(oi, -1).values).any(-1)
+        differ += int(bad.sum())
+        total += bad.numel()
+        if bad.any():
+            pp = router_probs(w, xt, plain)
+            top = torch.sort(pp[bad].float(), -1, descending=True).values
+            gaps.append((top[:, K - 1] - top[:, K]).min().item())
+    log(f"moe kernel path routing on its own: max |dlogit| "
+        f"{worst(lp, lo):.4e}; {differ} of {total} (token, layer) expert "
+        f"choices differed from the plain path's, smallest plain "
+        f"k-th/(k+1)-th probability gap among them "
+        f"{min(gaps) if gaps else float('nan'):.3e} (not gated)")
+    bplain = ModelOptions(attn_impl="ref", dtype=torch.bfloat16)
+    lbp, _ = run(bplain, [], replay=False, feed=feed)
+    lbk, _ = run(preset(PRESET).model_options(bplain), [], replay=False,
+                 feed=feed)
+    torch.cuda.synchronize()
+    log(f"moe bf16 activations, kernels vs plain (each its own routing): "
+        f"max |dlogit| {worst(lbp, lbk):.4e}; bf16 plain vs the f32 plain: "
+        f"{worst(lbp, lp):.4e} (not gated)")
+
+
+def moe_profile_phase(params, cfg):
+    """Where one MoE engine run's time goes: 4 slots, each admitted with a
+    32-token prompt, then one 32-step L3 program, bf16, ``nss_shortcut``:
+    wall time, device busy, idle share, the top kernels (the expert GEMMs
+    first), and the router and attention kernels by name."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.bfloat16))
+    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS, max_len=MAX_LEN)
+    _profile_run(f"moe slotted: {SLOTS} admissions + one {GEN}-step decode "
+                 "program, bf16", eng, reqs,
+                 also=("route", "decode", "flash", "rmsnorm"))
+
+
+def moe_phases(check: bool = True):
+    """The MoE path, then its teacher-forced check (``check``) and its
+    profile over one seeded set of bf16 parameters (56.1 GB; the path
+    phase's own are freed first). Returns the path's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    _release()
+    counts = moe_path_phase()
+    _release()
+    cfg = get_config(MOE_ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", param_dtype=torch.bfloat16)
+    if check:
+        moe_teacher_forced_phase(params, cfg)
+    moe_profile_phase(params, cfg)
+    del params
+    _release()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -961,21 +1320,31 @@ def main() -> int:
             log("  ptxas:", line.split("info    :")[-1].strip()[:160])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if sys.argv[1:] == ["route"]:
+        route_phase(gen)
+        return 0
+    if sys.argv[1:] == ["moe"]:
+        moe_phases(check=False)
+        return 0
     records = kernel_phase(gen)
     quant_insert_phase()
     _, _, counts, paged = path_phase()
     teacher_forced_phase()
     profile_phase()
+    route_rows = route_phase(gen)
+    moe_counts = moe_phases()
+    records["moe_route"] = route_rows
 
     # launches: each kernel's count in the run of the path that carries it
     # (the slotted --load open run; paged path A for paged_decode, paged
     # path B for paged_prefill), and every path's count beside it
     by_path = {"slotted open": counts,
-               **{f"paged {n}": paged[n][1] for n in "ABCD"}}
+               **{f"paged {n}": paged[n][1] for n in "ABCD"},
+               "moe slotted open": moe_counts}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",
-            "paged_prefill_quant": "paged D"}
+            "paged_prefill_quant": "paged D", "moe_route": "moe slotted open"}
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:36"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -991,10 +1360,15 @@ def main() -> int:
                    "src/repro/kernels/paged_decode.py:37"),
                "paged_prefill_quant": (
                    "src/repro_torch/csrc/paged_attention.cu",
-                   "src/repro/kernels/paged_prefill.py:82")}
+                   "src/repro/kernels/paged_prefill.py:82"),
+               "moe_route": ("src/repro_torch/csrc/moe_route.cu",
+                             "src/repro/kernels/moe_route.py:47")}
     out = []
     for name, (src, replaces) in sources.items():
-        rows = [r for r in records[name] if r["dtype"] == "torch.float32"]
+        # the record's dtype is its home path's: float32, bf16 for the MoE
+        home_dtype = ("torch.bfloat16" if name == "moe_route"
+                      else "torch.float32")
+        rows = [r for r in records[name] if r["dtype"] == home_dtype]
         main_row = rows[0]
         large = next(r for r in rows if r["label"].startswith("large"))
         extra = {k: v for k, v in large.items() if k != "dtype"}
@@ -1026,6 +1400,16 @@ def main() -> int:
         if fp8:       # the quantized kernels: the record is int8, then fp8
             out[-1]["fp8"] = {k: v for k, v in fp8[0].items()
                               if k != "dtype"}
+        moe = [r for r in records[name] if r["label"].startswith("moe")
+               and r["dtype"] == "torch.bfloat16"]
+        if moe:       # at the MoE path's shapes, in its dtype (bf16)
+            out[-1]["moe"] = {k: v for k, v in moe[0].items()
+                              if k != "dtype"}
+        if name == "moe_route":
+            out[-1]["library_calls"] = ("torch.topk(torch.softmax(x.float() "
+                                        "@ router.float(), -1), k): 3 calls")
+            out[-1]["float32"] = {k: v for k, v in records[name][0].items()
+                                  if k != "dtype"}
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@ jax), with ``blocks`` stacked per block-pattern position and dense weights
 in ``(d_in, d_out)`` layout, and returns the port's parameters: one dict per
 layer in execution order (block-major, as the JAX scan runs them), the same
 keys, the same layout. A tree without ``lm_head`` is a tied-embedding model.
+MoE layers carry over as they are (``router`` (D, E) and the ``wi``, ``wg``,
+``wo`` expert stacks (E, D, F) / (E, F, D), one more leading block axis in
+the tree). A bfloat16 leaf (an ``ml_dtypes`` array, which
+``torch.from_numpy`` cannot read) goes through float32, exactly.
 """
 from __future__ import annotations
 
@@ -19,7 +23,12 @@ from repro_torch import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """One leaf on ``device`` in its own dtype (a bfloat16 one through
+    float32, exactly)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return _tensor(arr.astype(np.float32), device).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
 def _map(tree, fn):

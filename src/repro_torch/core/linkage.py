@@ -21,7 +21,8 @@ levels keep their meaning:
     ret_async   "ret vs iret": generated tokens stay on the device until a
                 request finishes; the host synchronises only then.
     shortcut    the hand-written Hopper kernels (flash attention, slot
-                decode, fused RMSNorm) in place of the plain PyTorch paths.
+                and paged decode, paged prefill, fused RMSNorm, the MoE
+                router) in place of the plain PyTorch paths.
                 Their wrappers dispatch on the tensors' device: the kernels
                 on CUDA, their plain versions on the CPU.
 """
@@ -65,13 +66,15 @@ class LinkageConfig:
     def model_options(self, base: Optional[ModelOptions] = None
                       ) -> ModelOptions:
         """Resolve ModelOptions for this linkage level: ``shortcut`` selects
-        the kernel wrappers (attention and the fused norm). Which code runs
-        then follows the tensors: the Hopper kernels for CUDA tensors, their
-        plain versions for CPU tensors."""
+        the kernel wrappers (attention, the fused norm and the MoE router,
+        ``scan_impl``: JAX's "pallas"). Which code runs then follows the
+        tensors: the Hopper kernels for CUDA tensors, their plain versions
+        for CPU tensors."""
         base = base or ModelOptions()
         if not self.shortcut:
             return base
-        return dataclasses.replace(base, attn_impl="kernel", fused_norm=True)
+        return dataclasses.replace(base, attn_impl="kernel",
+                                   scan_impl="kernel", fused_norm=True)
 
 
 # Named presets mirroring the paper's evaluated configurations -------------

@@ -122,7 +122,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rt_rmsnorm.argtypes = [P, P, P, I, I, F, I, P]
+        lib.rt_rmsnorm.argtypes = [P, P, P, I, I, F, I, I, P]
         lib.rt_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
                                            I, I, F, I, P]
         lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, I, I, I, I,
@@ -135,12 +135,14 @@ def library() -> ctypes.CDLL:
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, F, I, I, P]
         lib.rt_paged_prefill_attention_quant.argtypes = [
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, I, I, P]
+        lib.rt_moe_route.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
         for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
                    lib.rt_slot_decode_attention,
                    lib.rt_paged_decode_attention,
                    lib.rt_paged_prefill_attention,
                    lib.rt_paged_decode_attention_quant,
-                   lib.rt_paged_prefill_attention_quant):
+                   lib.rt_paged_prefill_attention_quant,
+                   lib.rt_moe_route):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_route as _route
 from repro_torch.kernels import paged_decode as _paged
 from repro_torch.kernels import paged_prefill as _paged_pf
 from repro_torch.kernels import rmsnorm as _rms
@@ -25,8 +26,8 @@ from repro_torch.kernels import slot_decode as _slot
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since ``reset_launch_counts`` (keys: ``rmsnorm``,
     ``flash_attention``, ``slot_decode``, ``paged_decode``,
-    ``paged_prefill``, and the fused-dequant ``paged_decode_quant`` and
-    ``paged_prefill_quant``)."""
+    ``paged_prefill``, the fused-dequant ``paged_decode_quant`` and
+    ``paged_prefill_quant``, and ``moe_route``)."""
     return dict(_build.launches)
 
 
@@ -89,3 +90,10 @@ def paged_prefill_attention(q, kp, vp, tables, start, ks=None, vs=None):
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5):
     return _rms.rmsnorm(x, scale, eps=eps)
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """The MoE router (JAX ``ops.py:112``): x (N,D) in float32 or bfloat16,
+    router (D,E) in x's dtype (the layer casts it, as ``layers.py:775``
+    does) -> (gates (N,k) f32, idx (N,k) int32)."""
+    return _route.moe_route(x, router, k)

@@ -9,7 +9,9 @@ versions of the fused-dequant kernels. The wrappers run
 them for tensors on the CPU; on the card they are what each kernel is held
 against. One rule is the kernels', not the JAX oracles': a decode row with
 no valid key gives zeros (the Pallas ``_decode_kernel`` clamps its
-denominator at 1e-30) where a ``-inf`` softmax would give NaN.
+denominator at 1e-30) where a ``-inf`` softmax would give NaN. And
+``moe_route_ref`` repeats the Pallas ``_route_kernel``'s arithmetic
+(``moe_route.py:19-36``), not the oracle's (``ref.py:150``).
 """
 from __future__ import annotations
 
@@ -122,3 +124,27 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+NEG_INF = -1e30
+
+
+def moe_route_ref(x, router, k: int):
+    """The Pallas router ``_route_kernel`` (``moe_route.py:19-36``) step for
+    step: x (N,D) and router (D,E) cast to f32 before the product (f32
+    accumulation), softmax as ``exp(l - max) / sum``, then k rounds of max,
+    argmax and a mask to -1e30. ``torch.argmax`` returns the first maximum,
+    so ties go to the lowest index, as ``jnp.argmax`` does (``torch.topk``
+    guarantees no order). Returns (gates (N,k) f32, idx (N,k) int32)."""
+    logits = x.float() @ router.float()
+    p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    work = p / p.sum(dim=-1, keepdim=True)
+    gates, idx = [], []
+    for _ in range(k):
+        best = work.max(dim=-1).values
+        bidx = torch.argmax(work, dim=-1)
+        gates.append(best)
+        idx.append(bidx)
+        work = work.scatter(-1, bidx[:, None], NEG_INF)
+    return (torch.stack(gates, -1),
+            torch.stack(idx, -1).to(torch.int32))

@@ -23,6 +23,8 @@ Two paths share one model/linkage setup:
       python -m repro_torch.launch.serve --kv paged --kv-dtype int8 \\
           [--chunked]
       python -m repro_torch.launch.serve --device cpu     # off the card
+      python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
+          --dtype bf16                   # the MoE model, bf16 parameters
 
   sequential        one request batch at a time (``--load seq``, also
                     ``run_server``): the baseline the engine's continuous
@@ -30,7 +32,12 @@ Two paths share one model/linkage setup:
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU, ``cuda``
 raises. The CLI serves the smoke model, as the JAX launcher does;
-``run_engine(..., smoke=False)`` serves the published widths. Chunked
+``run_engine(..., smoke=False)`` serves the published widths.
+``--dtype bf16`` (``dtype="bf16"``) sets both the activation and the
+parameter dtype (JAX's ``ModelOptions.dtype`` and ``init_params(...,
+param_dtype)``); the default, fp32, keeps both in float32. At published
+widths moonshot-v1-16b-a3b's 28.06 B parameters take 56.1 GB in bf16 and
+do not fit one 80 GB card in fp32. Chunked
 prefill on the slotted backend, speculation, swap (quantized blocks
 included), the prefix cache, meshes and sampling at temperature > 0 raise
 ``NotImplementedError`` naming their ROADMAP item; ``--kv-dtype int8|fp8``
@@ -48,10 +55,21 @@ import numpy as np
 import torch
 
 
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; known: {list(DTYPES)}")
+    return DTYPES[name]
+
+
 def _setup(arch: str, preset_name: str, *, smoke: bool = True, seed: int = 0,
-           gen_len: int = 64, decode_steps: int = 0, device="cuda"):
+           gen_len: int = 64, decode_steps: int = 0, device="cuda",
+           dtype="fp32"):
     """Shared model/linkage construction for both serving paths: weights
-    from the port's own seeded init on ``device``."""
+    from the port's own seeded init on ``device``, activations and
+    parameters in ``dtype``."""
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core import L3_NSS, preset
@@ -65,10 +83,10 @@ def _setup(arch: str, preset_name: str, *, smoke: bool = True, seed: int = 0,
     if lk.level == L3_NSS:
         k = decode_steps or min(lk.decode_steps, gen_len)
         lk = dataclasses.replace(lk, decode_steps=k)
-    opts = lk.model_options(ModelOptions(attn_impl="ref",
-                                         dtype=torch.float32))
+    dt = _dtype(dtype)
+    opts = lk.model_options(ModelOptions(attn_impl="ref", dtype=dt))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, gen, dev)
+    params = init_params(cfg, gen, dev, param_dtype=dt)
     return cfg, lk, opts, params
 
 
@@ -84,8 +102,10 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
                budget: int = 256, chunk_width: int = 0,
                preempt: str = "recompute", victim: str = "youngest",
                kv_dtype: str = "bf16", trace: str = "", metrics: str = "",
-               log_interval: float = 0.0, profile_dir: str = ""):
+               log_interval: float = 0.0, profile_dir: str = "",
+               dtype="fp32"):
     """Continuous-batching serving run; returns the engine report dict.
+    ``dtype`` ("fp32" or "bf16") is the activation and parameter dtype.
 
     ``trace`` writes the run's Chrome-trace JSON (``.jsonl`` suffix: raw
     JSONL), ``metrics`` the Prometheus text exposition, ``log_interval``
@@ -102,7 +122,8 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
     sampling = SamplingConfig(temperature=temperature, seed=seed).validate()
     cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
                                    gen_len=gen_len,
-                                   decode_steps=decode_steps, device=device)
+                                   decode_steps=decode_steps, device=device,
+                                   dtype=dtype)
     max_len = prompt_len + gen_len + 8
 
     tel = None
@@ -169,6 +190,7 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
         "arch": cfg.name, "preset": preset_name, "load": load,
         "n_slots": n_slots, "prompt_len": prompt_len, "gen_len": gen_len,
         "decode_steps_per_program": eng.tokens_per_program,
+        "dtype": str(opts.dtype).removeprefix("torch."),
         "device": _device_name(params["embed"].device),
     })
     if load == "open":
@@ -187,15 +209,16 @@ def _sync(dev: torch.device) -> None:
 
 def run_server(arch: str, preset_name: str, *, batch: int = 8,
                prompt_len: int = 64, gen_len: int = 64, requests: int = 4,
-               smoke: bool = True, seed: int = 0, device="cuda"):
+               smoke: bool = True, seed: int = 0, device="cuda",
+               dtype="fp32"):
     """Sequential baseline: whole-batch prefill + decode, one request batch
-    at a time (no admission between programs)."""
+    at a time (no admission between programs), in ``dtype``."""
     from repro_torch.core import L3_NSS, build_decode_step
     from repro_torch.models import prefill
 
     cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
                                    gen_len=gen_len, decode_steps=gen_len,
-                                   device=device)
+                                   device=device, dtype=dtype)
     dev = params["embed"].device
     dec = build_decode_step(cfg, opts, lk)
     rng = np.random.default_rng(seed)
@@ -241,6 +264,7 @@ def run_server(arch: str, preset_name: str, *, batch: int = 8,
         "mean_latency_s": float(np.mean(lat)),
         "p50_latency_s": float(np.percentile(lat, 50)),
         "p99_latency_s": float(np.percentile(lat, 99)),
+        "dtype": str(opts.dtype).removeprefix("torch."),
         "device": _device_name(dev),
     }
 
@@ -248,7 +272,11 @@ def run_server(arch: str, preset_name: str, *, batch: int = 8,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--arch", default="tinyllama-1.1b")
+    p.add_argument("--arch", default="tinyllama-1.1b",
+                   help="tinyllama-1.1b or moonshot-v1-16b-a3b (the MoE "
+                        "model)")
+    p.add_argument("--dtype", default="fp32", choices=list(DTYPES),
+                   help="activation and parameter dtype")
     p.add_argument("--preset", default="nss_shortcut")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
@@ -341,7 +369,8 @@ def main(argv=None) -> int:
         SamplingConfig(temperature=args.temperature).validate()
         rep = run_server(args.arch, args.preset, batch=args.batch,
                          prompt_len=args.prompt_len, gen_len=args.gen_len,
-                         requests=args.requests, seed=args.seed, device=args.device)
+                         requests=args.requests, seed=args.seed,
+                         device=args.device, dtype=args.dtype)
     else:
         rep = run_engine(args.arch, args.preset, n_slots=args.slots,
                          prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -361,7 +390,7 @@ def main(argv=None) -> int:
                          kv_dtype=args.kv_dtype,
                          trace=args.trace, metrics=args.metrics,
                          log_interval=args.log_interval,
-                         profile_dir=args.profile_dir)
+                         profile_dir=args.profile_dir, dtype=args.dtype)
     print(json.dumps(rep, indent=1))
     if args.report_json:
         with open(args.report_json, "w") as f:

@@ -1,14 +1,16 @@
-"""Layer library of the port, the ATTN/SWA + DENSE subset of
+"""Layer library of the port, the ATTN/SWA + DENSE/MOE subset of
 ``src/repro/models/layers.py``: init + apply for RMSNorm, RoPE, GQA
 attention (full sequence, blockwise, uniform / slotted / paged decode, the
-paged serve chunk pass) and the SwiGLU MLP.
+paged serve chunk pass), the SwiGLU MLP and the top-k MoE with capacity
+dispatch.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 ``(d_in, d_out)`` weight layout, so ``x @ w`` is the same product in both
 frameworks. ``ModelOptions.attn_impl`` picks between the plain attention
 written here ("ref", the oracle) and the shortcut ("kernel": the wrappers
 in ``repro_torch.kernels.ops``, which launch the Hopper kernels for CUDA
-tensors and run their plain versions for CPU tensors).
+tensors and run their plain versions for CPU tensors); ``scan_impl`` does
+the same for the MoE router.
 
 Decode writes the new K/V into the cache tensors in place (the PyTorch
 counterpart of JAX buffer donation at linkage L2+); the callers clone the
@@ -29,12 +31,17 @@ from repro_torch.kernels.ref import gather_pool
 Params = Dict[str, Any]
 
 ATTN_IMPLS = ("ref", "kernel")
+SCAN_IMPLS = ("ref", "kernel")
+#: MoE routing-group size in tokens: JAX ``ModelOptions.moe_group``'s
+#: default, the value its serving paths run with
+MOE_GROUP = 4096
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
     """Execution options — orthogonal to the architecture (UKL linkage picks)."""
     attn_impl: str = "ref"              # ref | kernel
+    scan_impl: str = "ref"              # ref | kernel (JAX: ref|chunked|pallas)
     dtype: torch.dtype = torch.bfloat16  # activation dtype
     fused_norm: bool = False            # fused RMSNorm kernel (shortcut)
 
@@ -42,46 +49,68 @@ class ModelOptions:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}; known: "
                              f"{ATTN_IMPLS}")
+        if self.scan_impl not in SCAN_IMPLS:
+            raise ValueError(f"unknown scan_impl {self.scan_impl!r}; known: "
+                             f"{SCAN_IMPLS}")
 
 
 # ---------------------------------------------------------------------------
 # Initializers (layers.py:82-85 and the init_* functions: same shapes and
-# distributions, drawn from a torch.Generator)
+# distributions, drawn in float32 from a torch.Generator, stored in dtype)
 # ---------------------------------------------------------------------------
 
-def _dense_init(gen: torch.Generator, shape, device, scale=None):
+def _dense_init(gen: torch.Generator, shape, device, scale=None,
+                dtype=torch.float32):
+    """A float32 normal draw scaled in place, then cast to ``dtype`` (the
+    JAX ``init_params`` cast): one float32 tensor is the transient."""
     fan_in = shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
-def init_rmsnorm(cfg: ArchConfig, device) -> Params:
-    return {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                device=device)}
+def init_rmsnorm(cfg: ArchConfig, device, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
 
 
-def init_attention(gen, cfg: ArchConfig, device) -> Params:
+def init_attention(gen, cfg: ArchConfig, device,
+                   dtype=torch.float32) -> Params:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": _dense_init(gen, (d, hq * dh), device),
-        "wk": _dense_init(gen, (d, hkv * dh), device),
-        "wv": _dense_init(gen, (d, hkv * dh), device),
+        "wq": _dense_init(gen, (d, hq * dh), device, dtype=dtype),
+        "wk": _dense_init(gen, (d, hkv * dh), device, dtype=dtype),
+        "wv": _dense_init(gen, (d, hkv * dh), device, dtype=dtype),
         "wo": _dense_init(gen, (hq * dh, d), device,
-                          scale=1.0 / math.sqrt(hq * dh)),
+                          scale=1.0 / math.sqrt(hq * dh), dtype=dtype),
     }
     if cfg.attn_bias:
         for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
-            p[name] = torch.zeros((n,), dtype=torch.float32, device=device)
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
     return p
 
 
-def init_mlp(gen, cfg: ArchConfig, device) -> Params:
+def init_mlp(gen, cfg: ArchConfig, device, dtype=torch.float32) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "wi": _dense_init(gen, (d, f), device),
-        "wg": _dense_init(gen, (d, f), device),
-        "wo": _dense_init(gen, (f, d), device, scale=1.0 / math.sqrt(f)),
+        "wi": _dense_init(gen, (d, f), device, dtype=dtype),
+        "wg": _dense_init(gen, (d, f), device, dtype=dtype),
+        "wo": _dense_init(gen, (f, d), device, scale=1.0 / math.sqrt(f),
+                          dtype=dtype),
+    }
+
+
+def init_moe(gen, cfg: ArchConfig, device, dtype=torch.float32) -> Params:
+    """``layers.py:738-747``: the (E, D, F) expert weights take
+    ``_dense_init``'s ``fan_in = shape[0]``, so their std is 1/sqrt(E)
+    (0.125 at E 64), as in JAX."""
+    assert cfg.moe is not None
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    return {
+        "router": _dense_init(gen, (d, e), device, scale=0.02, dtype=dtype),
+        "wi": _dense_init(gen, (e, d, f), device, dtype=dtype),
+        "wg": _dense_init(gen, (e, d, f), device, dtype=dtype),
+        "wo": _dense_init(gen, (e, f, d), device, scale=1.0 / math.sqrt(f),
+                          dtype=dtype),
     }
 
 
@@ -459,3 +488,120 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = (torch.nn.functional.silu(x @ params["wg"].to(x.dtype))
          * (x @ params["wi"].to(x.dtype)))
     return h @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-based dispatch; layers.py:750-818)
+# ---------------------------------------------------------------------------
+
+def top_k_stable(probs: torch.Tensor, k: int):
+    """``lax.top_k`` over the last dim: descending, ties to the lower
+    index. A stable descending sort keeps equal values in index order;
+    ``torch.topk`` guarantees no order among ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def router_probs(router: torch.Tensor, xt: torch.Tensor,
+                 opts: ModelOptions) -> torch.Tensor:
+    """The router's softmax over the experts, ``layers.py:778-786``: f32
+    under ``scan_impl == "kernel"``; under "ref" cast to x's dtype, as JAX
+    keeps the (G,gs,E) tensor downstream in the activation dtype."""
+    probs = torch.softmax((xt @ router.to(xt.dtype)).float(), dim=-1)
+    return probs if opts.scan_impl == "kernel" else probs.to(xt.dtype)
+
+
+def _route(router: torch.Tensor, xt: torch.Tensor, K: int,
+           opts: ModelOptions):
+    """The routing step of ``moe`` (``layers.py:772-787``): xt (G,gs,D)
+    -> (gates (G,gs,K), idx (G,gs,K) int32). Under ``scan_impl ==
+    "kernel"`` the router kernel alone: f32 gates, the (N, E)
+    probabilities never formed. Under "ref" the top-k of
+    ``router_probs``, gates in x's dtype."""
+    G, gs, D = xt.shape
+    if opts.scan_impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        gates, idx = kops.moe_route(xt.reshape(G * gs, D),
+                                    router.to(xt.dtype), K)
+        return gates.reshape(G, gs, K), idx.reshape(G, gs, K)
+    return top_k_stable(router_probs(router, xt, opts), K)
+
+
+def _expert_matmul(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(G,E,C,a) @ (E,a,b) -> (G,E,C,b) as one batched product over E with
+    the weights in their stored layout: only the small activation is
+    permuted, the (E,a,b) weight is never copied."""
+    G, E, C, a = xe.shape
+    rows = xe.permute(1, 0, 2, 3).reshape(E, G * C, a)
+    out = torch.bmm(rows, w)                               # (E, G*C, b)
+    return out.reshape(E, G, C, -1).permute(1, 0, 2, 3)
+
+
+def _moe(params: Params, x: torch.Tensor, cfg: ArchConfig,
+         opts: ModelOptions):
+    """``moe``'s output, with the grouped tokens and the routing one-hots
+    the aux loss reads."""
+    mcfg = cfg.moe
+    B, S, D = x.shape
+    N = B * S
+    E, K = mcfg.num_experts, mcfg.top_k
+    gs = min(MOE_GROUP, S)
+    while S % gs != 0:                 # largest divisor of S not above cap
+        gs -= 1
+    G = N // gs
+    xt = x.reshape(G, gs, D)
+
+    gates, idx = _route(params["router"], xt, K, opts)
+    gates = gates.float()
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    C = min(max(int(gs * K * mcfg.capacity_factor / E), 1), gs)
+    onehot = torch.nn.functional.one_hot(idx.long(), E).to(torch.int32)
+    flat = onehot.reshape(G, gs * K, E)
+    pos_in_e = torch.cumsum(flat, dim=1) * flat - 1           # (G,gs*K,E)
+    pos = pos_in_e.amax(dim=-1).reshape(G, gs, K)
+    keep = (pos >= 0) & (pos < C)
+    gates = gates * keep
+
+    pos_oh = torch.nn.functional.one_hot(
+        torch.where(keep, pos, C).long(), C + 1).to(x.dtype)[..., :C]
+    disp = torch.einsum("gske,gskc->gsec", onehot.to(x.dtype), pos_oh)
+    comb = torch.einsum("gske,gskc,gsk->gsec", onehot.float(),
+                        pos_oh.float(), gates).to(x.dtype)
+
+    xe = torch.einsum("gsd,gsec->gecd", xt, disp)             # (G,E,C,D)
+    h = (torch.nn.functional.silu(
+        _expert_matmul(xe, params["wg"].to(x.dtype)))
+        * _expert_matmul(xe, params["wi"].to(x.dtype)))
+    ye = _expert_matmul(h, params["wo"].to(x.dtype))          # (G,E,C,D)
+    y = torch.einsum("gecd,gsec->gsd", ye, comb)
+    return y.reshape(B, S, D), xt, onehot
+
+
+def moe(params: Params, x: torch.Tensor, cfg: ArchConfig,
+        opts: ModelOptions) -> torch.Tensor:
+    """Grouped capacity-based top-k MoE (GShard formulation), the output of
+    ``layers.py:750-818`` line for line; the serving paths drop the aux
+    loss, as JAX's do, so it is never formed here (``moe_with_aux``).
+
+    Tokens split into groups of the largest divisor of S not above
+    ``MOE_GROUP``; capacity is per group, C = min(max(int(gs·K·cf/E), 1),
+    gs), and an expert's slots go to its tokens in (s, k) order — the rest
+    are dropped. The dispatch and combine one-hots are (G,gs,E,C); the
+    combine weights are formed in fp32, then cast to x's dtype. Every
+    expert runs its C slots of every group, as in the reference.
+    """
+    return _moe(params, x, cfg, opts)[0]
+
+
+def moe_with_aux(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                 opts: ModelOptions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(output, router aux loss), JAX's ``moe`` contract, for training
+    (ROADMAP module item 11): the Switch-style load-balancing loss over
+    ``router_probs``, averaged over groups (``layers.py:814-817``)."""
+    y, xt, onehot = _moe(params, x, cfg, opts)
+    E = cfg.moe.num_experts
+    me = router_probs(params["router"], xt, opts).float().mean(dim=1)  # (G,E)
+    frac = onehot.sum(dim=2).float().mean(dim=1)              # (G,E)
+    aux = (me * frac).sum(-1).mean() * E * cfg.moe.router_aux_coef
+    return y, aux

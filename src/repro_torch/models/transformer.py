@@ -1,7 +1,10 @@
 """Model assembly of the port: init, embed/unembed, backbone, prefill,
 one-token decode (uniform, slotted and paged), the paged serve chunk pass
-and the shared-prefix suffix prefill, for the ATTN/SWA + DENSE
-architectures (``src/repro/models/transformer.py``).
+and the shared-prefix suffix prefill, for the ATTN/SWA mixers with a dense
+SwiGLU or a top-k MoE in the MLP position
+(``src/repro/models/transformer.py``). Every layer function reaches its MLP
+through one dispatch (``mlp_block``), so the slotted, paged and chunked
+engines all serve the MoE layer.
 
 JAX stacks each block-pattern position's parameters and scans over blocks;
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in
@@ -16,7 +19,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, DENSE, SWA, ArchConfig, LayerSpec
+from repro_torch.configs.base import (ATTN, DENSE, MOE, SWA, ArchConfig,
+                                      LayerSpec)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions, Params
 
@@ -28,14 +32,15 @@ SUFFIX_Q_CHUNK, SUFFIX_KV_CHUNK = 512, 1024
 
 
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
-    """The spec of every layer in execution order. The port serves the
-    attention (full or sliding-window) + dense SwiGLU subset; the MoE,
-    Mamba, RWKV and cross-attention layers are ROADMAP module item 12."""
+    """The spec of every layer in execution order. The port serves
+    attention (full or sliding-window) mixers with a dense SwiGLU or a MoE
+    MLP; the Mamba, RWKV and cross-attention layers are ROADMAP module
+    item 12."""
     for spec in cfg.block_pattern:
-        if spec.mixer not in (ATTN, SWA) or spec.mlp != DENSE:
+        if spec.mixer not in (ATTN, SWA) or spec.mlp not in (DENSE, MOE):
             raise NotImplementedError(
-                f"layer {spec} is outside the port's ATTN/SWA + DENSE subset "
-                "(ROADMAP module item 12: the model zoo)")
+                f"layer {spec} is outside the port's ATTN/SWA + DENSE/MOE "
+                "subset (ROADMAP module item 12: the model zoo)")
     if cfg.embeds_in:
         raise NotImplementedError("embedding-input configs are ROADMAP module "
                                   "item 12")
@@ -46,31 +51,41 @@ def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
 # Init
 # ---------------------------------------------------------------------------
 
-def init_layer(gen: torch.Generator, cfg: ArchConfig, device) -> Params:
-    return {"norm1": L.init_rmsnorm(cfg, device),
-            "norm2": L.init_rmsnorm(cfg, device),
-            "mixer": L.init_attention(gen, cfg, device),
-            "mlp": L.init_mlp(gen, cfg, device)}
+def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
+               device, param_dtype=torch.float32) -> Params:
+    """One layer's parameters, each tensor drawn in float32 and cast to
+    ``param_dtype`` at once: the float32 transient is one tensor (a 738 MB
+    expert stack at moonshot-v1-16b-a3b's widths)."""
+    init_mlp = L.init_moe if spec.mlp == MOE else L.init_mlp
+    return {"norm1": L.init_rmsnorm(cfg, device, param_dtype),
+            "norm2": L.init_rmsnorm(cfg, device, param_dtype),
+            "mixer": L.init_attention(gen, cfg, device, param_dtype),
+            "mlp": init_mlp(gen, cfg, device, param_dtype)}
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device) -> Params:
+def init_params(cfg: ArchConfig, generator: torch.Generator, device,
+                param_dtype=torch.float32) -> Params:
     """Random parameters with the JAX package's shapes and distributions
     (``transformer.py:50-68``: embed and lm_head N(0, 0.02²), dense weights
-    N(0, 1/fan_in), norms at 1), drawn from ``generator`` directly on
-    ``device``. The draws differ from JAX's; weights cross between the two
-    only through ``repro_torch.convert.params_from_jax``."""
+    N(0, 1/fan_in), the (E, D, F) expert weights N(0, 1/E) as JAX's
+    ``fan_in = shape[0]`` gives them, norms at 1), drawn in float32 from
+    ``generator`` directly on ``device`` and cast to ``param_dtype`` as
+    JAX casts them (``transformer.py:67``), one tensor at a time. The
+    draws differ from JAX's; weights cross between the two only through
+    ``repro_torch.convert.params_from_jax``."""
     device = resolve_device(device)
     specs = layer_specs(cfg)
-    params: Params = {"embed": torch.randn(
-        (cfg.vocab_size, cfg.d_model), generator=generator, device=device,
-        dtype=torch.float32) * 0.02}
-    params["layers"] = [init_layer(generator, cfg, device) for _ in specs]
-    params["final_norm"] = L.init_rmsnorm(cfg, device)
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(0.02).to(param_dtype)
+
+    params: Params = {"embed": normal((cfg.vocab_size, cfg.d_model))}
+    params["layers"] = [init_layer(generator, cfg, spec, device, param_dtype)
+                        for spec in specs]
+    params["final_norm"] = L.init_rmsnorm(cfg, device, param_dtype)
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn(
-            (cfg.d_model, cfg.vocab_size), generator=generator, device=device,
-            dtype=torch.float32) * 0.02
+        params["lm_head"] = normal((cfg.d_model, cfg.vocab_size))
     return params
 
 
@@ -89,13 +104,24 @@ def unembed_logits(params: Params, h: torch.Tensor,
     return (h @ w.to(h.dtype)).float()
 
 
+def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
+              opts: ModelOptions) -> torch.Tensor:
+    """The pre-norm MLP half of every layer function, ``x + mlp(norm2(x))``:
+    the dense SwiGLU, or the MoE without its aux loss, which JAX's
+    prefill, decode and serve paths drop (``transformer.py:289, 426, 703,
+    769``)."""
+    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
+    if spec.mlp == MOE:
+        return x + L.moe(p["mlp"], h, cfg, opts)
+    return x + L.mlp(p["mlp"], h)
+
+
 def apply_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                 opts: ModelOptions, positions: torch.Tensor) -> torch.Tensor:
     """Pre-norm residual layer (full sequence)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions)
-    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
-    return x + L.mlp(p["mlp"], h)
+    return mlp_block(p, x, cfg, spec, opts)
 
 
 def backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
@@ -155,9 +181,7 @@ def apply_layer_decode(p: Params, x: torch.Tensor, cache_l: Params,
     else:
         attn_fn = L.attention_decode_slots if slots else L.attention_decode
         mix = attn_fn(p["mixer"], h, cache_l, cfg, spec, opts)
-    x = x + mix
-    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
-    return x + L.mlp(p["mlp"], h)
+    return mlp_block(p, x + mix, cfg, spec, opts)
 
 
 def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
@@ -232,12 +256,6 @@ def _serve_chunk_block(params: Params, cache: Cache, h: torch.Tensor,
     return h
 
 
-def _chunk_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig,
-               opts: ModelOptions) -> torch.Tensor:
-    h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
-    return x + L.mlp(p["mlp"], h)
-
-
 def _chunk_logits(params: Params, h: torch.Tensor, clen: torch.Tensor,
                   cfg: ArchConfig, opts: ModelOptions) -> torch.Tensor:
     """Logits at each row's last real chunk position (clamped for rows with
@@ -270,7 +288,7 @@ def serve_chunk_step_paged(params: Params, cache: Cache,
         hh = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
         mix = L.attention_serve_chunk_paged(p["mixer"], hh, cl, tables, cfg,
                                             opts, start, clen, max_len)
-        return _chunk_mlp(p, x + mix, cfg, opts)
+        return mlp_block(p, x + mix, cfg, spec, opts)
 
     h = _serve_chunk_block(params, cache, h, cfg, layer_fn)
     return _chunk_logits(params, h, clen, cfg, opts), cache
@@ -296,9 +314,7 @@ def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
         cache_l["v"][:, :S] = v
         cache_l["slot_pos"][:S] = positions
     cache_l["pos"].fill_(S)
-    x = x + mix
-    h2 = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
-    return x + L.mlp(p["mlp"], h2)
+    return mlp_block(p, x + mix, cfg, spec, opts)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
@@ -395,4 +411,4 @@ def _prefill_suffix_layer(p, x, pkv, cfg, spec, opts, q_pos, k_pos):
         out = L._sdpa_chunked(q, k_full, v_full, q_chunk=SUFFIX_Q_CHUNK,
                               kv_chunk=SUFFIX_KV_CHUNK, **kwargs)
     x = x + out.reshape(B, S, -1) @ p["mixer"]["wo"].to(x.dtype)
-    return _chunk_mlp(p, x, cfg, opts), {"k": k, "v": v}
+    return mlp_block(p, x, cfg, spec, opts), {"k": k, "v": v}

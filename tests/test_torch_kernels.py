@@ -286,7 +286,7 @@ def test_build_fingerprint_tracks_sources(tmp_path):
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {"rmsnorm.cu", "flash_attention.cu",
                                       "decode_attention.cu",
-                                      "paged_attention.cu"}
+                                      "paged_attention.cu", "moe_route.cu"}
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +317,9 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     tol = _card_tol(dtype)
     x, s = rn(5, 7, 33), torch.rand(33, generator=g, device=cuda) + 0.5
     torch.testing.assert_close(tops.rmsnorm(x, s), tref.rmsnorm_ref(x, s),
+                               atol=tol, rtol=tol)
+    sb = s.to(torch.bfloat16)               # bfloat16 parameters' scale
+    torch.testing.assert_close(tops.rmsnorm(x, sb), tref.rmsnorm_ref(x, sb),
                                atol=tol, rtol=tol)
     q, k = rn(1, 77, 6, 33), rn(1, 77, 3, 33)
     v = rn(1, 77, 3, 33)

@@ -20,7 +20,14 @@ paged == slotted == sequential, chunked paged == two-phase paged ==
 sequential — bit for bit on the CPU. Under a shortcut preset the kernels'
 plain versions reduce over ``nb * bs`` keys where the slotted path reduces
 over ``max_len``, so those cases use a ``max_len`` that is a multiple of
-the block size.
+the block size. The identity cases run on the dense smoke model and on the
+MoE one (moonshot-v1-16b-a3b-smoke, 4 experts, top-2) made dropless:
+capacity is per routing group, and the engines group tokens differently
+(a whole prompt, a suffix after a shared prefix, a padded chunk), so with
+capacity drops their streams differ by design, as in JAX. With capacity
+factor 8 an expert takes every token of its group (C = group size), no
+token drops, and the MoE layer's output for a token is its own: the
+engines must then agree bit for bit through the shared MLP dispatch.
 """
 import dataclasses
 import json
@@ -46,6 +53,10 @@ from repro_torch.serve import (BlockPool, PrefixIndex, Request,  # noqa: E402
 from repro_torch.serve import scheduler as tsched  # noqa: E402
 
 CFG = get_config("tinyllama-1.1b").smoke()
+_MOE = get_config("moonshot-v1-16b-a3b").smoke()
+ARCHS = {"tinyllama": CFG,
+         "moe": dataclasses.replace(_MOE, moe=dataclasses.replace(
+             _MOE.moe, capacity_factor=8.0))}
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)
 MAX_LEN = 48
 F32, BF16 = "float32", "bfloat16"
@@ -520,22 +531,32 @@ def params():
     return init_params(CFG, torch.Generator().manual_seed(0), "cpu")
 
 
-def sequential_tokens(params, req, opts=OPTS):
+@pytest.fixture(scope="module", params=list(ARCHS))
+def engine_model(request, params):
+    """(config, parameters) of the dense and of the dropless MoE smoke
+    model."""
+    cfg = ARCHS[request.param]
+    if cfg is CFG:
+        return cfg, params
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def sequential_tokens(params, req, opts=OPTS, cfg=CFG):
     """Reference: the request alone, prefill + one-token decode loop."""
-    logits, cache = prefill(params, torch.from_numpy(req.prompt)[None], CFG,
+    logits, cache = prefill(params, torch.from_numpy(req.prompt)[None], cfg,
                             opts, max_len=MAX_LEN)
     nxt = torch.argmax(logits, -1).to(torch.int32)
     out = [int(nxt[0])]
     for _ in range(req.max_new_tokens - 1):
-        logits, cache = decode_step(params, cache, nxt, CFG, opts)
+        logits, cache = decode_step(params, cache, nxt, cfg, opts)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         out.append(int(nxt[0]))
     return out
 
 
 def run_engine(params, linkage, requests, *, kv, n_slots=2, load="closed",
-               opts=OPTS, **kw):
-    eng = ServeEngine(CFG, params, opts, linkage, n_slots=n_slots,
+               opts=OPTS, cfg=CFG, **kw):
+    eng = ServeEngine(cfg, params, opts, linkage, n_slots=n_slots,
                       max_len=MAX_LEN, kv=kv, **kw)
     comps, _ = eng.run(requests, load=load)
     assert len(comps) == len(requests)
@@ -543,25 +564,28 @@ def run_engine(params, linkage, requests, *, kv, n_slots=2, load="closed",
 
 
 def assert_paged_identical(params, linkage, requests, *, check_seq=True,
-                           n_slots=2, opts=OPTS, **kw):
+                           n_slots=2, opts=OPTS, cfg=CFG, **kw):
     slotted, _ = run_engine(params, linkage, requests, kv="slotted",
-                            n_slots=n_slots, opts=opts)
+                            n_slots=n_slots, opts=opts, cfg=cfg)
     paged, eng = run_engine(params, linkage, requests, kv="paged",
-                            n_slots=n_slots, opts=opts, **kw)
+                            n_slots=n_slots, opts=opts, cfg=cfg, **kw)
     assert slotted == paged, f"paged diverged:\n{slotted}\n{paged}"
     if check_seq:
         for req in requests:
-            assert paged[req.rid] == sequential_tokens(params, req), req.rid
+            assert paged[req.rid] == sequential_tokens(params, req,
+                                                       cfg=cfg), req.rid
     return eng
 
 
-def test_paged_identity_shared_prefix(params):
+def test_paged_identity_shared_prefix(engine_model):
     """4 requests CoW-sharing a 16-token prefix: paged == slotted ==
     sequential, and the index shared blocks (suffix prefill taken)."""
+    cfg, params = engine_model
     reqs = synthetic_requests(4, prompt_len=24, max_new_tokens=5,
-                              vocab_size=CFG.vocab_size, seed=7,
+                              vocab_size=cfg.vocab_size, seed=7,
                               shared_prefix_len=16)
-    eng = assert_paged_identical(params, preset("base"), reqs, block_size=8)
+    eng = assert_paged_identical(params, preset("base"), reqs, block_size=8,
+                                 cfg=cfg)
     assert eng.utilization()["kv_prefix_shared_tokens"] >= 16 * 3
     assert eng.sched.n_free == 2 and eng.kv.pool.n_resident == len(
         eng.kv.index)                   # only index-held blocks remain
@@ -579,25 +603,27 @@ def test_paged_identity_identical_prompts_cow(params):
     assert u["kv_prefix_shared_tokens"] == 15 * 2
 
 
-def test_paged_identity_l3_crosses_blocks(params):
+def test_paged_identity_l3_crosses_blocks(engine_model):
     """L3 programs of 3 microsteps over blocks of 4: demand allocation
     crosses block boundaries inside one program."""
+    cfg, params = engine_model
     lk = LinkageConfig(level=L3_NSS, ret_async=True, decode_steps=3)
     reqs = synthetic_requests(5, prompt_len=8, max_new_tokens=7,
-                              vocab_size=CFG.vocab_size, seed=1,
+                              vocab_size=cfg.vocab_size, seed=1,
                               shared_prefix_len=4)
-    assert_paged_identical(params, lk, reqs, block_size=4)
+    assert_paged_identical(params, lk, reqs, block_size=4, cfg=cfg)
 
 
-def test_paged_identity_nss_shortcut(params):
+def test_paged_identity_nss_shortcut(engine_model):
     """The shortcut preset (the kernels' plain versions on the CPU) with
     max_len a multiple of the block size: paged == slotted."""
+    cfg, params = engine_model
     lk = dataclasses.replace(preset("nss_shortcut"), decode_steps=4)
     opts = lk.model_options(OPTS)
     reqs = synthetic_requests(4, prompt_len=10, max_new_tokens=6,
-                              vocab_size=CFG.vocab_size, seed=4)
+                              vocab_size=cfg.vocab_size, seed=4)
     assert_paged_identical(params, lk, reqs, check_seq=False, opts=opts,
-                           block_size=16)
+                           block_size=16, cfg=cfg)
 
 
 def test_paged_preemption_recompute(params):
@@ -650,19 +676,22 @@ def _chunked(params, linkage, requests, *, n_slots=2, budget=6, opts=OPTS,
                       **kw)
 
 
-def test_chunked_paged_shared_prefix_identity(params):
+def test_chunked_paged_shared_prefix_identity(engine_model):
     """A shared system prompt under chunked admission: the radix index
     resolves the prefix once, suffix chunks split over several steps, and
     the streams match two-phase paged and sequential."""
+    cfg, params = engine_model
     reqs = synthetic_requests(4, prompt_len=12, max_new_tokens=6,
-                              vocab_size=CFG.vocab_size, seed=7,
+                              vocab_size=cfg.vocab_size, seed=7,
                               shared_prefix_len=8)
     two_phase, _ = run_engine(params, preset("byp"), reqs, kv="paged",
-                              block_size=8)
-    got, eng = _chunked(params, preset("byp"), reqs, budget=5, block_size=8)
+                              block_size=8, cfg=cfg)
+    got, eng = _chunked(params, preset("byp"), reqs, budget=5, block_size=8,
+                        cfg=cfg)
     assert got == two_phase
     for req in reqs:
-        assert got[req.rid] == sequential_tokens(params, req), req.rid
+        assert got[req.rid] == sequential_tokens(params, req,
+                                                 cfg=cfg), req.rid
     assert eng.utilization()["kv_prefix_shared_tokens"] > 0
 
 
@@ -720,20 +749,21 @@ def test_chunked_paged_mid_prefill_preemption(params):
         assert got[req.rid] == sequential_tokens(params, req), req.rid
 
 
-def test_chunked_paged_nss_shortcut_open_loop(params):
+def test_chunked_paged_nss_shortcut_open_loop(engine_model):
     """Open-loop arrivals, fused L3 shortcut decode and chunked admission:
     timing changes, streams don't; the trace holds the chunk, pack and
     overlap events and legal spans."""
     from repro_torch.serve.telemetry import validate_events, validate_spans
+    cfg, params = engine_model
     lk = preset("nss_shortcut")
     opts = lk.model_options(OPTS)
     reqs = synthetic_requests(4, prompt_len=10, max_new_tokens=6,
-                              vocab_size=CFG.vocab_size, seed=4, rate=400.0)
+                              vocab_size=cfg.vocab_size, seed=4, rate=400.0)
     tel = Telemetry(trace=True)
     got, eng = _chunked(params, lk, reqs, budget=6, opts=opts, load="open",
-                        block_size=8, telemetry=tel)
+                        block_size=8, telemetry=tel, cfg=cfg)
     two_phase, _ = run_engine(params, lk, reqs, kv="paged", opts=opts,
-                              block_size=8)
+                              block_size=8, cfg=cfg)
     assert got == two_phase
     events = tel.trace.events
     validate_events(events)

@@ -7,6 +7,11 @@ re-admission, per-slot positions, multi-token L3 programs) changes
 scheduling only — every request's greedy stream equals running it alone
 through prefill + one-token decode, token for token (float32 on the CPU;
 observed: no row of the CPU products depends on the batch it sits in).
+The linkage cases run on the dense smoke model and on the MoE one
+(moonshot-v1-16b-a3b-smoke: 4 experts, top-2, capacity factor 1.25). Its
+capacity is per routing group; the engine groups an admission's prompt
+as the sequential run does (one prefill) and each decode token alone, so
+the streams match with the tokens that capacity drops too.
 """
 import dataclasses
 import json
@@ -30,6 +35,7 @@ from repro_torch.serve import scheduler as tsched  # noqa: E402
 from repro_torch.serve.telemetry import validate_events, validate_spans  # noqa: E402
 
 CFG = get_config("tinyllama-1.1b").smoke()
+ARCHS = {"tinyllama": CFG, "moe": get_config("moonshot-v1-16b-a3b").smoke()}
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)
 MAX_LEN = 48
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -40,29 +46,38 @@ def params():
     return init_params(CFG, torch.Generator().manual_seed(0), "cpu")
 
 
-def sequential_tokens(params, req, max_len=MAX_LEN, opts=OPTS):
+@pytest.fixture(scope="module", params=list(ARCHS))
+def engine_model(request, params):
+    """(config, parameters) of the dense and of the MoE smoke model."""
+    cfg = ARCHS[request.param]
+    if cfg is CFG:
+        return cfg, params
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def sequential_tokens(params, req, max_len=MAX_LEN, opts=OPTS, cfg=CFG):
     """Reference: the request alone, prefill + one-token decode loop."""
-    logits, cache = prefill(params, torch.from_numpy(req.prompt)[None], CFG,
+    logits, cache = prefill(params, torch.from_numpy(req.prompt)[None], cfg,
                             opts, max_len=max_len)
     nxt = torch.argmax(logits, -1).to(torch.int32)
     out = [int(nxt[0])]
     for _ in range(req.max_new_tokens - 1):
-        logits, cache = decode_step(params, cache, nxt, CFG, opts)
+        logits, cache = decode_step(params, cache, nxt, cfg, opts)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         out.append(int(nxt[0]))
     return out
 
 
 def _assert_token_identical(params, linkage, requests, n_slots,
-                            load="closed", opts=OPTS, **kw):
-    eng = ServeEngine(CFG, params, opts, linkage, n_slots=n_slots,
+                            load="closed", opts=OPTS, cfg=CFG, **kw):
+    eng = ServeEngine(cfg, params, opts, linkage, n_slots=n_slots,
                       max_len=MAX_LEN, **kw)
     completions, wall = eng.run(requests, load=load)
     assert len(completions) == len(requests)
     by_rid = {c.rid: c for c in completions}
     for req in requests:
         got = by_rid[req.rid].tokens.tolist()
-        want = sequential_tokens(params, req)
+        want = sequential_tokens(params, req, cfg=cfg)
         assert got == want, f"rid {req.rid}: engine {got} != sequential {want}"
     return eng, completions, wall
 
@@ -71,34 +86,38 @@ def _assert_token_identical(params, linkage, requests, n_slots,
 # token identity across the linkage spectrum (tests/test_serve.py:66-106)
 # ---------------------------------------------------------------------------
 
-def test_engine_matches_sequential_l2(params):
+def test_engine_matches_sequential_l2(engine_model):
     """2 slots, 5 requests: every slot is evicted and re-admitted at least
     once, and the streams still match the solo runs token for token."""
+    cfg, params = engine_model
     reqs = synthetic_requests(5, prompt_len=8, max_new_tokens=6,
-                              vocab_size=CFG.vocab_size, seed=0)
-    eng, _, _ = _assert_token_identical(params, preset("byp"), reqs, n_slots=2)
+                              vocab_size=cfg.vocab_size, seed=0)
+    eng, _, _ = _assert_token_identical(params, preset("byp"), reqs, n_slots=2,
+                                        cfg=cfg)
     assert eng.sched.n_free == 2          # everything evicted at the end
 
 
-def test_engine_matches_sequential_l3_ret(params):
+def test_engine_matches_sequential_l3_ret(engine_model):
     """L3: 3 tokens per program, RET (deferred sync); budgets that are not
     multiples of K force mid-program finishes + slot reuse."""
+    cfg, params = engine_model
     lk = LinkageConfig(level=L3_NSS, ret_async=True, decode_steps=3)
     reqs = synthetic_requests(5, prompt_len=8, max_new_tokens=7,
-                              vocab_size=CFG.vocab_size, seed=1)
-    _assert_token_identical(params, lk, reqs, n_slots=2)
+                              vocab_size=cfg.vocab_size, seed=1)
+    _assert_token_identical(params, lk, reqs, n_slots=2, cfg=cfg)
 
 
 @pytest.mark.parametrize("name", ["linux", "base", "nss_shortcut"])
-def test_engine_matches_sequential_across_presets(params, name):
+def test_engine_matches_sequential_across_presets(engine_model, name):
     """L0/L1 (functional cache), and the full shortcut preset on the CPU
     (kernel wrappers -> plain versions; the sequential reference stays on
     the plain model path)."""
+    cfg, params = engine_model
     lk = dataclasses.replace(preset(name), decode_steps=4)
     opts = lk.model_options(OPTS)
     reqs = synthetic_requests(3, prompt_len=8, max_new_tokens=6,
-                              vocab_size=CFG.vocab_size, seed=4)
-    _assert_token_identical(params, lk, reqs, n_slots=2, opts=opts)
+                              vocab_size=cfg.vocab_size, seed=4)
+    _assert_token_identical(params, lk, reqs, n_slots=2, opts=opts, cfg=cfg)
 
 
 def test_engine_mixed_budgets_waste_accounting(params):
@@ -258,6 +277,9 @@ def test_serve_report_has_the_jax_keys(params):
     ("open", ["--rate", "200"]),
     ("closed", ["--preset", "ret_byp", "--slots", "2"]),
     ("seq", ["--batch", "2"]),
+    ("closed", ["--arch", "moonshot-v1-16b-a3b", "--dtype", "bf16"]),
+    ("seq", ["--arch", "moonshot-v1-16b-a3b", "--dtype", "bf16",
+             "--batch", "2"]),
 ])
 def test_launcher_prints_a_report(load, extra, capsys):
     from repro_torch.launch import serve as launch
@@ -266,6 +288,7 @@ def test_launcher_prints_a_report(load, extra, capsys):
     assert rc == 0
     rep = json.loads(capsys.readouterr().out)
     assert rep["load"] == load and rep["device"] == "cpu"
+    assert rep["dtype"] == ("bfloat16" if "bf16" in extra else "float32")
     assert rep["total_tokens"] == 2 * 6 * (2 if load == "seq" else 1)
     assert rep["tokens_per_s"] > 0
 
@@ -367,7 +390,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert len(names) >= 20, names\n"
         "assert {'repro_torch.serve.paging', 'repro_torch.kernels.paged_decode',\n"
         "        'repro_torch.kernels.paged_prefill',\n"
-        "        'repro_torch.kernels.kv_quant'} <= set(names), names\n"
+        "        'repro_torch.kernels.kv_quant',\n"
+        "        'repro_torch.kernels.moe_route',\n"
+        "        'repro_torch.configs.moonshot_v1_16b_a3b'\n"
+        "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

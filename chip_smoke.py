@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py route   # the build and the moe_route phase only
     python3 chip_smoke.py moe     # the build, the MoE path and its profile
+    python3 chip_smoke.py rwkv    # the build, rwkv_scan, the RWKV path
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -47,6 +48,11 @@ non-zero before the result line):
    1e-5, indices equal except where the plain probabilities tie within
    1e-6 (``check_route`` counts those rows); timed the same way, the
    library yardstick being three calls (matmul, softmax, topk).
+   ``rwkv_scan`` against ``rwkv_scan_ref`` (``rwkv_scan_phase``): the
+   RWKV path's admission (1,32,64,64), a sweep (hd 16/32/128, nh 3, S 1,
+   31 and 70, B 2) and (4,1024,64,64); y and the final state within 1e-4;
+   timed the same way. No single PyTorch call computes the recurrence, so
+   its library time is null.
 4. path — the main paths through their entry points, full-width
    tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
    requests each: slotted ``--load open`` and ``--load seq``; paged path A
@@ -62,7 +68,11 @@ non-zero before the result line):
    full-depth moonshot-v1-16b-a3b with ``dtype="bf16"`` (56.1 GB of
    parameters), the same traffic; moe_route must launch once per layer of
    every admission and decode microstep, beside rmsnorm, flash and slot
-   decode; its peak device memory is printed.
+   decode; its peak device memory is printed. Then, the MoE phases'
+   tensors released, the RWKV path: ``run_engine`` on full-width,
+   full-depth rwkv6-7b in fp32 (32.2 GB of parameters), the same traffic;
+   rwkv_scan must launch once per layer of every admission (32) and never
+   at decode, rmsnorm must launch, no attention kernel may.
 5. teacher-forced check — prefill, then 8 slotted decode steps (the
    engine's), 8 uniform decode steps (``--load seq``) and 8 paged decode
    steps over a pool filled through a permuted table, each from the same
@@ -81,9 +91,17 @@ non-zero before the result line):
    kernel path replaying the plain path's routing (``routes``): max
    |dlogit| <= 2e-3. The kernel path routing on its own, its differing
    expert choices, and the bf16-activation run are printed, not gated.
+   The RWKV model (``rwkv_teacher_forced_phase``): prefill, then 8
+   slotted decode steps, kernel path against plain path, the kernel path
+   replaying the plain path's layer inputs (``layer_inputs``): max
+   |dlogit| <= 2e-3; the prefill states' max error is printed, and the
+   kernel path on its own inputs, not gated, beside the plain path against
+   itself with its embedding output moved one ulp: the witness of how far
+   the random-init model at full width carries a rounding difference.
 6. profile — where one engine run's time goes (``profile_phase``), slotted
-   and paged chunked, and the MoE model's slotted run in bf16: wall
-   time, device busy time, the device's idle share, the top kernels.
+   and paged chunked, the MoE model's slotted run in bf16 and the RWKV
+   model's in fp32: wall time, device busy time, the device's idle share,
+   the top kernels.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -114,6 +132,8 @@ TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
 # the MoE path: full-width moonshot-v1-16b-a3b in bf16, the same traffic
 MOE_ARCH = "moonshot-v1-16b-a3b"
+# the RWKV path: full-width rwkv6-7b in fp32, the same traffic
+RWKV_ARCH = "rwkv6-7b"
 SLOTS, PROMPT, GEN, REQUESTS = 4, 32, 32, 8
 MAX_LEN = PROMPT + GEN + 8
 # the paged paths: blocks of 16 (5 per slot at max_len 72), a 16-token
@@ -738,6 +758,61 @@ def route_phase(gen):
     return rows
 
 
+def rwkv_scan_phase(gen):
+    """rwkv_scan against ``rwkv_scan_ref`` on the card, y and the final
+    state within 1e-4 (fp32): the RWKV path's admission shape (1,32,64,64)
+    (rwkv6-7b: nh 64, hd 64), a sweep and one larger shape, r, k, v unit
+    normals, w = exp(-exp(n - 2)), u at 0.5 (as tests/test_kernels.py draws
+    them). The main and large cases timed like the other kernels, with the
+    final state stored, as the prefill asks for it. Bound: r, k, v, w, u
+    read once, y and the state written once, over 3.35 TB/s, or the
+    function's 5 hd² + 5 hd flops per (token, head) over the fp32 peak (the
+    read-out Σ r S one fma per state element, the decay and add w S + k v a
+    multiply and an fma, the bonus v·Σ r u k per token). No PyTorch call
+    computes the recurrence: the library time is null."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for label, B, S, nh, hd in (
+            ("main: admission (1,32,64,64)", 1, PROMPT, 64, 64),
+            ("sweep B=2 S=1 nh=3 hd=16", 2, 1, 3, 16),
+            ("sweep B=2 S=31 nh=3 hd=32", 2, 31, 3, 32),
+            ("sweep B=2 S=70 nh=3 hd=16", 2, 70, 3, 16),
+            ("sweep B=2 S=70 nh=3 hd=32", 2, 70, 3, 32),
+            ("sweep B=2 S=31 nh=1 hd=64", 2, 31, 1, 64),
+            ("sweep B=1 S=9 nh=2 hd=128", 1, 9, 2, 128),
+            ("large (4,1024,64,64)", 4, 1024, 64, 64)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        shape = (B, S, nh, hd)
+        ins = (rn(*shape), rn(*shape), rn(*shape),
+               torch.exp(-torch.exp(rn(*shape) - 2)), rn(nh, hd) * 0.5)
+        call = lambda: ops.rwkv_scan(*ins)  # noqa: E731
+        plain = lambda: ref.rwkv_scan_ref(*ins)  # noqa: E731
+        (y, st), (wy, ws) = call(), plain()
+        torch.cuda.synchronize()
+        err = max(check_close(f"rwkv_scan [{label}] {what}", got, want,
+                              torch.float32)
+                  for what, got, want in (("y", y, wy), ("state", st, ws)))
+        row = {"label": label, "dtype": "torch.float32", "max_abs_err": err}
+        if label.startswith(("main", "large")):
+            b_ms, b_by = bound(nbytes(*ins, y, st),
+                               B * S * nh * (5.0 * hd * hd + 5.0 * hd),
+                               torch.float32)
+            slow = 3 if S > PROMPT else 50       # the plain loop over S
+            row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain, iters=slow,
+                                                          warmup=1),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       device_ms=device_ms(call),
+                       plain_device_ms=device_ms(plain, iters=slow),
+                       library_device_ms=None)
+        log(f"kernel {'rwkv_scan':15s} {'torch.float32':15s} {label:45s} "
+            + " ".join(f"{k}={v!r}" for k, v in row.items()
+                       if k not in ("label", "dtype")))
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the main path and the teacher-forced check
 # ---------------------------------------------------------------------------
@@ -1297,6 +1372,229 @@ def moe_phases(check: bool = True):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the RWKV path: full-width, full-depth rwkv6-7b in fp32
+# ---------------------------------------------------------------------------
+
+ATTENTION_KERNELS = ("flash_attention", "slot_decode", "paged_decode",
+                     "paged_prefill", "paged_decode_quant",
+                     "paged_prefill_quant")
+
+
+def rwkv_path_phase():
+    """The RWKV main path through its entry point: ``run_engine`` on
+    rwkv6-7b at full width and depth, fp32 parameters and activations,
+    ``nss_shortcut``, 4 slots, prompt 32, gen 32, 8 requests at open load.
+    Every request must finish with its budget; rwkv_scan must launch once
+    per layer of every admission (the 8 requests and the warm-up one) and
+    never at decode (``rwkv_decode`` is plain PyTorch, as in JAX); rmsnorm
+    must launch, 2 per layer and one more per forward; no attention kernel
+    may. Prints the report, the counts and the peak device memory; returns
+    the counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_engine
+
+    n_layers = get_config(RWKV_ARCH).num_layers
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = run_engine(RWKV_ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
+                     gen_len=GEN, requests=REQUESTS, load="open",
+                     smoke=False, device="cuda", dtype="fp32")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("serve report (rwkv, open):", json.dumps(rep))
+    log("launches (rwkv, open):", counts)
+    log(f"rwkv path: peak device memory {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated)")
+    if rep["requests"] != REQUESTS or rep["total_tokens"] != REQUESTS * GEN:
+        raise AssertionError(f"rwkv path: {rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{REQUESTS} x {GEN}")
+    admissions = REQUESTS + 1                    # run_engine's warm-up too
+    if counts.get("rwkv_scan", 0) != n_layers * admissions:
+        raise AssertionError(f"rwkv path: rwkv_scan launched "
+                             f"{counts.get('rwkv_scan', 0)} times, want "
+                             f"{n_layers} layers x {admissions} admissions")
+    forwards, rest = divmod(counts.get("rmsnorm", 0), 2 * n_layers + 1)
+    if rest or forwards <= admissions:
+        raise AssertionError(f"rwkv path: rmsnorm launched "
+                             f"{counts.get('rmsnorm', 0)} times, not "
+                             f"{2 * n_layers + 1} per forward")
+    launched = [k for k in ATTENTION_KERNELS if counts.get(k, 0)]
+    if launched:
+        raise AssertionError(f"rwkv path launched attention kernels "
+                             f"{launched}")
+    log(f"rwkv path: {admissions} admissions x {n_layers} layers = "
+        f"{counts['rwkv_scan']} rwkv_scan launches; "
+        f"{forwards - admissions} decode microsteps (warm-up included)")
+    return counts
+
+
+@contextlib.contextmanager
+def _layer_input_hook(hook):
+    """Every layer's input in the prefill and the decode steps
+    (``transformer._prefill_layer``, ``transformer.apply_layer_decode``),
+    in call order, passed through ``hook`` before the layer runs."""
+    from repro_torch.models import transformer
+    saved = (transformer._prefill_layer, transformer.apply_layer_decode)
+
+    def wrap(fn):
+        def layer(p, x, *a, **kw):
+            return fn(p, hook(x), *a, **kw)
+        return layer
+
+    transformer._prefill_layer, transformer.apply_layer_decode = map(wrap,
+                                                                     saved)
+    try:
+        yield
+    finally:
+        transformer._prefill_layer, transformer.apply_layer_decode = saved
+
+
+def layer_inputs(log, replay: bool):
+    """Every layer's input recorded into the list ``log``, or
+    (``replay``) replaced by the next entry of the iterator ``log``, so
+    every layer of a second run starts from the first run's input, and the
+    two runs differ only by each layer's own arithmetic."""
+    def hook(x):
+        if replay:
+            return next(log)
+        log.append(x.clone())
+        return x
+    return _layer_input_hook(hook)
+
+
+def first_layer_nudged(n_layers: int):
+    """The input of every forward's first layer (the embedding's output)
+    moved one ulp towards +inf (``torch.nextafter``), the rest of the run
+    untouched: a difference the size of one rounding, made in the plain
+    path alone."""
+    import torch
+    calls = iter(range(1 << 30))
+
+    def hook(x):
+        if next(calls) % n_layers:
+            return x
+        return torch.nextafter(x, torch.full_like(x, math.inf))
+    return _layer_input_hook(hook)
+
+
+def rwkv_teacher_forced_phase(params, cfg, steps: int = 8,
+                              tol: float = 2e-3):
+    """Prefill 32 tokens, then ``steps`` slotted decode steps, at full
+    width and depth in fp32, kernels against plain versions on the card,
+    both fed the plain path's greedy tokens. Gated: the kernel path
+    replaying the plain path's layer inputs (``layer_inputs``), max
+    |dlogit| <= ``tol``: the random-init model at full width amplifies a
+    difference of one ulp by about 2-3x per layer, so with every layer
+    running on its own input the kernel path's logits drift by far more
+    than the kernels' arithmetic explains. Printed, not gated: that
+    free-running drift, and beside it the witness that the drift is the
+    model's: the plain path against itself with each forward's embedding
+    output moved one ulp (``first_layer_nudged``). The prefill's final
+    states (every layer) are compared in each run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, decode_step_slots, prefill
+    from repro_torch.serve import slotify
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PROMPT),
+                                         dtype=np.int32)).cuda()
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+
+    def run(opts, hook, feed=None):
+        """Logits of the prefill and of each decode step, the prefill's
+        states, with each forward's layers under ``hook()``; the tokens
+        fed are ``feed``'s, or this run's own greedy ones."""
+        with hook():
+            lg, cache = prefill(params, toks, cfg, opts, MAX_LEN)
+        states = [g["state"].clone() for g in cache]
+        cache, out, fed = slotify(cache), [lg], []
+        for i in range(steps):
+            nxt = (feed[i] if feed is not None
+                   else torch.argmax(lg, -1).to(torch.int32))
+            fed.append(nxt)
+            with hook():
+                lg, cache = decode_step_slots(params, cache, nxt, cfg, opts)
+            out.append(lg)
+        return out, states, fed
+
+    def worst(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    def drift(name, logits, states):
+        log(f"{name}: max |dlogit| {worst(lp, logits):.4e}, prefill state "
+            f"max |error| {worst(sp, states):.4e}, by layer "
+            + " ".join(f"{(a - b).abs().max().item():.2e}"
+                       for a, b in zip(sp[::4], states[::4]))
+            + " (every 4th; not gated)")
+
+    plain_log = []
+    lp, sp, feed = run(plain, lambda: layer_inputs(plain_log, False))
+    replayed = iter(plain_log)
+    lk, sk, _ = run(kern, lambda: layer_inputs(replayed, True), feed)
+    lf, sf, _ = run(kern, contextlib.nullcontext, feed)
+    ln, sn, _ = run(plain, lambda: first_layer_nudged(cfg.num_layers), feed)
+    torch.cuda.synchronize()
+    w = worst(lp, lk)
+    log(f"teacher-forced (rwkv, fp32, prefill + {steps} slotted decode "
+        f"steps, layer inputs replayed) max |dlogit|: {w:.3e} (tolerance "
+        f"{tol}; logit scale {lp[-1].abs().max().item():.3g}); prefill "
+        f"state max |error| {worst(sp, sk):.3e} over {len(sp)} layers "
+        f"(state scale {max(t.abs().max().item() for t in sp):.3g})")
+    drift("rwkv kernel path on its own inputs", lf, sf)
+    drift("rwkv plain path, embedding output moved one ulp", ln, sn)
+    if not math.isfinite(w) or w > tol:
+        raise AssertionError(f"teacher-forced (rwkv) logits differ by {w}")
+
+
+def rwkv_profile_phase(params, cfg):
+    """Where one RWKV engine run's time goes: 4 slots, each admitted with a
+    32-token prompt, then one 32-step L3 program, fp32, ``nss_shortcut``:
+    wall time, device busy, idle share, the top kernels (the GEMMs first),
+    and the scan and norm kernels by name."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS, max_len=MAX_LEN)
+    _profile_run(f"rwkv slotted: {SLOTS} admissions + one {GEN}-step decode "
+                 "program, fp32", eng, reqs, also=("rwkv", "rmsnorm"))
+
+
+def rwkv_phases():
+    """The RWKV path, then its teacher-forced check and its profile over
+    one seeded set of fp32 parameters (32.2 GB; the path phase's own are
+    freed first). Returns the path's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    _release()
+    counts = rwkv_path_phase()
+    _release()
+    cfg = get_config(RWKV_ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    rwkv_teacher_forced_phase(params, cfg)
+    rwkv_profile_phase(params, cfg)
+    del params
+    _release()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1320,31 +1618,47 @@ def main() -> int:
             log("  ptxas:", line.split("info    :")[-1].strip()[:160])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def phase(fn, *args):
+        """Run one phase; log when it ended, in seconds since the start."""
+        out = fn(*args)
+        log(f"phase {fn.__name__} done at {time.time() - t0:.1f} s")
+        return out
+
     if sys.argv[1:] == ["route"]:
-        route_phase(gen)
+        phase(route_phase, gen)
         return 0
     if sys.argv[1:] == ["moe"]:
-        moe_phases(check=False)
+        phase(moe_phases, False)
         return 0
-    records = kernel_phase(gen)
-    quant_insert_phase()
-    _, _, counts, paged = path_phase()
-    teacher_forced_phase()
-    profile_phase()
-    route_rows = route_phase(gen)
-    moe_counts = moe_phases()
+    if sys.argv[1:] == ["rwkv"]:
+        phase(rwkv_scan_phase, gen)
+        phase(rwkv_phases)
+        return 0
+    records = phase(kernel_phase, gen)
+    phase(quant_insert_phase)
+    _, _, counts, paged = phase(path_phase)
+    phase(teacher_forced_phase)
+    phase(profile_phase)
+    route_rows = phase(route_phase, gen)
+    rwkv_rows = phase(rwkv_scan_phase, gen)
+    moe_counts = phase(moe_phases)
+    rwkv_counts = phase(rwkv_phases)
     records["moe_route"] = route_rows
+    records["rwkv_scan"] = rwkv_rows
 
     # launches: each kernel's count in the run of the path that carries it
     # (the slotted --load open run; paged path A for paged_decode, paged
     # path B for paged_prefill), and every path's count beside it
     by_path = {"slotted open": counts,
                **{f"paged {n}": paged[n][1] for n in "ABCD"},
-               "moe slotted open": moe_counts}
+               "moe slotted open": moe_counts,
+               "rwkv slotted open": rwkv_counts}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",
-            "paged_prefill_quant": "paged D", "moe_route": "moe slotted open"}
+            "paged_prefill_quant": "paged D", "moe_route": "moe slotted open",
+            "rwkv_scan": "rwkv slotted open"}
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:36"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1362,7 +1676,9 @@ def main() -> int:
                    "src/repro_torch/csrc/paged_attention.cu",
                    "src/repro/kernels/paged_prefill.py:82"),
                "moe_route": ("src/repro_torch/csrc/moe_route.cu",
-                             "src/repro/kernels/moe_route.py:47")}
+                             "src/repro/kernels/moe_route.py:47"),
+               "rwkv_scan": ("src/repro_torch/csrc/rwkv_scan.cu",
+                             "src/repro/kernels/rwkv6.py:75")}
     out = []
     for name, (src, replaces) in sources.items():
         # the record's dtype is its home path's: float32, bf16 for the MoE
@@ -1405,6 +1721,9 @@ def main() -> int:
         if moe:       # at the MoE path's shapes, in its dtype (bf16)
             out[-1]["moe"] = {k: v for k, v in moe[0].items()
                               if k != "dtype"}
+        if name == "rwkv_scan":
+            out[-1]["library_calls"] = ("none: no PyTorch call computes the "
+                                        "RWKV-6 recurrence")
         if name == "moe_route":
             out[-1]["library_calls"] = ("torch.topk(torch.softmax(x.float() "
                                         "@ router.float(), -1), k): 3 calls")

@@ -9,7 +9,9 @@ layer in execution order (block-major, as the JAX scan runs them), the same
 keys, the same layout. A tree without ``lm_head`` is a tied-embedding model.
 MoE layers carry over as they are (``router`` (D, E) and the ``wi``, ``wg``,
 ``wo`` expert stacks (E, D, F) / (E, F, D), one more leading block axis in
-the tree). A bfloat16 leaf (an ``ml_dtypes`` array, which
+the tree), and so do RWKV layers (the mixer's projections, decay bias,
+token-shift mixes, group-norm scale and per-head bonus ``u`` (nh, hd); the
+channel mix's ``wk``, ``wv``, ``wr`` and mixes). A bfloat16 leaf (an ``ml_dtypes`` array, which
 ``torch.from_numpy`` cannot read) goes through float32, exactly.
 """
 from __future__ import annotations

@@ -22,7 +22,7 @@ levels keep their meaning:
                 request finishes; the host synchronises only then.
     shortcut    the hand-written Hopper kernels (flash attention, slot
                 and paged decode, paged prefill, fused RMSNorm, the MoE
-                router) in place of the plain PyTorch paths.
+                router, the RWKV scan) in place of the plain PyTorch paths.
                 Their wrappers dispatch on the tensors' device: the kernels
                 on CUDA, their plain versions on the CPU.
 """
@@ -66,10 +66,10 @@ class LinkageConfig:
     def model_options(self, base: Optional[ModelOptions] = None
                       ) -> ModelOptions:
         """Resolve ModelOptions for this linkage level: ``shortcut`` selects
-        the kernel wrappers (attention, the fused norm and the MoE router,
-        ``scan_impl``: JAX's "pallas"). Which code runs then follows the
-        tensors: the Hopper kernels for CUDA tensors, their plain versions
-        for CPU tensors."""
+        the kernel wrappers (attention, the fused norm, and the MoE router
+        and the RWKV scan, ``scan_impl``: JAX's "pallas"). Which code runs
+        then follows the tensors: the Hopper kernels for CUDA tensors,
+        their plain versions for CPU tensors."""
         base = base or ModelOptions()
         if not self.shortcut:
             return base

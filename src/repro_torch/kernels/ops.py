@@ -20,6 +20,7 @@ from repro_torch.kernels import moe_route as _route
 from repro_torch.kernels import paged_decode as _paged
 from repro_torch.kernels import paged_prefill as _paged_pf
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import rwkv6 as _rwkv
 from repro_torch.kernels import slot_decode as _slot
 
 
@@ -27,7 +28,7 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches since ``reset_launch_counts`` (keys: ``rmsnorm``,
     ``flash_attention``, ``slot_decode``, ``paged_decode``,
     ``paged_prefill``, the fused-dequant ``paged_decode_quant`` and
-    ``paged_prefill_quant``, and ``moe_route``)."""
+    ``paged_prefill_quant``, ``moe_route`` and ``rwkv_scan``)."""
     return dict(_build.launches)
 
 
@@ -97,3 +98,13 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
     router (D,E) in x's dtype (the layer casts it, as ``layers.py:775``
     does) -> (gates (N,k) f32, idx (N,k) int32)."""
     return _route.moe_route(x, router, k)
+
+
+def rwkv_scan(r, k, v, w, u):
+    """The RWKV-6 time-mix recurrence (JAX ``ops.py:108``): r, k, v, w
+    (B,S,nh,hd) and u (nh,hd) in float32 (the layer casts them, as
+    ``layers.py:1098`` does) -> (y (B,S,nh,hd) f32, the final state
+    (B,nh,hd,hd) f32). JAX's returns y alone; the final state is what the
+    serving prefill keeps. JAX's ``chunk`` was a TPU tile and does not
+    change the result; it is not an argument here."""
+    return _rwkv.rwkv_scan(r, k, v, w, u)

@@ -12,6 +12,8 @@ no valid key gives zeros (the Pallas ``_decode_kernel`` clamps its
 denominator at 1e-30) where a ``-inf`` softmax would give NaN. And
 ``moe_route_ref`` repeats the Pallas ``_route_kernel``'s arithmetic
 (``moe_route.py:19-36``), not the oracle's (``ref.py:150``).
+``rwkv_scan_ref`` (``ref.py:132``) also returns the final state, as the
+port's kernel does.
 """
 from __future__ import annotations
 
@@ -148,3 +150,25 @@ def moe_route_ref(x, router, k: int):
         work = work.scatter(-1, bidx[:, None], NEG_INF)
     return (torch.stack(gates, -1),
             torch.stack(idx, -1).to(torch.int32))
+
+
+def rwkv_scan_ref(r, k, v, w, u):
+    """The RWKV-6 time-mix recurrence (JAX ``ref.py:132`` and
+    ``layers.py:1009``), one token at a time. r, k, v, w: (B,S,nh,hd), read
+    as float32; u: (nh,hd). Per token ``y_t = r_t · (S + uᵀ⊙k_tᵀv_t)``,
+    then ``S = w_tᵀ⊙S + k_tᵀv_t``: the decay scales the k axis. Returns
+    (y (B,S,nh,hd) f32, the final state (B,nh,hd,hd) f32 indexed [b, h, k,
+    v]; zeros when S is 0)."""
+    B, S, nh, hd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((B, nh, hd, hd), dtype=torch.float32,
+                        device=r.device)
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    y = (torch.stack(ys, 1) if ys else
+         torch.zeros((B, 0, nh, hd), dtype=torch.float32, device=r.device))
+    return y, state

@@ -25,6 +25,7 @@ Two paths share one model/linkage setup:
       python -m repro_torch.launch.serve --device cpu     # off the card
       python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
           --dtype bf16                   # the MoE model, bf16 parameters
+      python -m repro_torch.launch.serve --arch rwkv6-7b  # RWKV, slotted
 
   sequential        one request batch at a time (``--load seq``, also
                     ``run_server``): the baseline the engine's continuous
@@ -37,7 +38,10 @@ raises. The CLI serves the smoke model, as the JAX launcher does;
 parameter dtype (JAX's ``ModelOptions.dtype`` and ``init_params(...,
 param_dtype)``); the default, fp32, keeps both in float32. At published
 widths moonshot-v1-16b-a3b's 28.06 B parameters take 56.1 GB in bf16 and
-do not fit one 80 GB card in fp32. Chunked
+do not fit one 80 GB card in fp32; rwkv6-7b's 8.05 B take 32.2 GB in
+fp32. RWKV layers carry a recurrent state, so rwkv6-7b runs on the slotted
+backend only: ``--kv paged`` and ``--bucket-prompts`` raise
+``ValueError``, as in JAX. Chunked
 prefill on the slotted backend, speculation, swap (quantized blocks
 included), the prefix cache, meshes and sampling at temperature > 0 raise
 ``NotImplementedError`` naming their ROADMAP item; ``--kv-dtype int8|fp8``
@@ -273,8 +277,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--arch", default="tinyllama-1.1b",
-                   help="tinyllama-1.1b or moonshot-v1-16b-a3b (the MoE "
-                        "model)")
+                   help="tinyllama-1.1b, moonshot-v1-16b-a3b (the MoE "
+                        "model) or rwkv6-7b (the RWKV model, slotted only)")
     p.add_argument("--dtype", default="fp32", choices=list(DTYPES),
                    help="activation and parameter dtype")
     p.add_argument("--preset", default="nss_shortcut")

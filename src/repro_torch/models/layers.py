@@ -1,8 +1,9 @@
-"""Layer library of the port, the ATTN/SWA + DENSE/MOE subset of
-``src/repro/models/layers.py``: init + apply for RMSNorm, RoPE, GQA
-attention (full sequence, blockwise, uniform / slotted / paged decode, the
-paged serve chunk pass), the SwiGLU MLP and the top-k MoE with capacity
-dispatch.
+"""Layer library of the port, the ATTN/SWA + DENSE/MOE and RWKV + RWKVMIX
+subsets of ``src/repro/models/layers.py``: init + apply for RMSNorm, RoPE,
+GQA attention (full sequence, blockwise, uniform / slotted / paged decode,
+the paged serve chunk pass), the SwiGLU MLP, the top-k MoE with capacity
+dispatch, and the RWKV-6 time mix (full sequence and one-token decode) and
+channel mix.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 ``(d_in, d_out)`` weight layout, so ``x @ w`` is the same product in both
@@ -10,11 +11,12 @@ frameworks. ``ModelOptions.attn_impl`` picks between the plain attention
 written here ("ref", the oracle) and the shortcut ("kernel": the wrappers
 in ``repro_torch.kernels.ops``, which launch the Hopper kernels for CUDA
 tensors and run their plain versions for CPU tensors); ``scan_impl`` does
-the same for the MoE router.
+the same for the MoE router and the RWKV recurrence.
 
-Decode writes the new K/V into the cache tensors in place (the PyTorch
-counterpart of JAX buffer donation at linkage L2+); the callers clone the
-cache first where the linkage level keeps the caller's state intact.
+Decode writes the new K/V (or the RWKV state and shift) into the cache
+tensors in place (the PyTorch counterpart of JAX buffer donation at
+linkage L2+); the callers clone the cache first where the linkage level
+keeps the caller's state intact.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import SWA, ArchConfig, LayerSpec
 from repro_torch.kernels.kv_quant import quant_insert
-from repro_torch.kernels.ref import gather_pool
+from repro_torch.kernels.ref import gather_pool, rwkv_scan_ref
 
 Params = Dict[str, Any]
 
@@ -111,6 +113,45 @@ def init_moe(gen, cfg: ArchConfig, device, dtype=torch.float32) -> Params:
         "wg": _dense_init(gen, (e, d, f), device, dtype=dtype),
         "wo": _dense_init(gen, (e, f, d), device, scale=1.0 / math.sqrt(f),
                           dtype=dtype),
+    }
+
+
+def init_rwkv(gen, cfg: ArchConfig, device, dtype=torch.float32) -> Params:
+    """``layers.py:966-988``: the (D, D) projections ``wr``, ``wk``,
+    ``wv``, ``wg`` and ``wo`` at N(0, 1/D), the decay projection ``ww`` at
+    std 0.01, the per-head bonus ``u`` (nh, hd) at 0.5, the decay bias at
+    -6, the five token-shift mixes at 0.5 and the group-norm scale at 1."""
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+
+    def full(value):
+        return torch.full((d,), value, dtype=dtype, device=device)
+
+    p = {name: _dense_init(gen, (d, d), device, dtype=dtype)
+         for name in ("wr", "wk", "wv", "wg")}
+    p["ww"] = _dense_init(gen, (d, d), device, scale=0.01, dtype=dtype)
+    p["wo"] = _dense_init(gen, (d, d), device, scale=1.0 / math.sqrt(d),
+                          dtype=dtype)
+    p["w_bias"] = full(-6.0)              # base decay ~ exp(-exp(-6))
+    p["u"] = _dense_init(gen, (nh, hd), device, scale=0.5, dtype=dtype)
+    for name in ("r", "k", "v", "w", "g"):
+        p["mix_" + name] = full(0.5)
+    p["ln_scale"] = full(1.0)
+    return p
+
+
+def init_rwkv_mix(gen, cfg: ArchConfig, device,
+                  dtype=torch.float32) -> Params:
+    """``layers.py:712-721``."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wk": _dense_init(gen, (d, f), device, dtype=dtype),
+        "wv": _dense_init(gen, (f, d), device, scale=1.0 / math.sqrt(f),
+                          dtype=dtype),
+        "wr": _dense_init(gen, (d, d), device, dtype=dtype),
+        "mix_k": torch.full((d,), 0.5, dtype=dtype, device=device),
+        "mix_r": torch.full((d,), 0.5, dtype=dtype, device=device),
     }
 
 
@@ -490,6 +531,19 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ params["wo"].to(x.dtype)
 
 
+def rwkv_mix(params: Params, x: torch.Tensor,
+             shifted: torch.Tensor) -> torch.Tensor:
+    """RWKV channel mix (``layers.py:724``). ``shifted`` is x shifted right
+    one token."""
+    mk = params["mix_k"].to(x.dtype)
+    mr = params["mix_r"].to(x.dtype)
+    xk = x * mk + shifted * (1 - mk)
+    xr = x * mr + shifted * (1 - mr)
+    k = torch.square(torch.relu(xk @ params["wk"].to(x.dtype)))
+    return (torch.sigmoid(xr @ params["wr"].to(x.dtype))
+            * (k @ params["wv"].to(x.dtype)))
+
+
 # ---------------------------------------------------------------------------
 # Mixture of Experts (top-k, capacity-based dispatch; layers.py:750-818)
 # ---------------------------------------------------------------------------
@@ -605,3 +659,83 @@ def moe_with_aux(params: Params, x: torch.Tensor, cfg: ArchConfig,
     frac = onehot.sum(dim=2).float().mean(dim=1)              # (G,E)
     aux = (me * frac).sum(-1).mean() * E * cfg.moe.router_aux_coef
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 time mix (layers.py:966-1118)
+# ---------------------------------------------------------------------------
+
+def _rwkv_gates(params: Params, x: torch.Tensor, shifted: torch.Tensor,
+                cfg: ArchConfig):
+    """The token-shift mixes and the projections (``layers.py:991``): r, k,
+    v (B,S,nh,hd) and the gate g (B,S,D) in x's dtype, and the decay w =
+    exp(-exp(wlog)) in (0, 1), float32, wlog formed in x's dtype."""
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+    B, S, _ = x.shape
+
+    def mix(name):
+        m = params["mix_" + name].to(x.dtype)
+        return x * m + shifted * (1 - m)
+
+    r = (mix("r") @ params["wr"].to(x.dtype)).reshape(B, S, nh, hd)
+    k = (mix("k") @ params["wk"].to(x.dtype)).reshape(B, S, nh, hd)
+    v = (mix("v") @ params["wv"].to(x.dtype)).reshape(B, S, nh, hd)
+    g = torch.nn.functional.silu(mix("g") @ params["wg"].to(x.dtype))
+    wlog = (mix("w") @ params["ww"].to(x.dtype)
+            + params["w_bias"].to(x.dtype))
+    w = torch.exp(-torch.exp(wlog.float())).reshape(B, S, nh, hd)
+    return r, k, v, g, w
+
+
+def _rwkv_out(params: Params, y: torch.Tensor, g: torch.Tensor,
+              x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Per-head group norm of the f32 recurrence output (the population
+    variance, as ``jnp.var``), the gate, the output projection
+    (``layers.py:1073``)."""
+    B, S, _ = x.shape
+    d = cfg.d_model
+    hd = cfg.rwkv_head_dim
+    yh = y.reshape(B, S, d // hd, hd)
+    mu = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, keepdim=True, correction=0)
+    yh = (yh - mu) * torch.rsqrt(var + 1e-5)
+    y = yh.reshape(B, S, d) * params["ln_scale"]
+    return (y.to(x.dtype) * g) @ params["wo"].to(x.dtype)
+
+
+def rwkv(params: Params, x: torch.Tensor, shifted: torch.Tensor,
+         cfg: ArchConfig, opts: ModelOptions):
+    """Full-sequence RWKV-6 time mix (``layers.py:1089``). Under
+    ``scan_impl == "kernel"`` the recurrence is the kernel wrapper, fed
+    float32 r, k, v (``layers.py:1098``); under "ref" its plain version.
+    Returns (the output, the final state (B,nh,hd,hd) f32): the serving
+    prefill's, ``rwkv_scan_ref``'s ``S_last`` in JAX
+    (``transformer.py:752-762``)."""
+    r, k, v, g, w = _rwkv_gates(params, x, shifted, cfg)
+    u = params["u"].float()
+    if opts.scan_impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        y, state = kops.rwkv_scan(r.float(), k.float(), v.float(), w, u)
+    else:
+        y, state = rwkv_scan_ref(r, k, v, w, u)
+    return _rwkv_out(params, y, g, x, cfg), state
+
+
+def rwkv_decode(params: Params, x: torch.Tensor, cache: Params,
+                cfg: ArchConfig) -> torch.Tensor:
+    """One-token RWKV-6 step (``layers.py:1105``), plain PyTorch in both
+    packages. cache: {"state": (B,nh,hd,hd) f32, "shift": (B,1,D), ...};
+    the state and the shift (x) are updated in place, every row at its own
+    step."""
+    shifted = cache["shift"].to(x.dtype)
+    r, k, v, g, w = _rwkv_gates(params, x, shifted, cfg)
+    u = params["u"].float()
+    rf, kf, vf, wf = (t.float()[:, 0] for t in (r, k, v, w))
+    state = cache["state"]
+    kv = kf[..., :, None] * vf[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", rf, state + u[None, :, :, None] * kv)
+    state.copy_(wf[..., :, None] * state + kv)
+    cache["shift"].copy_(x)
+    return _rwkv_out(params, y.reshape(x.shape[0], 1, -1), g, x, cfg)

@@ -1,10 +1,11 @@
 """Model assembly of the port: init, embed/unembed, backbone, prefill,
 one-token decode (uniform, slotted and paged), the paged serve chunk pass
 and the shared-prefix suffix prefill, for the ATTN/SWA mixers with a dense
-SwiGLU or a top-k MoE in the MLP position
-(``src/repro/models/transformer.py``). Every layer function reaches its MLP
-through one dispatch (``mlp_block``), so the slotted, paged and chunked
-engines all serve the MoE layer.
+SwiGLU or a top-k MoE in the MLP position, and for the RWKV-6 time mix with
+its channel mix (``src/repro/models/transformer.py``). Every layer function
+reaches its MLP through one dispatch (``mlp_block``), so the slotted, paged
+and chunked engines all serve the MoE layer. RWKV layers carry a recurrent
+state, not K/V: they run on the slotted backend only, as in JAX.
 
 JAX stacks each block-pattern position's parameters and scans over blocks;
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in
@@ -19,8 +20,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, DENSE, MOE, SWA, ArchConfig,
-                                      LayerSpec)
+from repro_torch.configs.base import (ATTN, DENSE, MOE, RWKV, RWKVMIX, SWA,
+                                      ArchConfig, LayerSpec)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions, Params
 
@@ -34,13 +35,15 @@ SUFFIX_Q_CHUNK, SUFFIX_KV_CHUNK = 512, 1024
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
     """The spec of every layer in execution order. The port serves
     attention (full or sliding-window) mixers with a dense SwiGLU or a MoE
-    MLP; the Mamba, RWKV and cross-attention layers are ROADMAP module
-    item 12."""
+    MLP, and the RWKV-6 time mix with its channel mix; the Mamba and
+    cross-attention layers are ROADMAP module item 12."""
     for spec in cfg.block_pattern:
-        if spec.mixer not in (ATTN, SWA) or spec.mlp not in (DENSE, MOE):
+        attn = spec.mixer in (ATTN, SWA) and spec.mlp in (DENSE, MOE)
+        if not attn and (spec.mixer, spec.mlp) != (RWKV, RWKVMIX):
             raise NotImplementedError(
                 f"layer {spec} is outside the port's ATTN/SWA + DENSE/MOE "
-                "subset (ROADMAP module item 12: the model zoo)")
+                "and RWKV + RWKVMIX subsets (ROADMAP module item 12: the "
+                "model zoo)")
     if cfg.embeds_in:
         raise NotImplementedError("embedding-input configs are ROADMAP module "
                                   "item 12")
@@ -56,10 +59,12 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
     """One layer's parameters, each tensor drawn in float32 and cast to
     ``param_dtype`` at once: the float32 transient is one tensor (a 738 MB
     expert stack at moonshot-v1-16b-a3b's widths)."""
-    init_mlp = L.init_moe if spec.mlp == MOE else L.init_mlp
+    init_mixer = L.init_rwkv if spec.mixer == RWKV else L.init_attention
+    init_mlp = {MOE: L.init_moe, RWKVMIX: L.init_rwkv_mix}.get(spec.mlp,
+                                                            L.init_mlp)
     return {"norm1": L.init_rmsnorm(cfg, device, param_dtype),
             "norm2": L.init_rmsnorm(cfg, device, param_dtype),
-            "mixer": L.init_attention(gen, cfg, device, param_dtype),
+            "mixer": init_mixer(gen, cfg, device, param_dtype),
             "mlp": init_mlp(gen, cfg, device, param_dtype)}
 
 
@@ -68,7 +73,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device,
     """Random parameters with the JAX package's shapes and distributions
     (``transformer.py:50-68``: embed and lm_head N(0, 0.02²), dense weights
     N(0, 1/fan_in), the (E, D, F) expert weights N(0, 1/E) as JAX's
-    ``fan_in = shape[0]`` gives them, norms at 1), drawn in float32 from
+    ``fan_in = shape[0]`` gives them, norms at 1, the RWKV constants as
+    ``init_rwkv`` lists them), drawn in float32 from
     ``generator`` directly on ``device`` and cast to ``param_dtype`` as
     JAX casts them (``transformer.py:67``), one tensor at a time. The
     draws differ from JAX's; weights cross between the two only through
@@ -104,15 +110,34 @@ def unembed_logits(params: Params, h: torch.Tensor,
     return (h @ w.to(h.dtype)).float()
 
 
+def _shift_right(x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) shifted right one token, zeros in front: the RWKV token
+    shift of a full sequence (``transformer.py:75``)."""
+    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
 def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
-              opts: ModelOptions) -> torch.Tensor:
+              opts: ModelOptions, cache_l: Optional[Params] = None
+              ) -> torch.Tensor:
     """The pre-norm MLP half of every layer function, ``x + mlp(norm2(x))``:
-    the dense SwiGLU, or the MoE without its aux loss, which JAX's
-    prefill, decode and serve paths drop (``transformer.py:289, 426, 703,
-    769``)."""
+    the dense SwiGLU, the MoE without its aux loss, which JAX's prefill,
+    decode and serve paths drop (``transformer.py:289, 426, 703, 769``), or
+    the RWKV channel mix. The channel mix reads norm2(x) shifted right one
+    token. With a layer cache (prefill and decode) the token before the
+    first is the cache's ``shift_mlp`` — zeros in the fresh cache prefill
+    fills, as JAX's pad (``transformer.py:770``); the previous token's at
+    decode (``:284``) — and the last one becomes it."""
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
     if spec.mlp == MOE:
         return x + L.moe(p["mlp"], h, cfg, opts)
+    if spec.mlp == RWKVMIX:
+        if cache_l is None:
+            shifted = _shift_right(h)
+        else:
+            shifted = torch.cat([cache_l["shift_mlp"].to(h.dtype),
+                                 h[:, :-1]], dim=1)
+            cache_l["shift_mlp"].copy_(h[:, -1:])
+        return x + L.rwkv_mix(p["mlp"], h, shifted)
     return x + L.mlp(p["mlp"], h)
 
 
@@ -120,7 +145,10 @@ def apply_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                 opts: ModelOptions, positions: torch.Tensor) -> torch.Tensor:
     """Pre-norm residual layer (full sequence)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
-    x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions)
+    if spec.mixer == RWKV:
+        x = x + L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)[0]
+    else:
+        x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions)
     return mlp_block(p, x, cfg, spec, opts)
 
 
@@ -146,18 +174,32 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
     """Uniform-layout cache, one dict per layer: k/v (B,T,HKV,dh) zeros,
     slot_pos (T,) at -1 (empty) and pos () at -1 (the JAX int32 fill;
-    prefill overwrites it). On ``cuda`` unless the caller asks for the CPU;
-    ``cuda`` without a GPU raises."""
+    prefill overwrites it); an RWKV layer holds its state (B,nh,hd,hd) f32
+    and the two token shifts (B,1,D) at zero, and pos
+    (``transformer.py:227-234``). On ``cuda`` unless the caller asks for
+    the CPU; ``cuda`` without a GPU raises."""
     device = resolve_device(device)
     out = []
     for spec in layer_specs(cfg):
+        pos = torch.full((), -1, dtype=torch.int32, device=device)
+        if spec.mixer == RWKV:
+            hd = cfg.rwkv_head_dim
+            shift = (batch, 1, cfg.d_model)
+            out.append({
+                "state": torch.zeros((batch, cfg.d_model // hd, hd, hd),
+                                     dtype=torch.float32, device=device),
+                "shift": torch.zeros(shift, dtype=dtype, device=device),
+                "shift_mlp": torch.zeros(shift, dtype=dtype, device=device),
+                "pos": pos,
+            })
+            continue
         T = cache_len(cfg, spec, max_len)
         kv = (batch, T, cfg.n_kv_heads, cfg.head_dim)
         out.append({
             "k": torch.zeros(kv, dtype=dtype, device=device),
             "v": torch.zeros(kv, dtype=dtype, device=device),
             "slot_pos": torch.full((T,), -1, dtype=torch.int32, device=device),
-            "pos": torch.full((), -1, dtype=torch.int32, device=device),
+            "pos": pos,
         })
     return out
 
@@ -175,13 +217,16 @@ def apply_layer_decode(p: Params, x: torch.Tensor, cache_l: Params,
                        slots: bool = False, paged_tables=None,
                        paged_max_len: int = 0) -> torch.Tensor:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
-    if paged_tables is not None:
+    if spec.mixer == RWKV:      # every row at its own step: no slot form
+        mix = L.rwkv_decode(p["mixer"], h, cache_l, cfg)
+        cache_l["pos"] += 1
+    elif paged_tables is not None:
         mix = L.attention_decode_paged(p["mixer"], h, cache_l, paged_tables,
                                        cfg, opts, paged_max_len)
     else:
         attn_fn = L.attention_decode_slots if slots else L.attention_decode
         mix = attn_fn(p["mixer"], h, cache_l, cfg, spec, opts)
-    return mlp_block(p, x + mix, cfg, spec, opts)
+    return mlp_block(p, x + mix, cfg, spec, opts, cache_l)
 
 
 def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
@@ -215,13 +260,14 @@ def decode_step_slots(params: Params, cache: Cache, tokens: torch.Tensor,
 def _check_pageable(cfg: ArchConfig, what: str) -> None:
     """Paged KV (and shared-prefix prefill) covers full-window attention
     only (``transformer.py:343``): a sliding-window layer's circular buffer
-    has no block chain."""
+    has no block chain, and an RWKV layer carries dense per-slot state (and
+    a channel-mix shift that depends on the final position)."""
     for spec in cfg.block_pattern:
         if spec.mixer != ATTN:
             raise ValueError(
                 f"{what} supports plain-attention architectures only (got "
-                f"mixer={spec.mixer!r}); run this arch with the slotted KV "
-                "backend")
+                f"mixer={spec.mixer!r}, mlp={spec.mlp!r}); run this arch "
+                "with the slotted KV backend")
 
 
 def decode_step_paged(params: Params, cache: Cache, tokens: torch.Tensor,
@@ -301,6 +347,14 @@ def serve_chunk_step_paged(params: Params, cache: Cache,
 def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     S = x.shape[1]
+    if spec.mixer == RWKV:
+        # the recurrence's final state is the decode cache's
+        # (``transformer.py:752-762``): the kernel stores it at the shortcut
+        mix, state = L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)
+        cache_l["state"].copy_(state)
+        cache_l["shift"].copy_(h[:, -1:])
+        cache_l["pos"].fill_(S)
+        return mlp_block(p, x + mix, cfg, spec, opts, cache_l)
     mix, k, v = L.attention_kv(p["mixer"], h, cfg, spec, opts, positions)
     T = cache_l["k"].shape[1]
     if S >= T:
@@ -314,7 +368,7 @@ def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
         cache_l["v"][:, :S] = v
         cache_l["slot_pos"][:S] = positions
     cache_l["pos"].fill_(S)
-    return mlp_block(p, x + mix, cfg, spec, opts)
+    return mlp_block(p, x + mix, cfg, spec, opts, cache_l)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
@@ -329,13 +383,16 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     padded ``slot_pos`` entries invalidated) to be indistinguishable from an
     unpadded prefill (``transformer.py:606-618``). Full-window attention
     only: an SWA circular buffer shorter than the bucket would rotate real
-    positions out in favour of padding.
+    positions out in favour of padding, and a recurrent state (and the
+    RWKV shifts) would be left at the padded end.
     """
     B, S = tokens.shape[:2]
     specs = layer_specs(cfg)
-    if true_len is not None and any(s.mixer != ATTN for s in specs):
+    bad = [s for s in cfg.block_pattern if s.mixer != ATTN]
+    if true_len is not None and bad:
         raise ValueError("bucketed prefill (true_len) needs full-window "
-                         "attention layers")
+                         f"attention layers; got mixer={bad[0].mixer!r}, "
+                         f"mlp={bad[0].mlp!r}")
     h = embed(params, tokens, cfg, opts)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     cache = init_cache(cfg, B, max_len, opts.dtype, h.device)

@@ -16,7 +16,8 @@ Layout (one dict per layer) vs the uniform decode cache of
   slot_pos : (T,)                         slot_pos : (B, T)
   pos      : ()                           pos      : (B,)
 
-Every other leaf already carries batch at axis 0, so once ``slot_pos`` and
+Every other leaf already carries batch at axis 0 (K/V, or an RWKV layer's
+state and shifts, which have no ``slot_pos``), so once ``slot_pos`` and
 ``pos`` gain a batch axis, admission is one row write per leaf
 (``write_slot``).
 """
@@ -39,15 +40,19 @@ def slotify(cache: Cache) -> Cache:
 
     ``slot_pos`` (T,) and ``pos`` () are shared across the batch in the
     uniform layout (prefill runs all rows in lockstep), so broadcasting them
-    over the batch axis is exact. The result owns its storage (the engine
+    over the batch axis is exact. The batch is read off the first other
+    leaf, and a layer without ``slot_pos`` (RWKV) gains only the per-row
+    ``pos`` (JAX ``cache.py:44``). The result owns its storage (the engine
     writes into it in place).
     """
     out = []
     for g in cache:
-        B = g["k"].shape[0]
+        B = next(v for k, v in g.items()
+                 if k not in ("slot_pos", "pos")).shape[0]
         g = dict(g)
         g["pos"] = g["pos"].expand(B).clone()
-        g["slot_pos"] = g["slot_pos"][None].expand(B, -1).clone()
+        if "slot_pos" in g:
+            g["slot_pos"] = g["slot_pos"][None].expand(B, -1).clone()
         out.append(g)
     return out
 

@@ -7,11 +7,13 @@ re-admission, per-slot positions, multi-token L3 programs) changes
 scheduling only — every request's greedy stream equals running it alone
 through prefill + one-token decode, token for token (float32 on the CPU;
 observed: no row of the CPU products depends on the batch it sits in).
-The linkage cases run on the dense smoke model and on the MoE one
-(moonshot-v1-16b-a3b-smoke: 4 experts, top-2, capacity factor 1.25). Its
-capacity is per routing group; the engine groups an admission's prompt
-as the sequential run does (one prefill) and each decode token alone, so
-the streams match with the tokens that capacity drops too.
+The linkage cases run on the dense smoke model, on the MoE one
+(moonshot-v1-16b-a3b-smoke: 4 experts, top-2, capacity factor 1.25) and
+on the RWKV one (rwkv6-7b-smoke: recurrent state rows in place of K/V,
+overwritten by each admission). The MoE capacity is per routing group;
+the engine groups an admission's prompt as the sequential run does (one
+prefill) and each decode token alone, so the streams match with the
+tokens that capacity drops too.
 """
 import dataclasses
 import json
@@ -35,7 +37,8 @@ from repro_torch.serve import scheduler as tsched  # noqa: E402
 from repro_torch.serve.telemetry import validate_events, validate_spans  # noqa: E402
 
 CFG = get_config("tinyllama-1.1b").smoke()
-ARCHS = {"tinyllama": CFG, "moe": get_config("moonshot-v1-16b-a3b").smoke()}
+ARCHS = {"tinyllama": CFG, "moe": get_config("moonshot-v1-16b-a3b").smoke(),
+         "rwkv": get_config("rwkv6-7b").smoke()}
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)
 MAX_LEN = 48
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -48,7 +51,8 @@ def params():
 
 @pytest.fixture(scope="module", params=list(ARCHS))
 def engine_model(request, params):
-    """(config, parameters) of the dense and of the MoE smoke model."""
+    """(config, parameters) of the dense, the MoE and the RWKV smoke
+    model."""
     cfg = ARCHS[request.param]
     if cfg is CFG:
         return cfg, params
@@ -392,7 +396,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'repro_torch.kernels.paged_prefill',\n"
         "        'repro_torch.kernels.kv_quant',\n"
         "        'repro_torch.kernels.moe_route',\n"
-        "        'repro_torch.configs.moonshot_v1_16b_a3b'\n"
+        "        'repro_torch.configs.moonshot_v1_16b_a3b',\n"
+        "        'repro_torch.kernels.rwkv6', 'repro_torch.configs.rwkv6_7b'\n"
         "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -5,6 +5,8 @@
     python3 chip_smoke.py route   # the build and the moe_route phase only
     python3 chip_smoke.py moe     # the build, the MoE path and its profile
     python3 chip_smoke.py rwkv    # the build, rwkv_scan, the RWKV path
+    python3 chip_smoke.py mamba   # the build, jamba's kernel shapes,
+                                  # mamba_scan, the Mamba path
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -22,7 +24,8 @@ non-zero before the result line):
    of 1, 7 and to a block boundary, paged prefill at W=1 against paged
    decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm,
    flash attention and slot decode also at the MoE path's shapes
-   (moonshot-v1-16b-a3b: D 2048, HQ = HKV = 16, dh 128, G = 1). The
+   (moonshot-v1-16b-a3b: D 2048, HQ = HKV = 16, dh 128, G = 1) and at the
+   Mamba path's (jamba-v0.1-52b: D 4096, HQ 32, HKV 8, dh 128, G = 4). The
    fused-dequant paged kernels (``paged_decode_quant``,
    ``paged_prefill_quant``) run the same main, sweep and large shapes over
    int8 and fp8 pools quantized per (block, KV head), for float32 and
@@ -52,7 +55,13 @@ non-zero before the result line):
    RWKV path's admission (1,32,64,64), a sweep (hd 16/32/128, nh 3, S 1,
    31 and 70, B 2) and (4,1024,64,64); y and the final state within 1e-4;
    timed the same way. No single PyTorch call computes the recurrence, so
-   its library time is null.
+   its library time is null. ``mamba_scan`` against ``mamba_scan_ref``
+   (``mamba_scan_phase``): the Mamba path's admission (1,32,8192,16),
+   a sweep (tests/test_kernels.py's shapes, S 1, a ragged di, B 4, odd
+   ds, ds 32) and (4,1024,8192,16), float32 and bfloat16 inputs; y and
+   the final state within 1e-4 / 2e-2; timed the same way, the exps' SFU
+   time printed beside the bound; library time null. The router also runs
+   at jamba's shapes (N 4 and 32, D 4096, E 16, k 2).
 4. path — the main paths through their entry points, full-width
    tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
    requests each: slotted ``--load open`` and ``--load seq``; paged path A
@@ -72,7 +81,13 @@ non-zero before the result line):
    tensors released, the RWKV path: ``run_engine`` on full-width,
    full-depth rwkv6-7b in fp32 (32.2 GB of parameters), the same traffic;
    rwkv_scan must launch once per layer of every admission (32) and never
-   at decode, rmsnorm must launch, no attention kernel may.
+   at decode, rmsnorm must launch, no attention kernel may. Then, the RWKV
+   phases' tensors released, the Mamba path: ``run_engine`` on
+   full-width jamba-v0.1-52b cut to 1 of its 4 blocks (7 Mamba layers, 1
+   attention layer, 4 MoE MLPs; 13.3 B parameters, 53.2 GB in fp32), the
+   same traffic; mamba_scan must launch exactly 7 x admissions and never
+   at decode, flash once per admission, moe_route once per MoE layer of
+   every forward, rmsnorm 17 per forward; no paged kernel.
 5. teacher-forced check — prefill, then 8 slotted decode steps (the
    engine's), 8 uniform decode steps (``--load seq``) and 8 paged decode
    steps over a pool filled through a permuted table, each from the same
@@ -98,10 +113,15 @@ non-zero before the result line):
    kernel path on its own inputs, not gated, beside the plain path against
    itself with its embedding output moved one ulp: the witness of how far
    the random-init model at full width carries a rounding difference.
+   The Mamba model (``mamba_teacher_forced_phase``): prefill, then 8
+   slotted decode steps, the kernel path replaying the plain path's
+   routing and layer inputs: max |dlogit| <= 2e-3, the prefill's scan and
+   conv states compared; the free-running kernel path and the nudged
+   plain path printed, not gated.
 6. profile — where one engine run's time goes (``profile_phase``), slotted
-   and paged chunked, the MoE model's slotted run in bf16 and the RWKV
-   model's in fp32: wall time, device busy time, the device's idle share,
-   the top kernels.
+   and paged chunked, the MoE model's slotted run in bf16, the RWKV
+   model's and the Mamba model's in fp32: wall time, device busy time, the
+   device's idle share, the top kernels.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -134,6 +154,9 @@ ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 # the RWKV path: full-width rwkv6-7b in fp32, the same traffic
 RWKV_ARCH = "rwkv6-7b"
+# the Mamba path: full-width jamba-v0.1-52b cut to 1 of its 4 blocks, fp32,
+# the same traffic
+MAMBA_ARCH, MAMBA_BLOCKS = "jamba-v0.1-52b", 1
 SLOTS, PROMPT, GEN, REQUESTS = 4, 32, 32, 8
 MAX_LEN = PROMPT + GEN + 8
 # the paged paths: blocks of 16 (5 per slot at max_len 72), a 16-token
@@ -514,6 +537,13 @@ def make_cases(gen, dtype):
     flash_case("moe: prefill q (1,32,16,128)", 1, PROMPT, 16, 16, 128)
     slot_case("moe: decode q (4,16,128) kv (4,72,16,128)", SLOTS, MAX_LEN,
               16, 16, 128, (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
+    # the Mamba path's shapes: jamba-v0.1-52b, D 4096, HQ 32, HKV 8, dh 128
+    # (G = 4), fp32 parameters (the first fp32 dh-128 G-4 runs in a path)
+    rms_case("jamba: decode rows (4,1,4096)", (SLOTS, 1, 4096))
+    rms_case("jamba: prefill rows (1,32,4096)", (1, PROMPT, 4096))
+    flash_case("jamba: prefill q (1,32,32,128)", 1, PROMPT, 32, 8, 128)
+    slot_case("jamba: decode q (4,32,128) kv (4,72,8,128)", SLOTS, MAX_LEN,
+              32, 8, 128, (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
     # sweep
     rms_case("sweep (3,40,96)", (3, 40, 96))
     rms_case("sweep odd D (5,7,33)", (5, 7, 33))
@@ -613,18 +643,22 @@ def quant_insert_phase():
     return out
 
 
-def kernel_phase(gen):
+def kernel_phase(gen, only: str = ""):
+    """Every case of ``make_cases``, or those whose label starts with
+    ``only``."""
     import torch
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, call, plain, lib, nb, ops, *gather in make_cases(
                 gen, dtype):
+            if not label.startswith(only):
+                continue
             got = call()
             want = plain()
             torch.cuda.synchronize()
             err = check_close(f"{name} [{label}] {dtype}", got, want, dtype)
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
-            if label.startswith(("main", "large", "moe")):
+            if label.startswith(("main", "large", "moe", "jamba")):
                 b_ms, b_by = bound(nb, ops, dtype)
                 row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(lib), bound_ms=b_ms,
@@ -663,6 +697,10 @@ def route_cases(gen, dtype):
              SLOTS, 2048, 64, 6),
             ("main: admission x (32,2048) router (2048,64) k=6", PROMPT,
              2048, 64, 6),
+            ("jamba: decode microstep x (4,4096) router (4096,16) k=2",
+             SLOTS, 4096, 16, 2),
+            ("jamba: admission x (32,4096) router (4096,16) k=2", PROMPT,
+             4096, 16, 2),
             ("sweep N=100 D=64 E=16 k=4", 100, 64, 16, 4),
             ("sweep N=64 D=32 E=8 k=1", 64, 32, 8, 1),
             ("sweep N=33 D=16 E=4 k=2", 33, 16, 4, 2),
@@ -719,18 +757,21 @@ def check_route(name, got, want, x, w, k, exact):
     return err, reordered, swapped
 
 
-def route_phase(gen):
+def route_phase(gen, only: str = ""):
     """moe_route against ``moe_route_ref`` on the card, float32 and
     bfloat16 inputs; the main and large cases timed like the other
     kernels. Library yardstick: ``torch.topk(torch.softmax(x.float() @
     router.float(), -1), k)``, three PyTorch calls (the port never makes
     them). Bound: bytes of x, router, gates and indices over 3.35 TB/s, or
-    the 2·N·D·E operations over the input type's peak."""
+    the 2·N·D·E operations over the input type's peak. ``only``: the
+    cases whose label starts with it."""
     import torch
     from repro_torch.kernels import ops, ref
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for label, x, w, k, exact in route_cases(gen, dtype):
+            if not label.startswith(only):
+                continue
             call = lambda: ops.moe_route(x, w, k)  # noqa: E731
             plain = lambda: ref.moe_route_ref(x, w, k)  # noqa: E731
             got, want = call(), plain()
@@ -740,7 +781,7 @@ def route_phase(gen):
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err,
                    "near_tie_rows_reordered": reordered,
                    "near_tie_rows_kth_swapped": swapped}
-            if label.startswith(("main", "large")):
+            if label.startswith(("main", "large", "jamba")):
                 N, D = x.shape
                 lib = lambda: torch.topk(torch.softmax(  # noqa: E731
                     x.float() @ w.float(), -1), k)
@@ -810,6 +851,76 @@ def rwkv_scan_phase(gen):
             + " ".join(f"{k}={v!r}" for k, v in row.items()
                        if k not in ("label", "dtype")))
         rows.append(row)
+    return rows
+
+
+#: the H100 SXM's special-function units: 16 exps per clock per SM, 132
+#: SMs, 1.98 GHz boost (data sheet and Hopper white paper)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+
+
+def mamba_scan_phase(gen):
+    """mamba_scan against ``mamba_scan_ref`` on the card, y and the final
+    state, float32 within 1e-4 and bfloat16 inputs within 2e-2: the Mamba
+    path's admission shape (1,32,8192,16) (jamba-v0.1-52b: di 8192, ds
+    16), tests/test_kernels.py's sweep ((2,100,96,8), (1,64,64,4),
+    (2,33,128,16)) with S = 1, a ragged di, B = 4, odd ds and ds 32, and
+    one larger shape; x at 0.5, dt = softplus(n - 1), A = -exp(0.3 n),
+    B and C unit normals (as tests/test_kernels.py draws them). The main
+    and large cases timed like the other kernels. Bound: x, dt, A, B, C
+    read once, y and the state written once, over 3.35 TB/s, or the
+    function's 7 operations per (token, channel, state) (dt A, exp, (dt x)
+    B, a h + bx, h C summed) plus dt x per (token, channel) over the fp32
+    peak; beside it the exps alone over the SFUs' rate. No PyTorch call
+    computes the selective scan: the library time is null."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, S, di, ds in (
+                ("main: admission (1,32,8192,16)", 1, PROMPT, 8192, 16),
+                ("sweep (2,100,96,8)", 2, 100, 96, 8),
+                ("sweep (1,64,64,4)", 1, 64, 64, 4),
+                ("sweep (2,33,128,16)", 2, 33, 128, 16),
+                ("sweep S=1 (2,1,96,8)", 2, 1, 96, 8),
+                ("sweep ragged di (1,40,100,16)", 1, 40, 100, 16),
+                ("sweep B=4 (4,20,64,16)", 4, 20, 64, 16),
+                ("sweep odd ds (2,17,70,5)", 2, 17, 70, 5),
+                ("sweep ds=32 (1,9,40,32)", 1, 9, 40, 32),
+                ("large (4,1024,8192,16)", 4, 1024, 8192, 16)):
+            def rn(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda")
+            x = (rn(B, S, di) * 0.5).to(dtype)
+            dt = F.softplus(rn(B, S, di) - 1).to(dtype)
+            A = -torch.exp(rn(di, ds) * 0.3)
+            Bv, Cv = rn(B, S, ds).to(dtype), rn(B, S, ds).to(dtype)
+            ins = (x, dt, A, Bv, Cv)
+            call = lambda: ops.mamba_scan(*ins)  # noqa: E731
+            plain = lambda: ref.mamba_scan_ref(*ins)  # noqa: E731
+            (y, h), (wy, wh) = call(), plain()
+            torch.cuda.synchronize()
+            err = max(check_close(f"mamba_scan [{label}] {what}", got, want,
+                                  dtype)
+                      for what, got, want in (("y", y, wy),
+                                              ("state", h, wh)))
+            row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
+            if label.startswith(("main", "large")):
+                elems = B * S * di * ds
+                b_ms, b_by = bound(nbytes(*ins, y, h),
+                                   7.0 * elems + B * S * di, torch.float32)
+                slow = 3 if S > PROMPT else 50   # the plain loop over S
+                row.update(ms=cuda_ms(call),
+                           plain_ms=cuda_ms(plain, iters=slow, warmup=1),
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                           sfu_exp_ms=elems / SFU_EXP_PER_S * 1e3,
+                           device_ms=device_ms(call),
+                           plain_device_ms=device_ms(plain, iters=slow),
+                           library_device_ms=None)
+            log(f"kernel {'mamba_scan':15s} {str(dtype):15s} {label:45s} "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()
+                           if k not in ("label", "dtype")))
+            rows.append(row)
     return rows
 
 
@@ -1376,9 +1487,9 @@ def moe_phases(check: bool = True):
 # the RWKV path: full-width, full-depth rwkv6-7b in fp32
 # ---------------------------------------------------------------------------
 
-ATTENTION_KERNELS = ("flash_attention", "slot_decode", "paged_decode",
-                     "paged_prefill", "paged_decode_quant",
-                     "paged_prefill_quant")
+PAGED_KERNELS = ("paged_decode", "paged_prefill", "paged_decode_quant",
+                 "paged_prefill_quant")
+ATTENTION_KERNELS = ("flash_attention", "slot_decode") + PAGED_KERNELS
 
 
 def rwkv_path_phase():
@@ -1595,6 +1706,211 @@ def rwkv_phases():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the Mamba path: full-width jamba-v0.1-52b, 1 of its 4 blocks, in fp32
+# ---------------------------------------------------------------------------
+
+def mamba_config():
+    """jamba-v0.1-52b at its published widths, cut to the first of its 4
+    blocks (8 layers: 7 Mamba, 1 attention; 4 MoE MLPs, 4 dense): 13.3 B
+    parameters, 53.2 GB in fp32, where the whole model (51.57 B) does not
+    fit one 80 GB card in any dtype the port serves."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MAMBA_ARCH), num_blocks=MAMBA_BLOCKS)
+
+
+def mamba_path_phase():
+    """The Mamba main path through its entry point: ``run_engine`` on
+    jamba-v0.1-52b at full width, depth cut to one block, fp32 parameters
+    and activations, ``nss_shortcut``, 4 slots, prompt 32, gen 32, 8
+    requests at open load. Every request must finish with its budget;
+    mamba_scan must launch once per Mamba layer of every admission (the 8
+    requests and the warm-up one) and never at decode (``mamba_decode`` is
+    plain PyTorch, as in JAX); flash_attention once per admission (one
+    attention layer), slot_decode once per decode microstep, moe_route once
+    per MoE layer of every forward, rmsnorm 2 per layer and one more per
+    forward; no paged kernel and no rwkv_scan. Prints the report, the
+    counts, the peak device memory and the depth cut; returns the
+    counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA, MOE
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_engine
+
+    cfg = mamba_config()
+    full = get_config(MAMBA_ARCH)
+    n_layers = cfg.num_layers
+    n_mamba = sum(s.mixer == MAMBA for s in cfg.block_pattern) * MAMBA_BLOCKS
+    n_attn = n_layers - n_mamba
+    n_moe = sum(s.mlp == MOE for s in cfg.block_pattern) * MAMBA_BLOCKS
+    log(f"mamba path: {MAMBA_ARCH} at full width, depth cut to "
+        f"{MAMBA_BLOCKS} of {full.num_blocks} blocks ({n_layers} of "
+        f"{full.num_layers} layers: {n_mamba} Mamba, {n_attn} attention, "
+        f"{n_moe} MoE MLPs): {cfg.param_count() / 1e9:.4f} B of "
+        f"{full.param_count() / 1e9:.4f} B parameters, "
+        f"{cfg.param_count() * 4 / 1e9:.2f} GB in fp32")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = run_engine(cfg, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
+                     gen_len=GEN, requests=REQUESTS, load="open",
+                     smoke=False, device="cuda", dtype="fp32")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("serve report (mamba, open):", json.dumps(rep))
+    log("launches (mamba, open):", counts)
+    log(f"mamba path: peak device memory {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated)")
+    if rep["requests"] != REQUESTS or rep["total_tokens"] != REQUESTS * GEN:
+        raise AssertionError(f"mamba path: {rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{REQUESTS} x {GEN}")
+    admissions = REQUESTS + 1                    # run_engine's warm-up too
+    microsteps = counts.get("slot_decode", 0) / n_attn
+    forwards = admissions + microsteps
+    want = {"mamba_scan": n_mamba * admissions,
+            "flash_attention": n_attn * admissions,
+            "moe_route": n_moe * forwards,
+            "rmsnorm": (2 * n_layers + 1) * forwards}
+    for k, n in want.items():
+        if counts.get(k, 0) != n:
+            raise AssertionError(f"mamba path: {k} launched "
+                                 f"{counts.get(k, 0)} times, want {n:g}")
+    if microsteps < 1:
+        raise AssertionError("mamba path: slot_decode never launched")
+    launched = [k for k in PAGED_KERNELS + ("rwkv_scan",) if counts.get(k)]
+    if launched:
+        raise AssertionError(f"mamba path launched {launched}")
+    log(f"mamba path: {admissions} admissions x {n_mamba} Mamba layers = "
+        f"{counts['mamba_scan']} mamba_scan launches; {microsteps:g} decode "
+        f"microsteps (warm-up included), none launching mamba_scan")
+    return counts
+
+
+def mamba_teacher_forced_phase(params, cfg, steps: int = 8,
+                               tol: float = 2e-3):
+    """Prefill 32 tokens, then ``steps`` slotted decode steps, at full
+    width (one block) in fp32, kernels against plain versions on the card,
+    both fed the plain path's greedy tokens. Gated: the kernel path
+    replaying the plain path's routing (``routes``, as the MoE gate does:
+    a near-tied 2nd/3rd expert flips on an ulp) and its layer inputs
+    (``layer_inputs``, as the RWKV gate does: the random-init model at full
+    width amplifies an ulp from layer to layer), max |dlogit| <= ``tol``;
+    the prefill's final scan states and conv states are compared too.
+    Printed, not gated: the kernel path on its own routing and inputs, and
+    the plain path against itself with each forward's embedding output
+    moved one ulp (``first_layer_nudged``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, decode_step_slots, prefill
+    from repro_torch.serve import slotify
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PROMPT),
+                                         dtype=np.int32)).cuda()
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+
+    def run(opts, hooks, feed=None):
+        """Logits of the prefill and of each decode step and the prefill's
+        Mamba states, with each forward under ``hooks()``; the tokens fed
+        are ``feed``'s, or this run's own greedy ones."""
+        with hooks():
+            lg, cache = prefill(params, toks, cfg, opts, MAX_LEN)
+        states = [g[k].clone() for g in cache if "ssm" in g
+                  for k in ("ssm", "conv")]
+        cache, out, fed = slotify(cache), [lg], []
+        for i in range(steps):
+            nxt = (feed[i] if feed is not None
+                   else torch.argmax(lg, -1).to(torch.int32))
+            fed.append(nxt)
+            with hooks():
+                lg, cache = decode_step_slots(params, cache, nxt, cfg, opts)
+            out.append(lg)
+        return out, states, fed
+
+    def worst(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    route_log, input_log = [], []
+
+    @contextlib.contextmanager
+    def record():
+        with routes(route_log, False), layer_inputs(input_log, False):
+            yield
+
+    lp, sp, feed = run(plain, record)
+    replayed = (iter(route_log), iter(input_log))
+
+    @contextlib.contextmanager
+    def replay():
+        with routes(replayed[0], True), layer_inputs(replayed[1], True):
+            yield
+
+    lk, sk, _ = run(kern, replay, feed)
+    lf, sf, _ = run(kern, contextlib.nullcontext, feed)
+    ln, sn, _ = run(plain, lambda: first_layer_nudged(cfg.num_layers), feed)
+    torch.cuda.synchronize()
+    w = worst(lp, lk)
+    log(f"teacher-forced (mamba, fp32, prefill + {steps} slotted decode "
+        f"steps, routing and layer inputs replayed) max |dlogit|: {w:.3e} "
+        f"(tolerance {tol}; logit scale {lp[-1].abs().max().item():.3g}); "
+        f"prefill scan and conv states max |error| {worst(sp, sk):.3e} over "
+        f"{len(sp) // 2} Mamba layers (state scale "
+        f"{max(t.abs().max().item() for t in sp):.3g})")
+    for name, logits, states in (
+            ("mamba kernel path on its own routing and inputs", lf, sf),
+            ("mamba plain path, embedding output moved one ulp", ln, sn)):
+        log(f"{name}: max |dlogit| {worst(lp, logits):.4e}, prefill states "
+            f"max |error| {worst(sp, states):.4e} (not gated)")
+    if not math.isfinite(w) or w > tol:
+        raise AssertionError(f"teacher-forced (mamba) logits differ by {w}")
+
+
+def mamba_profile_phase(params, cfg):
+    """Where one Mamba engine run's time goes: 4 slots, each admitted with
+    a 32-token prompt, then one 32-step L3 program, fp32, ``nss_shortcut``:
+    wall time, device busy, idle share, the top kernels (the GEMMs first),
+    and the scan, router, attention and norm kernels by name."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS, max_len=MAX_LEN)
+    _profile_run(f"mamba slotted: {SLOTS} admissions + one {GEN}-step decode "
+                 "program, fp32, 1 of 4 blocks", eng, reqs,
+                 also=("mamba", "route", "decode", "flash", "rmsnorm"))
+
+
+def mamba_phases():
+    """The Mamba path, then its teacher-forced check and its profile over
+    one seeded set of fp32 parameters (53.2 GB; the path phase's own are
+    freed first). Returns the path's launch counts."""
+    import torch
+    from repro_torch.models import init_params
+
+    _release()
+    counts = mamba_path_phase()
+    _release()
+    cfg = mamba_config()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    mamba_teacher_forced_phase(params, cfg)
+    mamba_profile_phase(params, cfg)
+    del params
+    _release()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1635,6 +1951,12 @@ def main() -> int:
         phase(rwkv_scan_phase, gen)
         phase(rwkv_phases)
         return 0
+    if sys.argv[1:] == ["mamba"]:
+        phase(kernel_phase, gen, "jamba")
+        phase(route_phase, gen, "jamba")
+        phase(mamba_scan_phase, gen)
+        phase(mamba_phases)
+        return 0
     records = phase(kernel_phase, gen)
     phase(quant_insert_phase)
     _, _, counts, paged = phase(path_phase)
@@ -1642,10 +1964,13 @@ def main() -> int:
     phase(profile_phase)
     route_rows = phase(route_phase, gen)
     rwkv_rows = phase(rwkv_scan_phase, gen)
+    mamba_rows = phase(mamba_scan_phase, gen)
     moe_counts = phase(moe_phases)
     rwkv_counts = phase(rwkv_phases)
+    mamba_counts = phase(mamba_phases)
     records["moe_route"] = route_rows
     records["rwkv_scan"] = rwkv_rows
+    records["mamba_scan"] = mamba_rows
 
     # launches: each kernel's count in the run of the path that carries it
     # (the slotted --load open run; paged path A for paged_decode, paged
@@ -1653,12 +1978,14 @@ def main() -> int:
     by_path = {"slotted open": counts,
                **{f"paged {n}": paged[n][1] for n in "ABCD"},
                "moe slotted open": moe_counts,
-               "rwkv slotted open": rwkv_counts}
+               "rwkv slotted open": rwkv_counts,
+               "mamba slotted open": mamba_counts}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",
             "paged_prefill_quant": "paged D", "moe_route": "moe slotted open",
-            "rwkv_scan": "rwkv slotted open"}
+            "rwkv_scan": "rwkv slotted open",
+            "mamba_scan": "mamba slotted open"}
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:36"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1678,7 +2005,9 @@ def main() -> int:
                "moe_route": ("src/repro_torch/csrc/moe_route.cu",
                              "src/repro/kernels/moe_route.py:47"),
                "rwkv_scan": ("src/repro_torch/csrc/rwkv_scan.cu",
-                             "src/repro/kernels/rwkv6.py:75")}
+                             "src/repro/kernels/rwkv6.py:75"),
+               "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                              "src/repro/kernels/mamba_ssm.py:74")}
     out = []
     for name, (src, replaces) in sources.items():
         # the record's dtype is its home path's: float32, bf16 for the MoE
@@ -1721,9 +2050,22 @@ def main() -> int:
         if moe:       # at the MoE path's shapes, in its dtype (bf16)
             out[-1]["moe"] = {k: v for k, v in moe[0].items()
                               if k != "dtype"}
+        jamba = [r for r in records[name] if r["label"].startswith("jamba")
+                 and r["dtype"] == "torch.float32"]
+        if jamba:     # at the Mamba path's shapes, in its dtype (fp32)
+            out[-1]["jamba"] = [{k: v for k, v in r.items() if k != "dtype"}
+                                for r in jamba]
         if name == "rwkv_scan":
             out[-1]["library_calls"] = ("none: no PyTorch call computes the "
                                         "RWKV-6 recurrence")
+        if name == "mamba_scan":
+            out[-1]["library_calls"] = ("none: no PyTorch call computes the "
+                                        "selective scan")
+            out[-1]["bfloat16"] = [{k: v for k, v in r.items()
+                                    if k != "dtype"}
+                                   for r in records[name]
+                                   if r["dtype"] == "torch.bfloat16"
+                                   and "ms" in r]
         if name == "moe_route":
             out[-1]["library_calls"] = ("torch.topk(torch.softmax(x.float() "
                                         "@ router.float(), -1), k): 3 calls")

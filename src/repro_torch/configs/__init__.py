@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 It lists only the architectures the port serves: the dense GQA decoder of
-the ATTN + DENSE subset, the ATTN + MOE decoder and the attention-free
-RWKV + RWKVMIX model; the rest of ``src/repro/configs`` comes with the
-model zoo (ROADMAP module item 12).
+the ATTN + DENSE subset, the ATTN + MOE decoder, the attention-free
+RWKV + RWKVMIX model and the hybrid that interleaves Mamba and attention
+layers over dense and MoE MLPs; the rest of ``src/repro/configs`` comes
+with the model zoo (ROADMAP module item 12).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "rwkv6-7b": "rwkv6_7b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 

@@ -11,8 +11,13 @@ MoE layers carry over as they are (``router`` (D, E) and the ``wi``, ``wg``,
 ``wo`` expert stacks (E, D, F) / (E, F, D), one more leading block axis in
 the tree), and so do RWKV layers (the mixer's projections, decay bias,
 token-shift mixes, group-norm scale and per-head bonus ``u`` (nh, hd); the
-channel mix's ``wk``, ``wv``, ``wr`` and mixes). A bfloat16 leaf (an ``ml_dtypes`` array, which
-``torch.from_numpy`` cannot read) goes through float32, exactly.
+channel mix's ``wk``, ``wv``, ``wr`` and mixes), and so do Mamba layers
+(``in_proj``, ``conv_w``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``,
+``D``, ``out_proj``). Every leaf keeps its dtype: JAX's ``init_params``
+casts every float32 leaf to ``param_dtype`` (``transformer.py:67``),
+``A_log`` and ``D`` included, and the port's init casts the same leaves. A
+bfloat16 leaf (an ``ml_dtypes`` array, which ``torch.from_numpy`` cannot
+read) goes through float32, exactly.
 """
 from __future__ import annotations
 

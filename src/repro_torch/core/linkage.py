@@ -22,7 +22,8 @@ levels keep their meaning:
                 request finishes; the host synchronises only then.
     shortcut    the hand-written Hopper kernels (flash attention, slot
                 and paged decode, paged prefill, fused RMSNorm, the MoE
-                router, the RWKV scan) in place of the plain PyTorch paths.
+                router, the Mamba and RWKV scans) in place of the plain
+                PyTorch paths.
                 Their wrappers dispatch on the tensors' device: the kernels
                 on CUDA, their plain versions on the CPU.
 """
@@ -67,9 +68,9 @@ class LinkageConfig:
                       ) -> ModelOptions:
         """Resolve ModelOptions for this linkage level: ``shortcut`` selects
         the kernel wrappers (attention, the fused norm, and the MoE router
-        and the RWKV scan, ``scan_impl``: JAX's "pallas"). Which code runs
-        then follows the tensors: the Hopper kernels for CUDA tensors,
-        their plain versions for CPU tensors."""
+        and the Mamba and RWKV scans, ``scan_impl``: JAX's "pallas"). Which
+        code runs then follows the tensors: the Hopper kernels for CUDA
+        tensors, their plain versions for CPU tensors."""
         base = base or ModelOptions()
         if not self.shortcut:
             return base

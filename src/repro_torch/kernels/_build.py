@@ -137,13 +137,14 @@ def library() -> ctypes.CDLL:
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, I, I, P]
         lib.rt_moe_route.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
         lib.rt_rwkv_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+        lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
                    lib.rt_slot_decode_attention,
                    lib.rt_paged_decode_attention,
                    lib.rt_paged_prefill_attention,
                    lib.rt_paged_decode_attention_quant,
                    lib.rt_paged_prefill_attention_quant,
-                   lib.rt_moe_route, lib.rt_rwkv_scan):
+                   lib.rt_moe_route, lib.rt_rwkv_scan, lib.rt_mamba_scan):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

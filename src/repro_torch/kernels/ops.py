@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_ssm as _mamba
 from repro_torch.kernels import moe_route as _route
 from repro_torch.kernels import paged_decode as _paged
 from repro_torch.kernels import paged_prefill as _paged_pf
@@ -28,7 +29,8 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches since ``reset_launch_counts`` (keys: ``rmsnorm``,
     ``flash_attention``, ``slot_decode``, ``paged_decode``,
     ``paged_prefill``, the fused-dequant ``paged_decode_quant`` and
-    ``paged_prefill_quant``, ``moe_route`` and ``rwkv_scan``)."""
+    ``paged_prefill_quant``, ``moe_route``, ``rwkv_scan`` and
+    ``mamba_scan``)."""
     return dict(_build.launches)
 
 
@@ -108,3 +110,14 @@ def rwkv_scan(r, k, v, w, u):
     serving prefill keeps. JAX's ``chunk`` was a TPU tile and does not
     change the result; it is not an argument here."""
     return _rwkv.rwkv_scan(r, k, v, w, u)
+
+
+def mamba_scan(x, dt, A, Bv, Cv):
+    """The Mamba selective scan with its discretization fused (JAX
+    ``ops.py:103``, ``mamba_scan_fused``): x, dt (B,S,di) and Bv, Cv
+    (B,S,ds) in float32 or bfloat16, A (di,ds) float32 -> (y (B,S,di) f32,
+    the final state (B,di,ds) f32). JAX's returns y alone; the final state
+    is what the serving prefill keeps. ``dt·x`` is formed in the inputs'
+    dtype, as JAX's oracles form it. JAX's ``chunk`` and ``di_tile`` were
+    TPU tiles and do not change the result; they are not arguments here."""
+    return _mamba.mamba_scan(x, dt, A, Bv, Cv)

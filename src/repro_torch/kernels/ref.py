@@ -12,8 +12,8 @@ no valid key gives zeros (the Pallas ``_decode_kernel`` clamps its
 denominator at 1e-30) where a ``-inf`` softmax would give NaN. And
 ``moe_route_ref`` repeats the Pallas ``_route_kernel``'s arithmetic
 (``moe_route.py:19-36``), not the oracle's (``ref.py:150``).
-``rwkv_scan_ref`` (``ref.py:132``) also returns the final state, as the
-port's kernel does.
+``rwkv_scan_ref`` (``ref.py:132``) and ``mamba_scan_ref`` (``ref.py:114``)
+also return the final state, as the port's kernels do.
 """
 from __future__ import annotations
 
@@ -172,3 +172,29 @@ def rwkv_scan_ref(r, k, v, w, u):
     y = (torch.stack(ys, 1) if ys else
          torch.zeros((B, 0, nh, hd), dtype=torch.float32, device=r.device))
     return y, state
+
+
+def mamba_scan_ref(x, dt, A, Bv, Cv):
+    """The Mamba selective scan with its discretization fused (JAX
+    ``ref.py:114`` and ``layers.py:887``), one token at a time. x, dt:
+    (B,S,di); A: (di,ds); Bv, Cv: (B,S,ds). Per token ``a = exp(dt·A)``,
+    ``bx = (dt·x)·B``, ``h = a·h + bx``, ``y = Σ_n h·C``, all in float32
+    but ``dt·x``, which is formed in the inputs' dtype and widened after, as
+    both JAX oracles and ``_mamba_discretize`` form it (the Pallas kernel
+    widens x and dt first: the two agree in float32 and differ by a bf16
+    rounding in bfloat16). Returns (y (B,S,di) f32, the final state
+    (B,di,ds) f32; zeros when S is 0)."""
+    B, S, di = x.shape
+    Af = A.float()
+    dtf, bxf = dt.float(), (dt * x).float()
+    Bf, Cf = Bv.float(), Cv.float()
+    h = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        h = a * h + bxf[:, t, :, None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = (torch.stack(ys, 1) if ys else
+         torch.zeros((B, 0, di), dtype=torch.float32, device=x.device))
+    return y, h

@@ -26,6 +26,7 @@ Two paths share one model/linkage setup:
       python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
           --dtype bf16                   # the MoE model, bf16 parameters
       python -m repro_torch.launch.serve --arch rwkv6-7b  # RWKV, slotted
+      python -m repro_torch.launch.serve --arch jamba-v0.1-52b  # Mamba
 
   sequential        one request batch at a time (``--load seq``, also
                     ``run_server``): the baseline the engine's continuous
@@ -39,9 +40,13 @@ parameter dtype (JAX's ``ModelOptions.dtype`` and ``init_params(...,
 param_dtype)``); the default, fp32, keeps both in float32. At published
 widths moonshot-v1-16b-a3b's 28.06 B parameters take 56.1 GB in bf16 and
 do not fit one 80 GB card in fp32; rwkv6-7b's 8.05 B take 32.2 GB in
-fp32. RWKV layers carry a recurrent state, so rwkv6-7b runs on the slotted
-backend only: ``--kv paged`` and ``--bucket-prompts`` raise
-``ValueError``, as in JAX. Chunked
+fp32; jamba-v0.1-52b's 51.57 B fit one card at no dtype, and
+``run_engine`` takes an ``ArchConfig`` in place of the name, so a caller
+can serve it cut in depth (one of its four blocks: 13.3 B, 53.2 GB in
+fp32); the CLI has no depth option, as the JAX launcher has none. RWKV and
+Mamba layers carry a recurrent state, so rwkv6-7b and jamba-v0.1-52b run
+on the slotted backend only: ``--kv paged`` and ``--bucket-prompts``
+raise ``ValueError``, as in JAX. Chunked
 prefill on the slotted backend, speculation, swap (quantized blocks
 included), the prefix cache, meshes and sampling at temperature > 0 raise
 ``NotImplementedError`` naming their ROADMAP item; ``--kv-dtype int8|fp8``
@@ -68,19 +73,20 @@ def _dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-def _setup(arch: str, preset_name: str, *, smoke: bool = True, seed: int = 0,
+def _setup(arch, preset_name: str, *, smoke: bool = True, seed: int = 0,
            gen_len: int = 64, decode_steps: int = 0, device="cuda",
            dtype="fp32"):
-    """Shared model/linkage construction for both serving paths: weights
-    from the port's own seeded init on ``device``, activations and
-    parameters in ``dtype``."""
+    """Shared model/linkage construction for both serving paths: ``arch``
+    a registered name or an ``ArchConfig`` (``smoke`` cuts either to its
+    smoke variant), weights from the port's own seeded init on ``device``,
+    activations and parameters in ``dtype``."""
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core import L3_NSS, preset
     from repro_torch.models import ModelOptions, init_params
 
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     if smoke:
         cfg = cfg.smoke()
     lk = preset(preset_name)
@@ -94,7 +100,7 @@ def _setup(arch: str, preset_name: str, *, smoke: bool = True, seed: int = 0,
     return cfg, lk, opts, params
 
 
-def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
+def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                prompt_len: int = 32, gen_len: int = 32, requests: int = 8,
                load: str = "open", rate: float = 25.0,
                concurrency: int = 0, decode_steps: int = 0,
@@ -109,7 +115,9 @@ def run_engine(arch: str, preset_name: str, *, n_slots: int = 4,
                log_interval: float = 0.0, profile_dir: str = "",
                dtype="fp32"):
     """Continuous-batching serving run; returns the engine report dict.
-    ``dtype`` ("fp32" or "bf16") is the activation and parameter dtype.
+    ``arch`` is a registered name or an ``ArchConfig`` (a config cut in
+    depth, say); ``dtype`` ("fp32" or "bf16") is the activation and
+    parameter dtype.
 
     ``trace`` writes the run's Chrome-trace JSON (``.jsonl`` suffix: raw
     JSONL), ``metrics`` the Prometheus text exposition, ``log_interval``
@@ -278,7 +286,9 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--arch", default="tinyllama-1.1b",
                    help="tinyllama-1.1b, moonshot-v1-16b-a3b (the MoE "
-                        "model) or rwkv6-7b (the RWKV model, slotted only)")
+                        "model), rwkv6-7b (the RWKV model, slotted only) or "
+                        "jamba-v0.1-52b (Mamba, attention and MoE layers, "
+                        "slotted only)")
     p.add_argument("--dtype", default="fp32", choices=list(DTYPES),
                    help="activation and parameter dtype")
     p.add_argument("--preset", default="nss_shortcut")

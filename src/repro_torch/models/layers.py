@@ -1,9 +1,9 @@
-"""Layer library of the port, the ATTN/SWA + DENSE/MOE and RWKV + RWKVMIX
-subsets of ``src/repro/models/layers.py``: init + apply for RMSNorm, RoPE,
-GQA attention (full sequence, blockwise, uniform / slotted / paged decode,
-the paged serve chunk pass), the SwiGLU MLP, the top-k MoE with capacity
-dispatch, and the RWKV-6 time mix (full sequence and one-token decode) and
-channel mix.
+"""Layer library of the port, the ATTN/SWA + DENSE/MOE, MAMBA and RWKV +
+RWKVMIX subsets of ``src/repro/models/layers.py``: init + apply for
+RMSNorm, RoPE, GQA attention (full sequence, blockwise, uniform / slotted /
+paged decode, the paged serve chunk pass), the SwiGLU MLP, the top-k MoE
+with capacity dispatch, the Mamba-1 selective SSM and the RWKV-6 time mix
+(each full sequence and one-token decode), and the RWKV channel mix.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 ``(d_in, d_out)`` weight layout, so ``x @ w`` is the same product in both
@@ -11,9 +11,9 @@ frameworks. ``ModelOptions.attn_impl`` picks between the plain attention
 written here ("ref", the oracle) and the shortcut ("kernel": the wrappers
 in ``repro_torch.kernels.ops``, which launch the Hopper kernels for CUDA
 tensors and run their plain versions for CPU tensors); ``scan_impl`` does
-the same for the MoE router and the RWKV recurrence.
+the same for the MoE router and the Mamba and RWKV recurrences.
 
-Decode writes the new K/V (or the RWKV state and shift) into the cache
+Decode writes the new K/V (or the Mamba or RWKV state) into the cache
 tensors in place (the PyTorch counterpart of JAX buffer donation at
 linkage L2+); the callers clone the cache first where the linkage level
 keeps the caller's state intact.
@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.configs.base import SWA, ArchConfig, LayerSpec
 from repro_torch.kernels.kv_quant import quant_insert
-from repro_torch.kernels.ref import gather_pool, rwkv_scan_ref
+from repro_torch.kernels.ref import (gather_pool, mamba_scan_ref,
+                                     rwkv_scan_ref)
 
 Params = Dict[str, Any]
 
@@ -113,6 +114,36 @@ def init_moe(gen, cfg: ArchConfig, device, dtype=torch.float32) -> Params:
         "wg": _dense_init(gen, (e, d, f), device, dtype=dtype),
         "wo": _dense_init(gen, (e, f, d), device, scale=1.0 / math.sqrt(f),
                           dtype=dtype),
+    }
+
+
+def init_mamba(gen, cfg: ArchConfig, device, dtype=torch.float32) -> Params:
+    """``layers.py:825-842``: in_proj, conv_w (std 0.2), x_proj, dt_proj
+    (std dt_rank^-1/2) and out_proj (std di^-1/2) normal, ``A_log`` =
+    log(1..ds) on every channel, ``D`` at 1 and ``dt_bias`` the inverse
+    softplus of U(0, 1)·0.1 clipped at 1e-3; every leaf stored in
+    ``dtype``, A_log and D too (JAX's ``init_params`` cast,
+    ``transformer.py:67``)."""
+    mc = cfg.mamba
+    d = cfg.d_model
+    di = mc.expand * d
+    dt_rank = max(d // 16, 1)
+    u = torch.rand((di,), generator=gen, device=device, dtype=torch.float32)
+    A = torch.arange(1, mc.d_state + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": _dense_init(gen, (d, 2 * di), device, dtype=dtype),
+        "conv_w": _dense_init(gen, (mc.d_conv, di), device, scale=0.2,
+                              dtype=dtype),
+        "x_proj": _dense_init(gen, (di, dt_rank + 2 * mc.d_state), device,
+                              dtype=dtype),
+        "dt_proj": _dense_init(gen, (dt_rank, di), device,
+                               scale=dt_rank ** -0.5, dtype=dtype),
+        "dt_bias": torch.log(torch.expm1(
+            torch.clamp(u * 0.1, min=1e-3))).to(dtype),
+        "A_log": torch.log(A).expand(di, -1).to(dtype).contiguous(),
+        "D": torch.ones((di,), dtype=dtype, device=device),
+        "out_proj": _dense_init(gen, (di, d), device,
+                                scale=1.0 / math.sqrt(di), dtype=dtype),
     }
 
 
@@ -659,6 +690,91 @@ def moe_with_aux(params: Params, x: torch.Tensor, cfg: ArchConfig,
     frac = onehot.sum(dim=2).float().mean(dim=1)              # (G,E)
     aux = (me * frac).sum(-1).mean() * E * cfg.moe.router_aux_coef
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective SSM (layers.py:825-960)
+# ---------------------------------------------------------------------------
+
+def _mamba_gates(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                 conv_state=None):
+    """The computation before the scan (``layers.py:845``): in_proj split
+    into xin and the gate z, the causal depthwise conv over ``conv_state``
+    (zeros when None) followed by xin, summed in JAX's order over the
+    d_conv taps, silu, x_proj split into the low-rank dt, B and C, dt =
+    softplus(dt_lr @ dt_proj + dt_bias), all in x's dtype, and A =
+    -exp(A_log) in float32. Returns (dt, A, Bv, Cv, xc, z, the new conv
+    state: the last d_conv - 1 rows of the padded *pre-conv* xin)."""
+    mc = cfg.mamba
+    di = mc.expand * cfg.d_model
+    dt_rank = max(cfg.d_model // 16, 1)
+    B, S, _ = x.shape
+    xin, z = (x @ params["in_proj"].to(x.dtype)).split(di, dim=-1)
+    w = params["conv_w"].to(x.dtype)                        # (d_conv, di)
+    pad = (torch.zeros((B, mc.d_conv - 1, di), dtype=x.dtype,
+                       device=x.device)
+           if conv_state is None else conv_state.to(x.dtype))
+    xp = torch.cat([pad, xin], dim=1)
+    new_conv_state = xp[:, -(mc.d_conv - 1):] if mc.d_conv > 1 else pad
+    xc = 0
+    for i in range(mc.d_conv):
+        xc = xc + xp[:, i:i + S] * w[i]
+    xc = torch.nn.functional.silu(xc)
+    proj = xc @ params["x_proj"].to(x.dtype)
+    dt_lr, Bv, Cv = proj.split([dt_rank, mc.d_state, mc.d_state], dim=-1)
+    dt = torch.nn.functional.softplus(dt_lr @ params["dt_proj"].to(x.dtype)
+                                      + params["dt_bias"].to(x.dtype))
+    A = -torch.exp(params["A_log"]).float()                  # (di, ds)
+    return dt, A, Bv, Cv, xc, z, new_conv_state
+
+
+def _mamba_discretize(x, dt, A, Bv):
+    """``layers.py:880``: a = exp(dt·A) and bx = (dt·x)·B, float32, with
+    ``dt·x`` formed in the inputs' dtype."""
+    a = torch.exp(dt.float()[..., None] * A)
+    bx = (dt * x).float()[..., None] * Bv.float()[..., None, :]
+    return a, bx
+
+
+def _mamba_out(params: Params, y: torch.Tensor, xc: torch.Tensor,
+               z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The D skip and the silu(z) gate around the scan, then out_proj
+    (``layers.py:943-945``)."""
+    y = (y + xc.float() * params["D"]).to(x.dtype)
+    y = y * torch.nn.functional.silu(z)
+    return y @ params["out_proj"].to(x.dtype)
+
+
+def mamba(params: Params, x: torch.Tensor, cfg: ArchConfig,
+          opts: ModelOptions):
+    """Full-sequence Mamba-1 layer (``layers.py:939``). Under ``scan_impl
+    == "kernel"`` the scan is the kernel wrapper; under "ref" its plain
+    version. Returns (the output, the scan's final state (B,di,ds) f32, the
+    conv state (B,d_conv-1,di) in x's dtype): the serving prefill's
+    (``transformer.py:741-752``)."""
+    dt, A, Bv, Cv, xc, z, conv_state = _mamba_gates(params, x, cfg)
+    if opts.scan_impl == "kernel":
+        from repro_torch.kernels import ops as kops
+        y, h_last = kops.mamba_scan(xc, dt, A, Bv.contiguous(),
+                                    Cv.contiguous())
+    else:
+        y, h_last = mamba_scan_ref(xc, dt, A, Bv, Cv)
+    return _mamba_out(params, y, xc, z, x), h_last, conv_state
+
+
+def mamba_decode(params: Params, x: torch.Tensor, cache: Params,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """One-token Mamba step (``layers.py:948``), plain PyTorch in both
+    packages. cache: {"conv": (B,d_conv-1,di), "ssm": (B,di,ds) f32, ...};
+    both are updated in place, every row at its own step."""
+    dt, A, Bv, Cv, xc, z, new_conv = _mamba_gates(params, x, cfg,
+                                                  conv_state=cache["conv"])
+    a, bx = _mamba_discretize(xc, dt, A, Bv)
+    h = cache["ssm"] * a[:, 0] + bx[:, 0]                    # (B,di,ds)
+    y = torch.einsum("bdn,bn->bd", h, Cv[:, 0].float())[:, None]
+    cache["conv"].copy_(new_conv)
+    cache["ssm"].copy_(h)
+    return _mamba_out(params, y, xc, z, x)
 
 
 # ---------------------------------------------------------------------------

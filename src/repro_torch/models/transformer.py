@@ -1,11 +1,12 @@
 """Model assembly of the port: init, embed/unembed, backbone, prefill,
 one-token decode (uniform, slotted and paged), the paged serve chunk pass
-and the shared-prefix suffix prefill, for the ATTN/SWA mixers with a dense
-SwiGLU or a top-k MoE in the MLP position, and for the RWKV-6 time mix with
-its channel mix (``src/repro/models/transformer.py``). Every layer function
-reaches its MLP through one dispatch (``mlp_block``), so the slotted, paged
-and chunked engines all serve the MoE layer. RWKV layers carry a recurrent
-state, not K/V: they run on the slotted backend only, as in JAX.
+and the shared-prefix suffix prefill, for the ATTN/SWA and Mamba mixers
+with a dense SwiGLU or a top-k MoE in the MLP position, and for the RWKV-6
+time mix with its channel mix (``src/repro/models/transformer.py``). Every
+layer function reaches its MLP through one dispatch (``mlp_block``), so the
+slotted, paged and chunked engines all serve the MoE layer. Mamba and RWKV
+layers carry a recurrent state, not K/V: models with them run on the
+slotted backend only, as in JAX.
 
 JAX stacks each block-pattern position's parameters and scans over blocks;
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in
@@ -20,8 +21,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN, DENSE, MOE, RWKV, RWKVMIX, SWA,
-                                      ArchConfig, LayerSpec)
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, RWKV,
+                                      RWKVMIX, SWA, ArchConfig, LayerSpec)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions, Params
 
@@ -34,16 +35,17 @@ SUFFIX_Q_CHUNK, SUFFIX_KV_CHUNK = 512, 1024
 
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
     """The spec of every layer in execution order. The port serves
-    attention (full or sliding-window) mixers with a dense SwiGLU or a MoE
-    MLP, and the RWKV-6 time mix with its channel mix; the Mamba and
+    attention (full or sliding-window) and Mamba mixers with a dense SwiGLU
+    or a MoE MLP, and the RWKV-6 time mix with its channel mix; the
     cross-attention layers are ROADMAP module item 12."""
     for spec in cfg.block_pattern:
-        attn = spec.mixer in (ATTN, SWA) and spec.mlp in (DENSE, MOE)
-        if not attn and (spec.mixer, spec.mlp) != (RWKV, RWKVMIX):
+        in_subset = (spec.mixer in (ATTN, SWA, MAMBA)
+                     and spec.mlp in (DENSE, MOE))
+        if not in_subset and (spec.mixer, spec.mlp) != (RWKV, RWKVMIX):
             raise NotImplementedError(
-                f"layer {spec} is outside the port's ATTN/SWA + DENSE/MOE "
-                "and RWKV + RWKVMIX subsets (ROADMAP module item 12: the "
-                "model zoo)")
+                f"layer {spec} is outside the port's ATTN/SWA/MAMBA + "
+                "DENSE/MOE and RWKV + RWKVMIX subsets (ROADMAP module item "
+                "12: the model zoo)")
     if cfg.embeds_in:
         raise NotImplementedError("embedding-input configs are ROADMAP module "
                                   "item 12")
@@ -59,7 +61,8 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
     """One layer's parameters, each tensor drawn in float32 and cast to
     ``param_dtype`` at once: the float32 transient is one tensor (a 738 MB
     expert stack at moonshot-v1-16b-a3b's widths)."""
-    init_mixer = L.init_rwkv if spec.mixer == RWKV else L.init_attention
+    init_mixer = {RWKV: L.init_rwkv, MAMBA: L.init_mamba}.get(
+        spec.mixer, L.init_attention)
     init_mlp = {MOE: L.init_moe, RWKVMIX: L.init_rwkv_mix}.get(spec.mlp,
                                                             L.init_mlp)
     return {"norm1": L.init_rmsnorm(cfg, device, param_dtype),
@@ -75,7 +78,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device,
     N(0, 1/fan_in), the (E, D, F) expert weights N(0, 1/E) as JAX's
     ``fan_in = shape[0]`` gives them, norms at 1, the RWKV constants as
     ``init_rwkv`` lists them), drawn in float32 from
-    ``generator`` directly on ``device`` and cast to ``param_dtype`` as
+    ``generator`` directly on ``device`` (the Mamba constants as
+    ``init_mamba`` lists them) and cast to ``param_dtype`` as
     JAX casts them (``transformer.py:67``), one tensor at a time. The
     draws differ from JAX's; weights cross between the two only through
     ``repro_torch.convert.params_from_jax``."""
@@ -147,6 +151,8 @@ def apply_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     if spec.mixer == RWKV:
         x = x + L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)[0]
+    elif spec.mixer == MAMBA:
+        x = x + L.mamba(p["mixer"], h, cfg, opts)[0]
     else:
         x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions)
     return mlp_block(p, x, cfg, spec, opts)
@@ -174,14 +180,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
     """Uniform-layout cache, one dict per layer: k/v (B,T,HKV,dh) zeros,
     slot_pos (T,) at -1 (empty) and pos () at -1 (the JAX int32 fill;
-    prefill overwrites it); an RWKV layer holds its state (B,nh,hd,hd) f32
-    and the two token shifts (B,1,D) at zero, and pos
+    prefill overwrites it); a Mamba layer holds its conv state
+    (B,d_conv-1,di) in ``dtype`` and its scan state (B,di,ds) f32 at zero,
+    and pos (``transformer.py:220-224``); an RWKV layer its state
+    (B,nh,hd,hd) f32 and the two token shifts (B,1,D) at zero, and pos
     (``transformer.py:227-234``). On ``cuda`` unless the caller asks for
     the CPU; ``cuda`` without a GPU raises."""
     device = resolve_device(device)
     out = []
     for spec in layer_specs(cfg):
         pos = torch.full((), -1, dtype=torch.int32, device=device)
+        if spec.mixer == MAMBA:
+            mc = cfg.mamba
+            di = mc.expand * cfg.d_model
+            out.append({
+                "conv": torch.zeros((batch, mc.d_conv - 1, di), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((batch, di, mc.d_state),
+                                   dtype=torch.float32, device=device),
+                "pos": pos,
+            })
+            continue
         if spec.mixer == RWKV:
             hd = cfg.rwkv_head_dim
             shift = (batch, 1, cfg.d_model)
@@ -217,8 +236,9 @@ def apply_layer_decode(p: Params, x: torch.Tensor, cache_l: Params,
                        slots: bool = False, paged_tables=None,
                        paged_max_len: int = 0) -> torch.Tensor:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
-    if spec.mixer == RWKV:      # every row at its own step: no slot form
-        mix = L.rwkv_decode(p["mixer"], h, cache_l, cfg)
+    if spec.mixer in (RWKV, MAMBA):   # every row at its own step
+        decode = L.rwkv_decode if spec.mixer == RWKV else L.mamba_decode
+        mix = decode(p["mixer"], h, cache_l, cfg)
         cache_l["pos"] += 1
     elif paged_tables is not None:
         mix = L.attention_decode_paged(p["mixer"], h, cache_l, paged_tables,
@@ -260,8 +280,9 @@ def decode_step_slots(params: Params, cache: Cache, tokens: torch.Tensor,
 def _check_pageable(cfg: ArchConfig, what: str) -> None:
     """Paged KV (and shared-prefix prefill) covers full-window attention
     only (``transformer.py:343``): a sliding-window layer's circular buffer
-    has no block chain, and an RWKV layer carries dense per-slot state (and
-    a channel-mix shift that depends on the final position)."""
+    has no block chain, and a Mamba or RWKV layer carries dense per-slot
+    state (RWKV also a channel-mix shift that depends on the final
+    position)."""
     for spec in cfg.block_pattern:
         if spec.mixer != ATTN:
             raise ValueError(
@@ -353,6 +374,15 @@ def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
         mix, state = L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)
         cache_l["state"].copy_(state)
         cache_l["shift"].copy_(h[:, -1:])
+        cache_l["pos"].fill_(S)
+        return mlp_block(p, x + mix, cfg, spec, opts, cache_l)
+    if spec.mixer == MAMBA:
+        # the scan's final state and the conv rows are the decode cache's
+        # (``transformer.py:741-752``): the kernel stores the state at the
+        # shortcut
+        mix, h_last, conv = L.mamba(p["mixer"], h, cfg, opts)
+        cache_l["ssm"].copy_(h_last)
+        cache_l["conv"].copy_(conv)
         cache_l["pos"].fill_(S)
         return mlp_block(p, x + mix, cfg, spec, opts, cache_l)
     mix, k, v = L.attention_kv(p["mixer"], h, cfg, spec, opts, positions)

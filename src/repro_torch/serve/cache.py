@@ -16,10 +16,12 @@ Layout (one dict per layer) vs the uniform decode cache of
   slot_pos : (T,)                         slot_pos : (B, T)
   pos      : ()                           pos      : (B,)
 
-Every other leaf already carries batch at axis 0 (K/V, or an RWKV layer's
-state and shifts, which have no ``slot_pos``), so once ``slot_pos`` and
-``pos`` gain a batch axis, admission is one row write per leaf
-(``write_slot``).
+Every other leaf already carries batch at axis 0 (K/V, a Mamba layer's conv
+and scan states or an RWKV layer's state and shifts, which have no
+``slot_pos``), so once ``slot_pos`` and ``pos`` gain a batch axis,
+admission is one row write per leaf (``write_slot``): it overwrites every
+recurrent state of the row, so nothing of an evicted request reaches the
+next one.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ def slotify(cache: Cache) -> Cache:
     ``slot_pos`` (T,) and ``pos`` () are shared across the batch in the
     uniform layout (prefill runs all rows in lockstep), so broadcasting them
     over the batch axis is exact. The batch is read off the first other
-    leaf, and a layer without ``slot_pos`` (RWKV) gains only the per-row
-    ``pos`` (JAX ``cache.py:44``). The result owns its storage (the engine
+    leaf, and a layer without ``slot_pos`` (Mamba, RWKV) gains only the
+    per-row ``pos`` (JAX ``cache.py:44``). The result owns its storage (the engine
     writes into it in place).
     """
     out = []

@@ -287,7 +287,7 @@ def test_build_fingerprint_tracks_sources(tmp_path):
     assert {p.name for p in srcs} == {"rmsnorm.cu", "flash_attention.cu",
                                       "decode_attention.cu",
                                       "paged_attention.cu", "moe_route.cu",
-                                      "rwkv_scan.cu"}
+                                      "rwkv_scan.cu", "mamba_scan.cu"}
 
 
 # ---------------------------------------------------------------------------

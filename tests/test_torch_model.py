@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.configs.base import DENSE, SWA, LayerSpec  # noqa: E402
+from repro_torch.configs.base import DENSE, SWA, XATTN, LayerSpec  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import preset as tpreset  # noqa: E402
 from repro_torch.models import ModelOptions as TOpts  # noqa: E402
@@ -297,7 +297,7 @@ def test_functional_decode_leaves_the_callers_cache():
 
 def test_outside_the_subset_raises():
     cfg = dataclasses.replace(tget("tinyllama-1.1b").smoke(),
-                              block_pattern=(LayerSpec("mamba", DENSE),))
+                              block_pattern=(LayerSpec(XATTN, DENSE),))
     with pytest.raises(NotImplementedError, match="item 12"):
         TT.layer_specs(cfg)
     with pytest.raises(KeyError):

@@ -38,7 +38,8 @@ from repro_torch.serve.telemetry import validate_events, validate_spans  # noqa:
 
 CFG = get_config("tinyllama-1.1b").smoke()
 ARCHS = {"tinyllama": CFG, "moe": get_config("moonshot-v1-16b-a3b").smoke(),
-         "rwkv": get_config("rwkv6-7b").smoke()}
+         "rwkv": get_config("rwkv6-7b").smoke(),
+         "jamba": get_config("jamba-v0.1-52b").smoke()}
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)
 MAX_LEN = 48
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
@@ -51,8 +52,8 @@ def params():
 
 @pytest.fixture(scope="module", params=list(ARCHS))
 def engine_model(request, params):
-    """(config, parameters) of the dense, the MoE and the RWKV smoke
-    model."""
+    """(config, parameters) of the dense, the MoE, the RWKV and the jamba
+    (Mamba, attention and MoE layers) smoke model."""
     cfg = ARCHS[request.param]
     if cfg is CFG:
         return cfg, params
@@ -397,7 +398,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'repro_torch.kernels.kv_quant',\n"
         "        'repro_torch.kernels.moe_route',\n"
         "        'repro_torch.configs.moonshot_v1_16b_a3b',\n"
-        "        'repro_torch.kernels.rwkv6', 'repro_torch.configs.rwkv6_7b'\n"
+        "        'repro_torch.kernels.rwkv6', 'repro_torch.configs.rwkv6_7b',\n"
+        "        'repro_torch.kernels.mamba_ssm',\n"
+        "        'repro_torch.configs.jamba_v0_1_52b'\n"
         "        } <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

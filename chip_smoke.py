@@ -7,12 +7,16 @@
     python3 chip_smoke.py rwkv    # the build, rwkv_scan, the RWKV path
     python3 chip_smoke.py mamba   # the build, jamba's kernel shapes,
                                   # mamba_scan, the Mamba path
+    python3 chip_smoke.py prefill # the build, the paged kernels' cases,
+                                  # the teacher-forced check
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
 
 1. build  — ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
-   one library (all sources at once), timed.
+   one library (all sources at once), timed; ptxas's registers, spills and
+   static shared memory per kernel, and the paged prefill kernel's dynamic
+   shared memory and blocks per SM for each instantiation.
 2. kernels — every hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (full-width tinyllama-1.1b: D=2048,
    HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; the
@@ -22,7 +26,8 @@ non-zero before the result line):
    chunks of 24 starting mid-block) and over a sweep (HKV=3, odd dh, a
    sliding window, non-power-of-two lengths, block sizes 8 and 16, chunks
    of 1, 7 and to a block boundary, paged prefill at W=1 against paged
-   decode), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm,
+   decode and at dh 36 and 256, which take every copy width of its
+   staging), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm,
    flash attention and slot decode also at the MoE path's shapes
    (moonshot-v1-16b-a3b: D 2048, HQ = HKV = 16, dh 128, G = 1) and at the
    Mamba path's (jamba-v0.1-52b: D 4096, HQ 32, HKV 8, dh 128, G = 4). The
@@ -30,7 +35,8 @@ non-zero before the result line):
    ``paged_prefill_quant``) run the same main, sweep and large shapes over
    int8 and fp8 pools quantized per (block, KV head), for float32 and
    bfloat16 queries, against their plain versions (decode after the
-   gather) at the same tolerances.
+   gather) at the same tolerances. Both paged prefill kernels also run
+   one large case at jamba's attention shape (dh 128, HQ 32, HKV 8).
 3. timings — per kernel, with CUDA events over back-to-back calls: the
    kernel, its plain version, the one PyTorch library call computing the
    same function (``F.rms_norm``, ``F.scaled_dot_product_attention``; for
@@ -568,6 +574,13 @@ def make_cases(gen, dtype):
                        4, 1, 129, (0, 40))
     paged_prefill_case("sweep paged prefill W at a block boundary bs=8 W=8",
                        2, 8, 4, 8, 6, 3, 64, (8, 16))
+    # every copy width of the prefill kernel's staging: dh 36 copies 16
+    # bytes at a time in fp32, 8 in bf16, 4 in int8/fp8; dh 256 fills the
+    # widest tile exactly
+    paged_prefill_case("sweep paged prefill dh=36 bs=8 W=5", 2, 5, 4, 8, 4,
+                       2, 36, (3, 20))
+    paged_prefill_case("sweep paged prefill dh=256 bs=8 W=5", 2, 5, 3, 8, 4,
+                       2, 256, (0, 11))
     prefill_is_decode_case("sweep paged prefill W=1 == paged decode HKV=3 "
                            "dh=33 bs=8", 3, 4, 8, 6, 3, 33, (0, 13, 31))
     prefill_is_decode_case("sweep paged prefill W=1 == paged decode dh=129 "
@@ -584,6 +597,10 @@ def make_cases(gen, dtype):
         paged_prefill_quant_case("sweep paged prefill W at a block boundary "
                                  "bs=8 W=8", kvd, 2, 8, 4, 8, 6, 3, 64,
                                  (8, 16))
+        paged_prefill_quant_case("sweep paged prefill dh=36 bs=8 W=5", kvd,
+                                 2, 5, 4, 8, 4, 2, 36, (3, 20))
+        paged_prefill_quant_case("sweep paged prefill dh=256 bs=8 W=5", kvd,
+                                 2, 5, 3, 8, 4, 2, 256, (0, 11))
         prefill_is_decode_quant_case("sweep paged prefill W=1 == paged "
                                      "decode HKV=3 dh=33 bs=8", kvd, 3, 4, 8,
                                      6, 3, 33, (0, 13, 31))
@@ -606,6 +623,15 @@ def make_cases(gen, dtype):
         paged_prefill_quant_case("large paged prefill q (4,256,32,64) T=2048 "
                                  "bs=16", kvd, 4, 256, 128, 16, 32, 4, 64,
                                  (0, 512, 1024, 1792))
+    # the prefill tile at the other head width the repo serves: jamba's
+    # attention shape (HQ 32, HKV 8, dh 128, G 4)
+    paged_prefill_case("large paged prefill dh=128 q (4,256,32,128) HKV=8 "
+                       "T=2048 bs=16", 4, 256, 128, 16, 32, 8, 128,
+                       (0, 512, 1024, 1792))
+    for kvd in ("int8", "fp8"):
+        paged_prefill_quant_case("large paged prefill dh=128 q (4,256,32,128) "
+                                 "HKV=8 T=2048 bs=16", kvd, 4, 256, 128, 16,
+                                 32, 8, 128, (0, 512, 1024, 1792))
     return cases
 
 
@@ -643,15 +669,15 @@ def quant_insert_phase():
     return out
 
 
-def kernel_phase(gen, only: str = ""):
+def kernel_phase(gen, only: str = "", names=None):
     """Every case of ``make_cases``, or those whose label starts with
-    ``only``."""
+    ``only`` and, given ``names``, whose kernel is one of them."""
     import torch
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, call, plain, lib, nb, ops, *gather in make_cases(
                 gen, dtype):
-            if not label.startswith(only):
+            if not label.startswith(only) or (names and name not in names):
                 continue
             got = call()
             want = plain()
@@ -1270,7 +1296,8 @@ def profile_phase():
                   chunk_budget=BUDGET, chunk_width=CHUNK_W))):
         eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS,
                           max_len=MAX_LEN, **kw)
-        out[label] = _profile_run(label, eng, reqs)
+        out[label] = _profile_run(label, eng, reqs,
+                                  also=("paged_prefill_kernel",))
     return out
 
 
@@ -1911,6 +1938,25 @@ def mamba_phases():
     return counts
 
 
+PAGED_KERNELS = ("paged_decode", "paged_prefill", "paged_decode_quant",
+                 "paged_prefill_quant")
+
+
+def prefill_launch_log():
+    """The paged prefill kernel's instantiations beside ptxas's lines: the
+    dynamic shared memory of each (query type, pool type, padded head dim)
+    and how many of its blocks fit on one SM."""
+    import torch
+    from repro_torch.kernels import paged_prefill as kpp
+    for dtype in (torch.float32, torch.bfloat16):
+        for kvd in (None, torch.int8, torch.float8_e4m3fn):
+            for dh in (64, 128, 256):
+                info = kpp.launch_info(dtype, kvd, dh)
+                log(f"  paged_prefill launch: q {dtype} pool "
+                    f"{kvd or dtype} dh<={dh}: {info['smem_bytes']} bytes "
+                    f"of shared memory, {info['blocks_per_sm']} blocks/SM")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1930,8 +1976,9 @@ def main() -> int:
     lib = _build.build()
     log(f"build: {time.time() - t0:.2f} s -> {lib.relative_to(ROOT)}")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill")):
             log("  ptxas:", line.split("info    :")[-1].strip()[:160])
+    prefill_launch_log()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -1943,6 +1990,10 @@ def main() -> int:
 
     if sys.argv[1:] == ["route"]:
         phase(route_phase, gen)
+        return 0
+    if sys.argv[1:] == ["prefill"]:
+        phase(kernel_phase, gen, "", PAGED_KERNELS)
+        phase(teacher_forced_phase)
         return 0
     if sys.argv[1:] == ["moe"]:
         phase(moe_phases, False)
@@ -1994,13 +2045,13 @@ def main() -> int:
                                "src/repro/kernels/slot_decode.py:52"),
                "paged_decode": ("src/repro_torch/csrc/paged_attention.cu",
                                 "src/repro/kernels/paged_decode.py:135"),
-               "paged_prefill": ("src/repro_torch/csrc/paged_attention.cu",
+               "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                                  "src/repro/kernels/paged_prefill.py:185"),
                "paged_decode_quant": (
                    "src/repro_torch/csrc/paged_attention.cu",
                    "src/repro/kernels/paged_decode.py:37"),
                "paged_prefill_quant": (
-                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro_torch/csrc/paged_prefill.cu",
                    "src/repro/kernels/paged_prefill.py:82"),
                "moe_route": ("src/repro_torch/csrc/moe_route.cu",
                              "src/repro/kernels/moe_route.py:47"),

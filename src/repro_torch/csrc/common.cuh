@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 
 enum { RT_F32 = 0, RT_BF16 = 1 };
+// Storage codes of the quantized paged pools (kv_dtype int8 / fp8).
+enum { RT_I8 = 0, RT_E4M3 = 1 };
 
 namespace rt {
 

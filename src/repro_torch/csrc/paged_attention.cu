@@ -1,13 +1,10 @@
-// Paged attention over a block pool: one-token decode and chunked prefill,
-// for the paged KV backend (serve/paging.py).
+// Paged one-token decode attention over a block pool, for the paged KV
+// backend (serve/paging.py).
 //
-// Replaces two Pallas TPU kernels, each with its fused-dequant body:
-//   src/repro/kernels/paged_decode.py  (paged_decode_attention, pallas_call
-//     :135, body _paged_kernel :29 -> decode_attention.py:_decode_kernel;
-//     quantized body _paged_kernel_quant :37)
-//   src/repro/kernels/paged_prefill.py (paged_prefill_attention, pallas_call
-//     :185, body _paged_prefill_kernel :43; quantized body
-//     _paged_prefill_kernel_quant :82)
+// Replaces the Pallas TPU kernel src/repro/kernels/paged_decode.py
+// (paged_decode_attention, pallas_call :135, body _paged_kernel :29 ->
+// decode_attention.py:_decode_kernel; quantized body _paged_kernel_quant
+// :37). The chunked-prefill twin is paged_prefill.cu.
 //
 // The KV cache is a pool (P+1, bs, HKV, dh) of fixed-size blocks; each slot
 // owns a chain of them, listed in its row of the (B, nb) block table, and
@@ -26,24 +23,12 @@
 // are zero-filled instead of loaded, so garbage in the trash row or a
 // block tail is never read at all.
 //
-// paged decode: one block per (slot, KV head), exactly like slot decode
+// One block per (slot, KV head), exactly like slot decode
 // (decode_attention.cu): the G query heads of the KV head share each tile,
 // so each live key is read once. A tile with no valid key is skipped
 // (__syncthreads_or over the validity mask), which is the same arithmetic
 // as the online softmax over it (corr = 1, p = 0): the work follows the
 // slot's resident length, not the table's width.
-//
-// paged prefill: the W chunk queries of a (slot, KV head) are W*G query
-// rows (row r is chunk position r / G, query head h*G + r % G). The Pallas
-// kernel kept all W*G rows in one program; at the default chunk width of
-// 72 that is 576 rows, far beyond a block's shared memory and registers.
-// So the rows are tiled over the grid, 32 per block: (row tile, KV head,
-// slot), each block walking the chain. Row r sits at position start[b] +
-// r / G and sees keys t <= that position (the Pallas mask
-// i*bs + j <= start[b] + w). Keys past the tile's last row position are
-// fully masked, so they bound the loop — the Pallas kernel read all nb
-// blocks; the result is the same. q and o are read and written through
-// their (B, W, HQ, dh) strides: no transpose copy.
 //
 // Quantized pools (kv_dtype int8 / fp8, kernels/kv_quant.py): the pools
 // hold int8 or e4m3 codes and each (block, KV head) has one f32 scale in
@@ -57,20 +42,15 @@
 // storage type is a template parameter beside the query type; pools are
 // read one byte per element through the same element strides.
 //
-// What bounds them: decode reads each live key's K and V once per KV head
-// for 4*dh FLOPs per query head — bytes. Prefill at chunk widths of tens of
-// tokens does W*G times more work per key byte, and at W = 256 it is
-// bound by operations. Both run the fp32 online softmax of
-// attention_tile.cuh on CUDA cores; split-T decode and tensor-core prefill
-// tiles are the later, fast versions.
+// What bounds it: decode reads each live key's K and V once per KV head
+// for 4*dh FLOPs per query head — bytes. It runs the fp32 online softmax
+// of attention_tile.cuh on CUDA cores; split-T decode is the later, fast
+// version.
 #include <cuda_fp8.h>
 
 #include <cstdint>
 
 #include "attention_tile.cuh"
-
-// Storage codes of the quantized pools (kv_dtype int8 / fp8).
-enum { RT_I8 = 0, RT_E4M3 = 1 };
 
 namespace rt {
 // The quantized pools' codes as float: exact for both formats.
@@ -81,7 +61,6 @@ __device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<floa
 namespace {
 
 constexpr int THREADS = 128;  // four warps
-constexpr int BQ = 32;        // prefill: query rows (of W*G) per block
 
 // Per-block scales of a quantized pool, as the kernel sees them: the KV
 // head's column of ks/vs (P+1, HKV) and the row strides. Unquantized pools
@@ -228,76 +207,6 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 }
 
 template <typename T, typename KV, bool Q>
-__global__ void __launch_bounds__(THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
-                     const KV* __restrict__ vp, Scales sc, const int* __restrict__ tables,
-                     const int* __restrict__ start, T* __restrict__ o, int W, int nb, int bs,
-                     int HQ, int HKV, int dh, long long qsb, long long qsw, long long qsh,
-                     long long ksb, long long kso, long long ksh, long long vsb, long long vso,
-                     long long vsh, long long tsb, long long osb, long long osw, long long osh,
-                     float scale) {
-  extern __shared__ float smem[];
-  const int G = HQ / HKV;
-  const int ld = rt::tile_ld(dh);
-  float* Qs = smem;
-  float* Ks = Qs + BQ * ld;
-  float* Vs = Ks + rt::BK * ld;
-  float* S = Vs + rt::BK * ld;
-  float* acc = S + BQ * rt::BK;
-  float* m = acc + BQ * dh;
-  float* l = m + BQ;
-  float* corr = l + BQ;
-  const KeySlots slots = key_slots(corr + BQ);
-
-  const int r0 = blockIdx.x * BQ, hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int rows = W * G, Tn = nb * bs;
-  const int s0 = start[b];
-  const T* qb = q + b * qsb + static_cast<long long>(hk) * G * qsh;
-  const KV* kb = kp + hk * ksh;
-  const KV* vb = vp + hk * vsh;
-  if constexpr (Q) {
-    sc.k += hk;
-    sc.v += hk;
-  }
-  const int* tb = tables + b * tsb;
-
-  for (int idx = tid; idx < BQ * dh; idx += THREADS) {
-    const int i = idx / dh, d = idx % dh;
-    const int r = r0 + i;
-    Qs[i * ld + d] = r < rows ? rt::to_f(qb[(r / G) * qsw + (r % G) * qsh + d]) : 0.f;
-    acc[idx] = 0.f;
-  }
-  for (int i = tid; i < BQ; i += THREADS) {
-    m[i] = rt::NEG_INF;
-    l[i] = 0.f;
-  }
-
-  // keys any row of this tile can see: t <= s0 + (last row) / G
-  const int k_hi = min(Tn, s0 + (min(r0 + BQ, rows) - 1) / G + 1);
-  auto in_range = [=](int t) { return t < k_hi; };
-  for (int k0 = 0; k0 < k_hi; k0 += rt::BK) {
-    resolve_keys<Q>(slots, sc, tb, bs, k0, in_range);
-    __syncthreads();
-    stage_tile<Q>(Ks, Vs, kb, vb, slots, ksb, kso, vsb, vso, dh, ld);
-    __syncthreads();
-    auto live = [=](int i, int j) {
-      const int r = r0 + i, t = k0 + j;
-      return r < rows && t < k_hi && t <= s0 + r / G;
-    };
-    rt::tile_update(Qs, Ks, Vs, S, acc, m, l, corr, BQ, dh, ld, scale, live);
-  }
-  __syncthreads();
-
-  T* ob = o + b * osb + static_cast<long long>(hk) * G * osh;
-  for (int idx = tid; idx < BQ * dh; idx += THREADS) {
-    const int i = idx / dh, d = idx % dh;
-    const int r = r0 + i;
-    if (r < rows) ob[(r / G) * osw + (r % G) * osh + d] = rt::from_f<T>(acc[idx] / fmaxf(l[i], 1e-30f));
-  }
-}
-
-template <typename T, typename KV, bool Q>
 int launch_decode(const void* q, const void* kp, const void* vp, Scales sc, const void* tables,
                   const void* valid, void* o, int B, int nb, int bs, int HQ, int HKV, int dh,
                   const long long* st, float scale, cudaStream_t stream) {
@@ -310,23 +219,6 @@ int launch_decode(const void* q, const void* kp, const void* vp, Scales sc, cons
       static_cast<const int*>(tables), static_cast<const unsigned char*>(valid),
       static_cast<T*>(o), nb, bs, HQ, HKV, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename KV, bool Q>
-int launch_prefill(const void* q, const void* kp, const void* vp, Scales sc,
-                   const void* tables, const void* start, void* o, int B, int W, int nb, int bs,
-                   int HQ, int HKV, int dh, const long long* st, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = paged_smem_bytes(BQ, dh);
-  cudaError_t err = rt::allow_smem(paged_prefill_kernel<T, KV, Q>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((W * (HQ / HKV) + BQ - 1) / BQ, HKV, B);
-  paged_prefill_kernel<T, KV, Q><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp), sc,
-      static_cast<const int*>(tables), static_cast<const int*>(start), static_cast<T*>(o), W,
-      nb, bs, HQ, HKV, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -343,20 +235,6 @@ int launch_decode_quant(const void* q, const void* kp, const void* vp, Scales sc
   if (kv_dtype == RT_E4M3)
     return launch_decode<T, __nv_fp8_e4m3, true>(q, kp, vp, sc, tables, valid, o, B, nb, bs,
                                                  HQ, HKV, dh, st, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int launch_prefill_quant(const void* q, const void* kp, const void* vp, Scales sc,
-                         const void* tables, const void* start, void* o, int B, int W, int nb,
-                         int bs, int HQ, int HKV, int dh, const long long* st, float scale,
-                         int kv_dtype, cudaStream_t s) {
-  if (kv_dtype == RT_I8)
-    return launch_prefill<T, int8_t, true>(q, kp, vp, sc, tables, start, o, B, W, nb, bs, HQ,
-                                           HKV, dh, st, scale, s);
-  if (kv_dtype == RT_E4M3)
-    return launch_prefill<T, __nv_fp8_e4m3, true>(q, kp, vp, sc, tables, start, o, B, W, nb,
-                                                  bs, HQ, HKV, dh, st, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -389,28 +267,7 @@ extern "C" int rt_paged_decode_attention(const void* q, const void* kp, const vo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// q (B,W,HQ,dh), kp/vp (P+1,bs,HKV,dh), tables (B,nb) int32, start (B,)
-// int32 contiguous, o (B,W,HQ,dh). `strides` (elements): q batch, position,
-// head; kp block, offset, head; vp block, offset, head; tables batch; o
-// batch, position, head. The last dimension of each is contiguous.
-extern "C" int rt_paged_prefill_attention(const void* q, const void* kp, const void* vp,
-                                          const void* tables, const void* start, void* o,
-                                          int B, int W, int nb, int bs, int HQ, int HKV, int dh,
-                                          const long long* strides, float scale, int dtype,
-                                          void* stream) {
-  if (bad_heads(HQ, HKV, dh) || bs < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || W == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == RT_F32)
-    return launch_prefill<float, float, false>(q, kp, vp, NO_SCALES, tables, start, o, B, W,
-                                               nb, bs, HQ, HKV, dh, strides, scale, s);
-  if (dtype == RT_BF16)
-    return launch_prefill<__nv_bfloat16, __nv_bfloat16, false>(
-        q, kp, vp, NO_SCALES, tables, start, o, B, W, nb, bs, HQ, HKV, dh, strides, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The fused-dequant variants: as above with kp/vp int8 (kv_dtype RT_I8) or
+// The fused-dequant variant: as above with kp/vp int8 (kv_dtype RT_I8) or
 // float8 e4m3 (RT_E4M3) codes and ks/vs (P+1,HKV) f32 per-block scales
 // (last dimension contiguous). `strides` as above, then ks block, vs block.
 extern "C" int rt_paged_decode_attention_quant(const void* q, const void* kp, const void* vp,
@@ -430,25 +287,5 @@ extern "C" int rt_paged_decode_attention_quant(const void* q, const void* kp, co
   if (dtype == RT_BF16)
     return launch_decode_quant<__nv_bfloat16>(q, kp, vp, sc, tables, valid, o, B, nb, bs, HQ,
                                               HKV, dh, strides, scale, kv_dtype, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int rt_paged_prefill_attention_quant(const void* q, const void* kp, const void* vp,
-                                                const void* ks, const void* vs,
-                                                const void* tables, const void* start, void* o,
-                                                int B, int W, int nb, int bs, int HQ, int HKV,
-                                                int dh, const long long* strides, float scale,
-                                                int dtype, int kv_dtype, void* stream) {
-  if (bad_heads(HQ, HKV, dh) || bs < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || W == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Scales sc{static_cast<const float*>(ks), static_cast<const float*>(vs), strides[13],
-                  strides[14]};
-  if (dtype == RT_F32)
-    return launch_prefill_quant<float>(q, kp, vp, sc, tables, start, o, B, W, nb, bs, HQ, HKV,
-                                       dh, strides, scale, kv_dtype, s);
-  if (dtype == RT_BF16)
-    return launch_prefill_quant<__nv_bfloat16>(q, kp, vp, sc, tables, start, o, B, W, nb, bs,
-                                               HQ, HKV, dh, strides, scale, kv_dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -135,6 +135,7 @@ def library() -> ctypes.CDLL:
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, F, I, I, P]
         lib.rt_paged_prefill_attention_quant.argtypes = [
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, I, I, P]
+        lib.rt_paged_prefill_info.argtypes = [I, I, I, P, P]
         lib.rt_moe_route.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
         lib.rt_rwkv_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
         lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
@@ -144,6 +145,7 @@ def library() -> ctypes.CDLL:
                    lib.rt_paged_prefill_attention,
                    lib.rt_paged_decode_attention_quant,
                    lib.rt_paged_prefill_attention_quant,
+                   lib.rt_paged_prefill_info,
                    lib.rt_moe_route, lib.rt_rwkv_scan, lib.rt_mamba_scan):
             fn.restype = ctypes.c_int
         _lib = lib

@@ -2,17 +2,23 @@
 ``src/repro/kernels/paged_prefill.py`` (Pallas ``paged_prefill_attention``,
 bodies ``_paged_prefill_kernel`` and the fused-dequant
 ``_paged_prefill_kernel_quant``), written by hand in
-``csrc/paged_attention.cu``.
+``csrc/paged_prefill.cu``.
 
 Each slot's W chunk queries attend over its resident block chain under the
 causal mask ``k_pos <= start + w``; the chunk's own K/V is already in the
 pool. The TPU kernel kept all W·G query rows of a (slot, KV head) in one
 program and transposed q to get them there; the CUDA kernel tiles the rows
-over the grid and reads q in its (B, W, HQ, dh) layout through strides.
-Quantized pools (``ks``/``vs``) launch the fused-dequant variant.
+64 to a block and reads q in its (B, W, HQ, dh) layout through strides.
+bf16 queries run on the tensor cores, fp32 queries as register tiles on
+the CUDA cores (``csrc/register_tiles.cuh``). Quantized pools
+(``ks``/``vs``) launch the fused-dequant variant: for bf16 queries its
+arithmetic differs from the plain version's in one place, P is rounded to
+bf16 after the V scale is folded in (``tests/test_torch_prefill_tiles.py``
+holds that contract against JAX).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -72,3 +78,17 @@ def paged_prefill_attention(q: torch.Tensor, kp: torch.Tensor,
     _build.check(err, "paged_prefill_attention")
     _build.launches["paged_prefill"] += 1
     return o
+
+
+def launch_info(dtype: torch.dtype, kv_dtype, dh: int) -> dict:
+    """The CUDA kernel's launch for queries of ``dtype`` over a pool of
+    ``kv_dtype`` (None: q's dtype; torch.int8 / torch.float8_e4m3fn) at
+    head dim ``dh``: its dynamic shared memory and how many of its blocks
+    fit on one SM of the current device."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    kv = -1 if kv_dtype is None else _build.KV_CODES[kv_dtype]
+    err = _build.library().rt_paged_prefill_info(
+        _build.DTYPE_CODES[dtype], kv, dh, ctypes.byref(smem),
+        ctypes.byref(blocks))
+    _build.check(err, "paged_prefill_attention launch info")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}

@@ -823,19 +823,25 @@ def test_launcher_paged_prints_a_report(extra, mode, capsys):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_paged_kernels_match_plain(dtype):
+    """Both paged kernels against their plain versions on the card: the
+    sweep's HKV=3 / dh 33 shape, path A/B's, and jamba's attention shape
+    (dh 128, G 4) at a chunk of 40 (three 64-row tiles, several key tiles),
+    the last also over int8 and fp8 pools."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the Hopper kernels have no CPU "
                     "interpret mode)")
+    from repro_torch.kernels import kv_quant as tkq
     dtype = getattr(torch, dtype)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     rng = np.random.default_rng(0)
-    for B, nb, bs, HQ, HKV, dh, pos in ((3, 4, 8, 6, 3, 33, (0, 13, 31)),
-                                        (4, 5, 16, 32, 4, 64,
-                                         (32, 48, 71, 0))):
+    for B, W, nb, bs, HQ, HKV, dh, pos in (
+            (3, 3, 4, 8, 6, 3, 33, (0, 13, 31)),
+            (4, 3, 5, 16, 32, 4, 64, (32, 48, 71, 0)),
+            (4, 40, 16, 16, 32, 8, 128, (100, 150, 30, 0))):
         kp, vp, tables = _pools(rng, B, nb, bs, HKV, dh, [p + 1 for p in pos])
         kt, vt = (torch.from_numpy(a).cuda().to(dtype) for a in (kp, vp))
         tt = torch.from_numpy(tables).cuda()
-        q = torch.from_numpy(rng.standard_normal((B, 3, HQ, dh)).astype(
+        q = torch.from_numpy(rng.standard_normal((B, W, HQ, dh)).astype(
             np.float32)).cuda().to(dtype)
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
         valid = torch.arange(nb * bs, device="cuda")[None] <= pt[:, None]
@@ -848,3 +854,17 @@ def test_cuda_paged_kernels_match_plain(dtype):
             tpp.paged_prefill_attention(q, kt, vt, tt, start),
             tref.paged_prefill_attention_ref(q, kt, vt, tt, start),
             atol=tol, rtol=tol)
+        if dh != 128:
+            continue
+        for kvd in ("int8", "fp8"):
+            store = tkq.storage_dtype(kvd, torch.float32)
+            pools = []
+            for f in (torch.from_numpy(kp).cuda(), torch.from_numpy(vp).cuda()):
+                s = tkq.block_scales(f.abs().amax(dim=(1, 3)), store)
+                pools += [tkq.quantize(f, s[:, None, :, None], store), s]
+            kq, ks, vq, vs = pools
+            torch.testing.assert_close(
+                tpp.paged_prefill_attention(q, kq, vq, tt, start, ks, vs),
+                tref.paged_prefill_attention_ref(q, kq, vq, tt, start, ks=ks,
+                                                 vs=vs),
+                atol=tol, rtol=tol)

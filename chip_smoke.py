@@ -9,6 +9,8 @@
                                   # mamba_scan, the Mamba path
     python3 chip_smoke.py prefill # the build, the paged kernels' cases,
                                   # the teacher-forced check
+    python3 chip_smoke.py attention  # the build, every attention kernel's
+                                  # cases, the teacher-forced check
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -30,7 +32,12 @@ non-zero before the result line):
    staging), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm,
    flash attention and slot decode also at the MoE path's shapes
    (moonshot-v1-16b-a3b: D 2048, HQ = HKV = 16, dh 128, G = 1) and at the
-   Mamba path's (jamba-v0.1-52b: D 4096, HQ 32, HKV 8, dh 128, G = 4). The
+   Mamba path's (jamba-v0.1-52b: D 4096, HQ 32, HKV 8, dh 128, G = 4); at
+   2048 tokens flash attention also runs at those two paths' head shapes
+   and with a 512-token window, and slot decode over 32 slots of 2048 keys
+   at moonshot's head shape and with ragged occupancy (0, 1, 700 and 2048
+   live keys). A slot decode case's label ends with the number of splits
+   the wrapper cuts its cache into. The
    fused-dequant paged kernels (``paged_decode_quant``,
    ``paged_prefill_quant``) run the same main, sweep and large shapes over
    int8 and fp8 pools quantized per (block, KV head), for float32 and
@@ -302,21 +309,25 @@ def make_cases(gen, dtype):
                 enable_gqa=True),
             nbytes(q, k, v, q), 4.0 * dh * pairs))
 
+    def splits(label, B, T, HKV):
+        return f"{label} [nsplit {ksd.num_splits(B, HKV, T)}]"
+
     def slot_case(label, B, T, HQ, HKV, dh, lives):
         q, k, v = rn(B, HQ, dh), rn(B, T, HKV, dh), rn(B, T, HKV, dh)
         valid = torch.zeros(B, T, dtype=torch.bool, device="cuda")
         for b, n in enumerate(lives):
             valid[b, :n] = True
-        keys = int(valid.sum().item())
+        keys = int(valid.sum().item())           # live keys, this run's data
         kT, vT = k.transpose(1, 2), v.transpose(1, 2)
         cases.append((
-            "slot_decode", label,
+            "slot_decode", splits(label, B, T, HKV),
             lambda: ksd.slot_decode_attention(q, k, v, valid),
             lambda: ref.slot_decode_attention_ref(q, k, v, valid),
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kT, vT, attn_mask=valid[:, None, None],
                 enable_gqa=True),
-            nbytes(q, k, v, valid, q), 4.0 * dh * HQ * keys))
+            nbytes(q, valid, q) + 2 * keys * HKV * dh * k.element_size(),
+            4.0 * dh * HQ * keys))
 
     def uniform_case(label, B, T, HQ, HKV, dh, pos, filled, window=0):
         """The uniform wrapper (``--load seq``): ``ops.decode_attention``
@@ -335,14 +346,15 @@ def make_cases(gen, dtype):
         keys = int(valid.sum().item()) * B
         kT, vT = k.transpose(1, 2), v.transpose(1, 2)
         cases.append((
-            "slot_decode", label,
+            "slot_decode", splits(label, B, T, HKV),
             lambda: ops.decode_attention(q[:, None], k, v, slot_pos, pos_t,
                                          window=window)[:, 0],
             lambda: ref.decode_attention_ref(q, k, v, valid),
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kT, vT, attn_mask=valid[None, None, None],
                 enable_gqa=True),
-            nbytes(q, k, v, slot_pos, q), 4.0 * dh * HQ * keys))
+            nbytes(q, slot_pos, q) + 2 * keys * HKV * dh * k.element_size(),
+            4.0 * dh * HQ * keys))
 
     def pool_case(B, nb, bs, HKV, dh, spare, keys):
         """Pools (P+1, bs, HKV, dh) with P = B*nb + spare and row P the
@@ -562,6 +574,10 @@ def make_cases(gen, dtype):
     slot_case("sweep HKV=3 T=24", 2, 24, 6, 3, 64, (24, 7))
     slot_case("sweep odd dh=129 MQA", 2, 32, 4, 1, 129, (31, 16))
     slot_case("sweep empty row T=40", 2, 40, 8, 2, 80, (33, 0))
+    # split over T with a combine pass (2 splits): odd dh (element copies
+    # in bf16, 4-byte copies in fp32), HKV 3, a split with no valid key
+    slot_case("sweep split HKV=3 odd dh=33 T=700", 2, 700, 6, 3, 33,
+              (700, 333))
     uniform_case("sweep decode_attention HKV=3 window=16 T=40", 3, 40, 6, 3,
                  33, pos=30, filled=35, window=16)
     paged_decode_case("sweep paged decode HKV=3 dh=33 bs=8", 3, 4, 8, 6, 3,
@@ -623,6 +639,19 @@ def make_cases(gen, dtype):
         paged_prefill_quant_case("large paged prefill q (4,256,32,64) T=2048 "
                                  "bs=16", kvd, 4, 256, 128, 16, 32, 4, 64,
                                  (0, 512, 1024, 1792))
+    # flash at the other paths' head shapes over 2048 tokens (jamba: HQ 32,
+    # HKV 8, dh 128; moonshot: HQ = HKV = 16, dh 128) and with a window;
+    # slot decode at moonshot's head shape and with ragged occupancy
+    flash_case("large prefill jamba q (1,2048,32,128) HKV=8", 1, 2048, 32, 8,
+               128)
+    flash_case("large prefill moonshot q (1,2048,16,128) HKV=16", 1, 2048,
+               16, 16, 128)
+    flash_case("large prefill window=512 q (1,2048,32,64)", 1, 2048, 32, 4,
+               64, window=512)
+    slot_case("large decode moonshot q (32,16,128) kv (32,2048,16,128)", 32,
+              2048, 16, 16, 128, (2048,) * 32)
+    slot_case("large decode ragged q (32,32,64) kv (32,2048,4,64) lives "
+              "0/1/700/2048", 32, 2048, 32, 4, 64, (0, 1, 700, 2048) * 8)
     # the prefill tile at the other head width the repo serves: jamba's
     # attention shape (HQ 32, HKV 8, dh 128, G 4)
     paged_prefill_case("large paged prefill dh=128 q (4,256,32,128) HKV=8 "
@@ -1938,16 +1967,32 @@ def mamba_phases():
     return counts
 
 
-PAGED_KERNELS = ("paged_decode", "paged_prefill", "paged_decode_quant",
-                 "paged_prefill_quant")
-
-
-def prefill_launch_log():
-    """The paged prefill kernel's instantiations beside ptxas's lines: the
-    dynamic shared memory of each (query type, pool type, padded head dim)
-    and how many of its blocks fit on one SM."""
+def launch_log():
+    """The instantiations of the kernels with dynamic shared memory beside
+    ptxas's lines: for paged prefill each (query type, pool type, padded
+    head dim), for flash each (type, padded head dim), for slot decode's
+    split kernel each fp32 (query heads a block) and bf16 (padded head dim)
+    instantiation; the shared memory of each and how many of its blocks
+    fit on one SM."""
     import torch
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import paged_prefill as kpp
+    from repro_torch.kernels import slot_decode as ksd
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128, 256):
+            info = kfa.launch_info(dtype, dh)
+            log(f"  flash_attention launch: {dtype} dh<={dh}: "
+                f"{info['smem_bytes']} bytes of shared memory, "
+                f"{info['blocks_per_sm']} blocks/SM")
+        # the fp32 kernel by the query heads a block takes, the bf16
+        # (tensor-core) one by the padded head dim
+        for G, dh in (((1, 64), (2, 64), (4, 64), (8, 64))
+                      if dtype == torch.float32 else
+                      ((8, 64), (8, 128), (8, 256))):
+            info = ksd.launch_info(dtype, G, dh)
+            log(f"  slot_decode launch: {dtype} G={G} dh<={dh}: "
+                f"{info['smem_bytes']} bytes of shared memory, "
+                f"{info['blocks_per_sm']} blocks/SM")
     for dtype in (torch.float32, torch.bfloat16):
         for kvd in (None, torch.int8, torch.float8_e4m3fn):
             for dh in (64, 128, 256):
@@ -1978,7 +2023,7 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill")):
             log("  ptxas:", line.split("info    :")[-1].strip()[:160])
-    prefill_launch_log()
+    launch_log()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -1993,6 +2038,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["prefill"]:
         phase(kernel_phase, gen, "", PAGED_KERNELS)
+        phase(teacher_forced_phase)
+        return 0
+    if sys.argv[1:] == ["attention"]:
+        phase(kernel_phase, gen, "", ATTENTION_KERNELS)
         phase(teacher_forced_phase)
         return 0
     if sys.argv[1:] == ["moe"]:

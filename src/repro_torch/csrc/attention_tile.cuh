@@ -1,5 +1,5 @@
-// One online-softmax step of flash attention, shared by the prefill kernel
-// (flash_attention.cu) and the slot decode kernel (decode_attention.cu).
+// One online-softmax step of flash attention, for the paged decode kernels
+// (paged_attention.cu), its one remaining user.
 //
 // `rows` query rows (a prefill q-tile, or the G query heads of one KV head
 // at decode) sit in shared memory beside one BK-key tile of K and V. The

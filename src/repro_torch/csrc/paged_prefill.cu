@@ -50,6 +50,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "cp_async.cuh"
 #include "register_tiles.cuh"
 
 namespace {
@@ -129,29 +130,6 @@ template <typename KV>
 using Bits = typename std::conditional<
     sizeof(KV) == 1, uint8_t,
     typename std::conditional<sizeof(KV) == 2, uint16_t, uint32_t>::type>::type;
-
-// One cp.async of V bytes (16, 8 or 4); valid = false zero-fills the
-// destination and reads nothing.
-template <int V>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const uint32_t d = rt::smem_u32(dst);
-  const int n = valid ? V : 0;
-  if constexpr (V == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(V),
-                 "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Sixteen 1-byte codes as floats, exactly. int8: the byte (sign bit
 // flipped) as the low mantissa bits of 2^23, less 2^23 + 128; e4m3: pairs
@@ -294,10 +272,10 @@ __global__ void __launch_bounds__(THREADS, (Layout<T, KV, QNT, DP>::MIN_BLOCKS))
       while (j < BK) {
         const long long ko = st.koff[j], vo = st.voff[j];
         const int byte = c * V, row = j * LR * static_cast<int>(sizeof(KV));
-        cp_async<V>(Kd + row + byte, reinterpret_cast<const char*>(kb + (ko < 0 ? 0 : ko)) + byte,
-                    ko >= 0);
-        cp_async<V>(Vd + row + byte, reinterpret_cast<const char*>(vb + (vo < 0 ? 0 : vo)) + byte,
-                    vo >= 0);
+        rt::cp_async<V>(Kd + row + byte,
+                        reinterpret_cast<const char*>(kb + (ko < 0 ? 0 : ko)) + byte, ko >= 0);
+        rt::cp_async<V>(Vd + row + byte,
+                        reinterpret_cast<const char*>(vb + (vo < 0 ? 0 : vo)) + byte, vo >= 0);
         j += dj;
         c += dc;
         if (c >= cpr) {
@@ -305,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, (Layout<T, KV, QNT, DP>::MIN_BLOCKS))
           ++j;
         }
       }
-      cp_async_commit();
+      rt::cp_async_commit();
     } else {
       using B = Bits<KV>;
       for (int idx = tid; idx < BK * dh; idx += THREADS) {
@@ -341,7 +319,7 @@ __global__ void __launch_bounds__(THREADS, (Layout<T, KV, QNT, DP>::MIN_BLOCKS))
   tile.set_limits([=](int i) { return min(k_hi, s0 + (r0 + i) / G + 1); });
   if constexpr (TC) tile.load_q(Qs);
   for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait_all();
+    rt::cp_async_wait_all();
     __syncthreads();  // tile t landed; every thread is done with tile t - 1
     if (t + 1 < ntiles) stage(t + 1);  // overlaps this tile's math
     int r_after = -1;

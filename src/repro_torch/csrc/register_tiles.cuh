@@ -2,11 +2,12 @@
 // a 64-row query block against a key tile staged in shared memory, with
 // the scores S and the output accumulator O held in registers.
 //
-// The paged prefill kernel (paged_prefill.cu) runs them; they know nothing
-// of pools or tables, so the flash kernel can run them over a contiguous
-// K/V as well. A block has four warps; warp w owns query rows 16w..16w+15
-// of the block's 64 and computes their S, softmax and O alone, so the only
-// barriers are the caller's, around the staging of each key tile.
+// The paged prefill kernel (paged_prefill.cu) runs them over keys staged
+// through a block table, the flash kernel (flash_attention.cu) over a
+// contiguous K/V; they know nothing of either. A block has four warps;
+// warp w owns query rows 16w..16w+15 of the block's 64 and computes their
+// S, softmax and O alone, so the only barriers are the caller's, around the
+// staging of each key tile.
 //
 //   TcTile<DP>  bf16 queries and K/V on the tensor cores: S = Q K^T and
 //               O += P V with mma.sync m16n8k16 (bf16 in, fp32 sums),
@@ -28,9 +29,10 @@
 // DP is the head dim padded to 64, 128 or 256, so the register arrays have
 // static sizes and the loops over it are straight-line code; the caller
 // zero-fills the padding columns of Q, K and V, which then add zeros.
-// The mask is a prefix of each row's keys: set_limits takes, once, the end
-// of the keys each block row may see, and a tile's per-score test is then
-// one compare. Masked scores are NEG_INF and their probabilities
+// The mask is a range of each row's keys: set_limits takes, once, the end
+// of the keys each block row may see and, with the compile-time option
+// START (a sliding window), their start; a tile's per-score test is then
+// one or two compares. Masked scores are NEG_INF and their probabilities
 // are forced to 0, as in attention_tile.cuh; the final normalizer is
 // max(l, 1e-30).
 #pragma once
@@ -39,15 +41,12 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace rt {
 
 constexpr int TILE_ROWS = 64;      // query rows of a block
 constexpr int TILE_THREADS = 128;  // four warps, 16 rows each
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 and receives, of each matrix, row l / 4, elements 2(l % 4), +1.
@@ -76,20 +75,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 2^x on the special-function unit (ftz: 0 below 2^-126).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Two floats rounded to bf16, `lo` in the low half (the lower k index).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DP>
+template <int DP, bool START = false>
 struct TcTile {
   static_assert(DP % 16 == 0, "the head dim is padded to whole k-steps");
   using elem = __nv_bfloat16;
@@ -104,6 +96,7 @@ struct TcTile {
   float o[DP / 8][4];  // O: rows g, g + 8 of the warp's 16; columns 8n + 2(lane % 4), +1
   float m[2], l[2];    // running max of the (K-scaled) scores, this thread's share of the row sum
   int lim[2];          // the rows' key limits (exclusive)
+  int beg[2];          // with START: the rows' first keys
   uint32_t qf[QREG ? DP / 16 : 1][4];
 
   __device__ __forceinline__ void init() {
@@ -121,6 +114,16 @@ struct TcTile {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     lim[0] = row_limit(warp * 16 + (lane >> 2));
     lim[1] = row_limit(warp * 16 + (lane >> 2) + 8);
+  }
+
+  // With START: block row i sees keys row_start(i) <= t < row_limit(i).
+  template <typename RowLimit, typename RowStart>
+  __device__ __forceinline__ void set_limits(RowLimit row_limit, RowStart row_start) {
+    static_assert(START, "a row start needs the START tile");
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    set_limits(row_limit);
+    beg[0] = row_start(warp * 16 + (lane >> 2));
+    beg[1] = row_start(warp * 16 + (lane >> 2) + 8);
   }
 
   // With DP <= 128, Q's A fragments go to registers once, after the
@@ -142,6 +145,7 @@ struct TcTile {
                                        const float* ksc, const float* vsc, float scale, int k0) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int end[2] = {lim[0] - k0, lim[1] - k0};
+    const int st[2] = {START ? beg[0] - k0 : 0, START ? beg[1] - k0 : 0};
     float s[BK / 8][4];
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n)
@@ -169,10 +173,10 @@ struct TcTile {
     }
 
     // a tile every row of the warp sees whole takes no per-score mask
-    if (__all_sync(0xffffffffu, end[0] >= BK && end[1] >= BK))
-      softmax<KS, VS, false>(s, end, ksc, vsc, scale);
+    if (__all_sync(0xffffffffu, end[0] >= BK && end[1] >= BK && st[0] <= 0 && st[1] <= 0))
+      softmax<KS, VS, false>(s, end, st, ksc, vsc, scale);
     else
-      softmax<KS, VS, true>(s, end, ksc, vsc, scale);
+      softmax<KS, VS, true>(s, end, st, ksc, vsc, scale);
 
     // O += P V: P's A fragment for keys 16kk.. is the S accumulators of
     // column blocks 2kk and 2kk + 1; B from V rows with ldmatrix .trans
@@ -201,7 +205,8 @@ struct TcTile {
   // are rescaled.
   template <bool KS, bool VS, bool MASK>
   __device__ __forceinline__ void softmax(float (&s)[BK / 8][4], const int (&end)[2],
-                                          const float* ksc, const float* vsc, float scale) {
+                                          const int (&st)[2], const float* ksc, const float* vsc,
+                                          float scale) {
     const int tg = threadIdx.x & 3;
     const float sl = scale * LOG2E;
     float corr[2];
@@ -214,7 +219,7 @@ struct TcTile {
         for (int e = 0; e < 2; ++e) {
           const int j = n * 8 + tg * 2 + e;
           float v = KS ? s[n][2 * h + e] * ksc[j] : s[n][2 * h + e];
-          if (MASK && j >= end[h]) v = NEG_INF;
+          if (MASK && (j >= end[h] || (START && j < st[h]))) v = NEG_INF;
           s[n][2 * h + e] = v;
           mx = fmaxf(mx, v);
         }
@@ -231,7 +236,7 @@ struct TcTile {
         for (int e = 0; e < 2; ++e) {
           const int j = n * 8 + tg * 2 + e;
           float p = ex2(fmaf(s[n][2 * h + e], sl, -msl));
-          if (MASK && j >= end[h]) p = 0.f;
+          if (MASK && (j >= end[h] || (START && j < st[h]))) p = 0.f;
           sum += p;
           s[n][2 * h + e] = VS ? p * vsc[j] : p;
         }
@@ -272,7 +277,7 @@ struct TcTile {
   }
 };
 
-template <int DP>
+template <int DP, bool START = false>
 struct FmaTile {
   static_assert(DP % 32 == 0, "a thread's O columns are DP/32 float4 groups");
   using elem = float;
@@ -286,6 +291,7 @@ struct FmaTile {
   float o[4][DP / 32][4];  // O: rows 4(lane / 8) + i; columns 4(lane % 8) + 32c + e
   float m[4], l[4];        // running max and this thread's share of the row sum
   int lim[4];              // the rows' key limits (exclusive)
+  int beg[4];              // with START: the rows' first keys
 
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -305,6 +311,16 @@ struct FmaTile {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int i = 0; i < 4; ++i) lim[i] = row_limit(warp * 16 + (lane >> 3) * 4 + i);
+  }
+
+  // With START: block row i sees keys row_start(i) <= t < row_limit(i).
+  template <typename RowLimit, typename RowStart>
+  __device__ __forceinline__ void set_limits(RowLimit row_limit, RowStart row_start) {
+    static_assert(START, "a row start needs the START tile");
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    set_limits(row_limit);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) beg[i] = row_start(warp * 16 + (lane >> 3) * 4 + i);
   }
 
   // One key tile, keys k0..k0+BK-1: Qs the block's 64 rows, Ks/Vs the
@@ -346,11 +362,12 @@ struct FmaTile {
     // quarter-warp
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int end = lim[i] - k0;
+      const int end = lim[i] - k0, st = START ? beg[i] - k0 : 0;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const float v = cg + 8 * j < end ? s[i][j] * scale : NEG_INF;
+        const bool in = cg + 8 * j < end && (!START || cg + 8 * j >= st);
+        const float v = in ? s[i][j] * scale : NEG_INF;
         s[i][j] = v;
         mx = fmaxf(mx, v);
       }
@@ -363,7 +380,8 @@ struct FmaTile {
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const float p = cg + 8 * j < end ? expf(s[i][j] - m_new) : 0.f;
+        const bool in = cg + 8 * j < end && (!START || cg + 8 * j >= st);
+        const float p = in ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
         Ps[(i0 + i) * LP + cg + 8 * j] = p;
       }

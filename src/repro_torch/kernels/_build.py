@@ -125,8 +125,10 @@ def library() -> ctypes.CDLL:
         lib.rt_rmsnorm.argtypes = [P, P, P, I, I, F, I, I, P]
         lib.rt_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
                                            I, I, F, I, P]
-        lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, I, I, I, I,
-                                                 I, P, F, I, P]
+        lib.rt_flash_info.argtypes = [I, I, P, P]
+        lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
+                                                 I, I, I, P, F, I, P]
+        lib.rt_slot_decode_info.argtypes = [I, I, I, P, P]
         lib.rt_paged_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
                                                   I, I, I, P, F, I, P]
         lib.rt_paged_prefill_attention.argtypes = [P, P, P, P, P, P, I, I, I,
@@ -140,7 +142,8 @@ def library() -> ctypes.CDLL:
         lib.rt_rwkv_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
         lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
-                   lib.rt_slot_decode_attention,
+                   lib.rt_flash_info, lib.rt_slot_decode_attention,
+                   lib.rt_slot_decode_info,
                    lib.rt_paged_decode_attention,
                    lib.rt_paged_prefill_attention,
                    lib.rt_paged_decode_attention_quant,

@@ -10,6 +10,7 @@ itself, so this wrapper copies nothing. The Pallas backward
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -47,3 +48,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     _build.launches["flash_attention"] += 1
     return o
+
+
+def launch_info(dtype: torch.dtype, dh: int) -> dict:
+    """The CUDA kernel's launch for ``dtype`` at head dim ``dh``: its
+    dynamic shared memory and how many of its blocks fit on one SM of the
+    current device."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = _build.library().rt_flash_info(
+        _build.DTYPE_CODES[dtype], dh, ctypes.byref(smem),
+        ctypes.byref(blocks))
+    _build.check(err, "flash_attention launch info")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}

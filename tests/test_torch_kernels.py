@@ -328,6 +328,23 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     torch.testing.assert_close(
         tops.flash_attention(q, k, v, window=16),
         tref.flash_attention_ref(q, k, v, window=16), atol=tol, rtol=tol)
+    # 300 positions (not whole row tiles), G 4, dh 128, with and without
+    # a window: the register tiles' row limits
+    q, k, v = rn(1, 300, 16, 128), rn(1, 300, 4, 128), rn(1, 300, 4, 128)
+    for window in (0, 100):
+        torch.testing.assert_close(
+            tops.flash_attention(q, k, v, window=window),
+            tref.flash_attention_ref(q, k, v, window=window), atol=tol,
+            rtol=tol)
+    # split over T with a combine pass (700 keys: 2 splits), an empty row
+    q, k, v = rn(2, 8, 64), rn(2, 700, 2, 64), rn(2, 700, 2, 64)
+    valid = torch.zeros(2, 700, dtype=torch.bool, device=cuda)
+    valid[0, 3:650] = True                  # row 1 has no valid key
+    assert tsd.num_splits(2, 2, 700) > 1
+    got = tsd.slot_decode_attention(q, k, v, valid)
+    torch.testing.assert_close(got, tref.slot_decode_attention_ref(
+        q, k, v, valid), atol=tol, rtol=tol)
+    assert float(got[1].abs().max()) == 0.0
     q, k, v = rn(2, 6, 80), rn(2, 40, 3, 80), rn(2, 40, 3, 80)
     valid = torch.zeros(2, 40, dtype=torch.bool, device=cuda)
     valid[0, :33] = True                    # row 1 has no valid key

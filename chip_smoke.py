@@ -17,8 +17,9 @@ non-zero before the result line):
 
 1. build  — ``nvcc`` compiles ``src/repro_torch/csrc/*.cu`` for sm_90a into
    one library (all sources at once), timed; ptxas's registers, spills and
-   static shared memory per kernel, and the paged prefill kernel's dynamic
-   shared memory and blocks per SM for each instantiation.
+   static shared memory per kernel, and the dynamic shared memory and
+   blocks per SM of each instantiation of the flash, slot decode, paged
+   decode and paged prefill kernels.
 2. kernels — every hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (full-width tinyllama-1.1b: D=2048,
    HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; the
@@ -36,14 +37,22 @@ non-zero before the result line):
    2048 tokens flash attention also runs at those two paths' head shapes
    and with a 512-token window, and slot decode over 32 slots of 2048 keys
    at moonshot's head shape and with ragged occupancy (0, 1, 700 and 2048
-   live keys). A slot decode case's label ends with the number of splits
-   the wrapper cuts its cache into. The
+   live keys). A slot or paged decode case's label ends with the number
+   of splits the wrapper cuts its cache into. Paged decode also runs over
+   blocks of 24 (key tiles that line up with no block), in four splits
+   two of which hold no valid key, over pools whose trash row, spare
+   blocks and stale chain tails hold NaN (NaN codes and scales when
+   quantized; the plain version gets the same pools with those positions
+   zeroed, so a kernel that read one would disagree), and over 32 slots
+   of 2048 keys at jamba's head shape and with ragged occupancy. The
    fused-dequant paged kernels (``paged_decode_quant``,
    ``paged_prefill_quant``) run the same main, sweep and large shapes over
    int8 and fp8 pools quantized per (block, KV head), for float32 and
    bfloat16 queries, against their plain versions (decode after the
    gather) at the same tolerances. Both paged prefill kernels also run
    one large case at jamba's attention shape (dh 128, HQ 32, HKV 8).
+   The paged decode kernels run on slot decode's split core
+   (``csrc/decode_attention.cu``), the block table resolved per key.
 3. timings — per kernel, with CUDA events over back-to-back calls: the
    kernel, its plain version, the one PyTorch library call computing the
    same function (``F.rms_norm``, ``F.scaled_dot_product_attention``; for
@@ -379,17 +388,45 @@ def make_cases(gen, dtype):
                                             ).transpose(1, 2).contiguous()
         return g(kp), g(vp)
 
-    def paged_decode_case(label, B, nb, bs, HQ, HKV, dh, pos, spare=1):
+    def dead_rows(P1, bs, tables, lens):
+        """(P+1, bs) bool: the pool positions holding no live key of any
+        chain — the trash row, spare blocks and each chain's stale tail."""
+        dead = torch.ones(P1, bs, dtype=torch.bool)
+        tab = tables.cpu()
+        for b, n in enumerate(lens):
+            for i in range(-(-n // bs)):
+                dead[tab[b, i], :min(bs, n - i * bs)] = False
+        return dead.cuda()
+
+    def poisoned(pool, dead, fill):
+        """``pool`` with its dead positions set to ``fill`` (NaN, or a code
+        byte for a quantized pool: 0x7f is NaN in e4m3), and a copy with
+        them zeroed: the kernel reads the first, its plain version the
+        second, so a kernel that read a dead row would disagree."""
+        out = []
+        for v in (fill, 0):
+            p = pool.clone()
+            kv_quant.raw(p).masked_fill_(dead[:, :, None, None], v)
+            out.append(p)
+        return out
+
+    def paged_decode_case(label, B, nb, bs, HQ, HKV, dh, pos, spare=1,
+                          nan=False):
         kp, vp, tables = pool_case(B, nb, bs, HKV, dh, spare,
                                    [p + 1 for p in pos])
         q = rn(B, HQ, dh)
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
         valid = torch.arange(nb * bs, device="cuda")[None] <= pos_t[:, None]
         keys = sum(p + 1 for p in pos)           # live keys, this run's data
+        kk, vk = kp, vp
+        if nan:
+            dead = dead_rows(kp.shape[0], bs, tables, [p + 1 for p in pos])
+            (kk, kp), (vk, vp) = (poisoned(kp, dead, float("nan")),
+                                  poisoned(vp, dead, float("nan")))
         kg, vg = gathered(kp, vp, tables)
         cases.append((
-            "paged_decode", label,
-            lambda: kpd.paged_decode_attention(q, kp, vp, tables, valid),
+            "paged_decode", splits(label, B, nb * bs, HKV),
+            lambda: kpd.paged_decode_attention(q, kk, vk, tables, valid),
             lambda: ref.paged_decode_attention_ref(q, kp, vp, tables, valid),
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kg, vg, attn_mask=valid[:, None, None],
@@ -458,7 +495,7 @@ def make_cases(gen, dtype):
         return sum(-(-n // bs) for n in lens)
 
     def paged_decode_quant_case(label, kvd, B, nb, bs, HQ, HKV, dh, pos,
-                                spare=1):
+                                spare=1, nan=False):
         kp, vp, tables = pool_case(B, nb, bs, HKV, dh, spare,
                                    [p + 1 for p in pos])
         kq, ks, vq, vs = quantized(kp, vp, kvd)
@@ -467,11 +504,20 @@ def make_cases(gen, dtype):
         valid = torch.arange(nb * bs, device="cuda")[None] <= pos_t[:, None]
         lens = [p + 1 for p in pos]
         keys = sum(lens)
+        kk, ksk, vk, vsk = kq, ks, vq, vs
+        if nan:
+            # dead codes 0x7f, and NaN scales on blocks with no live key
+            dead = dead_rows(kp.shape[0], bs, tables, lens)
+            idle = dead.all(1)[:, None]
+            (kk, kq), (vk, vq) = poisoned(kq, dead, 0x7F), poisoned(vq, dead,
+                                                                 0x7F)
+            ksk, vsk = (s.masked_fill(idle, float("nan")) for s in (ks, vs))
+            ks, vs = (s.masked_fill(idle, 0.0) for s in (ks, vs))
         kg, vg = decoded(kq, ks, vq, vs, tables)
         cases.append((
-            "paged_decode_quant", f"{label} {kvd}",
-            lambda: kpd.paged_decode_attention(q, kq, vq, tables, valid, ks,
-                                               vs),
+            "paged_decode_quant", f"{splits(label, B, nb * bs, HKV)} {kvd}",
+            lambda: kpd.paged_decode_attention(q, kk, vk, tables, valid, ksk,
+                                               vsk),
             lambda: ref.paged_decode_attention_ref(q, kq, vq, tables, valid,
                                                    ks=ks, vs=vs),
             lambda: F.scaled_dot_product_attention(
@@ -584,6 +630,15 @@ def make_cases(gen, dtype):
                       33, (0, 13, 31))
     paged_decode_case("sweep paged decode MQA dh=129 bs=16", 2, 3, 16, 4, 1,
                       129, (47, 16), spare=3)
+    # blocks that line up with no key tile (bs 24 against tiles of 32 and
+    # 64 keys); four splits, two of them with no valid key; NaN in the
+    # trash row, the spare blocks and the chains' stale tails
+    paged_decode_case("sweep paged decode bs=24 HKV=3", 3, 3, 24, 6, 3, 64,
+                      (5, 30, 71))
+    paged_decode_case("sweep paged decode 4 splits MQA bs=8", 1, 128, 8, 4,
+                      1, 64, (300,))
+    paged_decode_case("sweep paged decode NaN trash and tails bs=16", 3, 4,
+                      16, 8, 2, 64, (0, 21, 50), spare=2, nan=True)
     paged_prefill_case("sweep paged prefill HKV=3 dh=33 bs=8 W=7", 3, 7, 4,
                        8, 6, 3, 33, (0, 5, 25))
     paged_prefill_case("sweep paged prefill dh=129 bs=16 W=1", 2, 1, 3, 16,
@@ -606,6 +661,13 @@ def make_cases(gen, dtype):
                                 3, 4, 8, 6, 3, 33, (0, 13, 31))
         paged_decode_quant_case("sweep paged decode MQA dh=129 bs=16", kvd,
                                 2, 3, 16, 4, 1, 129, (47, 16), spare=3)
+        paged_decode_quant_case("sweep paged decode bs=24 HKV=3", kvd, 3, 3,
+                                24, 6, 3, 64, (5, 30, 71))
+        paged_decode_quant_case("sweep paged decode 4 splits MQA bs=8", kvd,
+                                1, 128, 8, 4, 1, 64, (300,))
+        paged_decode_quant_case("sweep paged decode NaN trash and tails "
+                                "bs=16", kvd, 3, 4, 16, 8, 2, 64,
+                                (0, 21, 50), spare=2, nan=True)
         paged_prefill_quant_case("sweep paged prefill HKV=3 dh=33 bs=8 W=7",
                                  kvd, 3, 7, 4, 8, 6, 3, 33, (0, 5, 25))
         paged_prefill_quant_case("sweep paged prefill dh=129 bs=16 W=1", kvd,
@@ -652,6 +714,20 @@ def make_cases(gen, dtype):
               2048, 16, 16, 128, (2048,) * 32)
     slot_case("large decode ragged q (32,32,64) kv (32,2048,4,64) lives "
               "0/1/700/2048", 32, 2048, 32, 4, 64, (0, 1, 700, 2048) * 8)
+    # paged decode at jamba's head shape (HQ 32, HKV 8, dh 128, G 4) and
+    # with ragged occupancy (a row with no valid key, 1, 700 and 2048 keys)
+    paged_decode_case("large paged decode jamba q (32,32,128) HKV=8 32 slots "
+                      "x 2048 bs=16", 32, 128, 16, 32, 8, 128, (2047,) * 32)
+    paged_decode_case("large paged decode ragged q (32,32,64) lives "
+                      "0/1/700/2048 bs=16", 32, 128, 16, 32, 4, 64,
+                      (-1, 0, 699, 2047) * 8)
+    for kvd in ("int8", "fp8"):
+        paged_decode_quant_case("large paged decode jamba q (32,32,128) "
+                                "HKV=8 32 slots x 2048 bs=16", kvd, 32, 128,
+                                16, 32, 8, 128, (2047,) * 32)
+        paged_decode_quant_case("large paged decode ragged q (32,32,64) "
+                                "lives 0/1/700/2048 bs=16", kvd, 32, 128, 16,
+                                32, 4, 64, (-1, 0, 699, 2047) * 8)
     # the prefill tile at the other head width the repo serves: jamba's
     # attention shape (HQ 32, HKV 8, dh 128, G 4)
     paged_prefill_case("large paged prefill dh=128 q (4,256,32,128) HKV=8 "
@@ -1326,7 +1402,8 @@ def profile_phase():
         eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS,
                           max_len=MAX_LEN, **kw)
         out[label] = _profile_run(label, eng, reqs,
-                                  also=("paged_prefill_kernel",))
+                                  also=("paged_prefill_kernel",
+                                        "decode_split"))
     return out
 
 
@@ -1970,12 +2047,13 @@ def mamba_phases():
 def launch_log():
     """The instantiations of the kernels with dynamic shared memory beside
     ptxas's lines: for paged prefill each (query type, pool type, padded
-    head dim), for flash each (type, padded head dim), for slot decode's
-    split kernel each fp32 (query heads a block) and bf16 (padded head dim)
-    instantiation; the shared memory of each and how many of its blocks
-    fit on one SM."""
+    head dim), for flash each (type, padded head dim), for the split decode
+    kernel each fp32 (query heads a block) and bf16 (padded head dim)
+    instantiation over slot rows and over each pool type; the shared
+    memory of each and how many of its blocks fit on one SM."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import paged_prefill as kpp
     from repro_torch.kernels import slot_decode as ksd
     for dtype in (torch.float32, torch.bfloat16):
@@ -1993,6 +2071,11 @@ def launch_log():
             log(f"  slot_decode launch: {dtype} G={G} dh<={dh}: "
                 f"{info['smem_bytes']} bytes of shared memory, "
                 f"{info['blocks_per_sm']} blocks/SM")
+            for kvd in (None, torch.int8, torch.float8_e4m3fn):
+                info = kpd.launch_info(dtype, kvd, G, dh)
+                log(f"  paged_decode launch: q {dtype} pool {kvd or dtype} "
+                    f"G={G} dh<={dh}: {info['smem_bytes']} bytes of shared "
+                    f"memory, {info['blocks_per_sm']} blocks/SM")
     for dtype in (torch.float32, torch.bfloat16):
         for kvd in (None, torch.int8, torch.float8_e4m3fn):
             for dh in (64, 128, 256):
@@ -2092,12 +2175,12 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:164"),
                "slot_decode": ("src/repro_torch/csrc/decode_attention.cu",
                                "src/repro/kernels/slot_decode.py:52"),
-               "paged_decode": ("src/repro_torch/csrc/paged_attention.cu",
+               "paged_decode": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/paged_decode.py:135"),
                "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                                  "src/repro/kernels/paged_prefill.py:185"),
                "paged_decode_quant": (
-                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro_torch/csrc/decode_attention.cu",
                    "src/repro/kernels/paged_decode.py:37"),
                "paged_prefill_quant": (
                    "src/repro_torch/csrc/paged_prefill.cu",

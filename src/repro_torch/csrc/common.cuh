@@ -10,8 +10,9 @@
 #include <cuda_runtime.h>
 
 enum { RT_F32 = 0, RT_BF16 = 1 };
-// Storage codes of the quantized paged pools (kv_dtype int8 / fp8).
-enum { RT_I8 = 0, RT_E4M3 = 1 };
+// Storage codes of the paged pools: kv_dtype RT_UNQUANTIZED for a pool in
+// q's dtype, RT_I8 / RT_E4M3 for quantized ones (int8 / fp8).
+enum { RT_UNQUANTIZED = -1, RT_I8 = 0, RT_E4M3 = 1 };
 
 namespace rt {
 

@@ -45,12 +45,11 @@
 // out of the tiles: the K scale multiplies score column j, the V scale
 // multiplies probability column j before P is rounded to bf16, and the row
 // sum takes the unscaled probabilities.
-#include <cuda_fp8.h>
-
 #include <cstdint>
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "kv_codes.cuh"
 #include "register_tiles.cuh"
 
 namespace {
@@ -58,7 +57,6 @@ namespace {
 constexpr int BQ = rt::TILE_ROWS;
 constexpr int THREADS = rt::TILE_THREADS;
 constexpr int SLOT_STAGES = 3;  // key slots: copied, copying, resolving
-constexpr int UNQUANTIZED = -1; // kv_dtype of a pool in q's dtype
 
 // Everything a launch passes; strides in elements.
 struct Args {
@@ -124,73 +122,6 @@ struct Slots {
     vs = ks + BK;
   }
 };
-
-// The pool's element as raw bits, for copies that must not round.
-template <typename KV>
-using Bits = typename std::conditional<
-    sizeof(KV) == 1, uint8_t,
-    typename std::conditional<sizeof(KV) == 2, uint16_t, uint32_t>::type>::type;
-
-// Sixteen 1-byte codes as floats, exactly. int8: the byte (sign bit
-// flipped) as the low mantissa bits of 2^23, less 2^23 + 128; e4m3: pairs
-// through the hardware's e4m3x2 -> f16x2 conversion.
-template <typename KV>
-__device__ __forceinline__ void decode16(uint4 w, float (&f)[16]) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if constexpr (std::is_same<KV, int8_t>::value) {
-      const uint32_t u = words[q] ^ 0x80808080u;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        f[4 * q + k] = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5440u + k)) - 8388736.f;
-    } else {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-            static_cast<__nv_fp8x2_storage_t>(words[q] >> (16 * k)), __NV_E4M3);
-        const float2 v = __half22float2(__half2(h));
-        f[4 * q + 2 * k] = v.x;
-        f[4 * q + 2 * k + 1] = v.y;
-      }
-    }
-  }
-}
-
-// A staged tile of 1-byte codes (row stride LR bytes) into the compute
-// type (row stride LD), sixteen codes a thread at a time: with SCALE each
-// code times its key's scale in fp32 (bit for bit the plain version's
-// decode), else the code itself (exact in bf16). Codes past dh are the zero
-// padding.
-template <bool SCALE, int BK, int DP, int LD, int LR, typename CT, typename KV>
-__device__ __forceinline__ void convert(CT* dst, const KV* src, const float* sc) {
-  constexpr int PER_ROW = DP / 16;
-  for (int idx = threadIdx.x; idx < BK * PER_ROW; idx += THREADS) {
-    const int j = idx / PER_ROW, d = (idx % PER_ROW) * 16;
-    float f[16];
-    decode16<KV>(*reinterpret_cast<const uint4*>(reinterpret_cast<const uint8_t*>(src) +
-                                                  j * LR + d),
-                 f);
-    if constexpr (SCALE) {
-      const float c = sc[j];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) f[e] *= c;
-    }
-    if constexpr (std::is_same<CT, float>::value) {
-      float4* o = reinterpret_cast<float4*>(dst + j * LD + d);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = make_float4(f[4 * e], f[4 * e + 1], f[4 * e + 2], f[4 * e + 3]);
-    } else {
-      uint4* o = reinterpret_cast<uint4*>(dst + j * LD + d);
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        o[e] = make_uint4(rt::pack_bf16(f[8 * e], f[8 * e + 1]),
-                          rt::pack_bf16(f[8 * e + 2], f[8 * e + 3]),
-                          rt::pack_bf16(f[8 * e + 4], f[8 * e + 5]),
-                          rt::pack_bf16(f[8 * e + 6], f[8 * e + 7]));
-    }
-  }
-}
 
 template <int V>
 using Vec = std::integral_constant<int, V>;
@@ -285,7 +216,7 @@ __global__ void __launch_bounds__(THREADS, (Layout<T, KV, QNT, DP>::MIN_BLOCKS))
       }
       rt::cp_async_commit();
     } else {
-      using B = Bits<KV>;
+      using B = rt::Bits<KV>;
       for (int idx = tid; idx < BK * dh; idx += THREADS) {
         const int j = idx / dh, d = idx - j * dh;
         const long long ko = st.koff[j], vo = st.voff[j];
@@ -336,8 +267,8 @@ __global__ void __launch_bounds__(THREADS, (Layout<T, KV, QNT, DP>::MIN_BLOCKS))
     const CT* Kt;
     const CT* Vt;
     if constexpr (QNT) {
-      convert<!TC, BK, DP, LD, LR>(work, Kr, st.ks);
-      convert<!TC, BK, DP, LD, LR>(work + BK * LD, Kr + BK * LR, st.vs);
+      rt::convert<THREADS, !TC, BK, DP, LD, LR>(work, Kr, st.ks);
+      rt::convert<THREADS, !TC, BK, DP, LD, LR>(work + BK * LD, Kr + BK * LR, st.vs);
       __syncthreads();
       Kt = work;
       Vt = work + BK * LD;
@@ -376,7 +307,7 @@ int vec_width(const Args& a, long long elem) {
 }
 
 // Runs op.run<T, KV, QNT, DP>() for a query type, a storage type
-// (UNQUANTIZED, RT_I8, RT_E4M3) and the head dim padded to 64, 128 or 256.
+// (RT_UNQUANTIZED, RT_I8, RT_E4M3) and the head dim padded to 64, 128 or 256.
 template <typename T, typename KV, bool QNT, typename Op>
 int by_head_dim(int dh, const Op& op) {
   if (dh <= 64) return op.template run<T, KV, QNT, 64>();
@@ -386,7 +317,7 @@ int by_head_dim(int dh, const Op& op) {
 
 template <typename T, typename Op>
 int by_storage(int kv_dtype, int dh, const Op& op) {
-  if (kv_dtype == UNQUANTIZED) return by_head_dim<T, T, false>(dh, op);
+  if (kv_dtype == RT_UNQUANTIZED) return by_head_dim<T, T, false>(dh, op);
   if (kv_dtype == RT_I8) return by_head_dim<T, int8_t, true>(dh, op);
   if (kv_dtype == RT_E4M3) return by_head_dim<T, __nv_fp8_e4m3, true>(dh, op);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -443,7 +374,7 @@ int prefill(const void* q, const void* kp, const void* vp, const void* ks, const
             void* stream) {
   if (bad_heads(HQ, HKV, dh) || bs < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || W == 0) return static_cast<int>(cudaGetLastError());
-  const bool quant = kv_dtype != UNQUANTIZED;
+  const bool quant = kv_dtype != RT_UNQUANTIZED;
   Args a{q,  kp, vp, static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const int*>(tables), static_cast<const int*>(start), o, W, nb, bs, HQ, HKV,
          dh, 0, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
@@ -463,7 +394,7 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* kp, const v
                                           const long long* strides, float scale, int dtype,
                                           void* stream) {
   return prefill(q, kp, vp, nullptr, nullptr, tables, start, o, B, W, nb, bs, HQ, HKV, dh,
-                 strides, scale, dtype, UNQUANTIZED, stream);
+                 strides, scale, dtype, RT_UNQUANTIZED, stream);
 }
 
 // The fused-dequant variant: as above with kp/vp int8 (kv_dtype RT_I8) or

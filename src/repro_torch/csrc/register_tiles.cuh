@@ -33,7 +33,7 @@
 // of the keys each block row may see and, with the compile-time option
 // START (a sliding window), their start; a tile's per-score test is then
 // one or two compares. Masked scores are NEG_INF and their probabilities
-// are forced to 0, as in attention_tile.cuh; the final normalizer is
+// are forced to 0, as in decode_attention.cu; the final normalizer is
 // max(l, 1e-30).
 #pragma once
 

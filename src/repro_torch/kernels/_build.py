@@ -128,13 +128,12 @@ def library() -> ctypes.CDLL:
         lib.rt_flash_info.argtypes = [I, I, P, P]
         lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
                                                  I, I, I, P, F, I, P]
-        lib.rt_slot_decode_info.argtypes = [I, I, I, P, P]
-        lib.rt_paged_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
-                                                  I, I, I, P, F, I, P]
+        lib.rt_paged_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P,
+                                                  I, I, I, I, I, I, I, P, F,
+                                                  I, I, P]
+        lib.rt_decode_info.argtypes = [I, I, I, I, I, P, P]
         lib.rt_paged_prefill_attention.argtypes = [P, P, P, P, P, P, I, I, I,
                                                    I, I, I, I, P, F, I, P]
-        lib.rt_paged_decode_attention_quant.argtypes = [
-            P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, F, I, I, P]
         lib.rt_paged_prefill_attention_quant.argtypes = [
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, I, I, P]
         lib.rt_paged_prefill_info.argtypes = [I, I, I, P, P]
@@ -143,10 +142,8 @@ def library() -> ctypes.CDLL:
         lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
                    lib.rt_flash_info, lib.rt_slot_decode_attention,
-                   lib.rt_slot_decode_info,
-                   lib.rt_paged_decode_attention,
+                   lib.rt_decode_info, lib.rt_paged_decode_attention,
                    lib.rt_paged_prefill_attention,
-                   lib.rt_paged_decode_attention_quant,
                    lib.rt_paged_prefill_attention_quant,
                    lib.rt_paged_prefill_info,
                    lib.rt_moe_route, lib.rt_rwkv_scan, lib.rt_mamba_scan):

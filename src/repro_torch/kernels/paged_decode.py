@@ -1,15 +1,24 @@
 """Paged one-token decode attention: the port of
 ``src/repro/kernels/paged_decode.py`` (Pallas ``paged_decode_attention``,
 bodies ``_paged_kernel`` and the fused-dequant ``_paged_kernel_quant``),
-written by hand in ``csrc/paged_attention.cu``.
+written by hand in ``csrc/decode_attention.cu`` on slot decode's split
+core.
 
 Every slot's cache is a chain of fixed-size blocks in one pool; the block
 table maps each slot's logical blocks to pool rows. The TPU kernel gathered
 through a scalar-prefetched table in its BlockSpec index map; the CUDA
-kernel reads the table itself and addresses each pool row in place, so the
-gathered view is never built. Quantized pools (int8 or float8 e4m3 codes
-with per-(block, KV head) f32 scales ``ks``/``vs``) launch the
-fused-dequant variant, which decodes each key's tile in shared memory.
+kernel resolves each key's pool row itself as it stages the key and
+addresses the row in place, so the gathered view is never built. As in
+slot decode, the slot's T = nb*bs logical keys are split over
+``num_splits`` ranges with an fp32 workspace and a combine launch, and the
+wrapper counts one launch per call. Quantized pools (int8 or float8 e4m3
+codes with per-(block, KV head) f32 scales ``ks``/``vs``) are staged as
+codes and decoded on chip: for fp32 queries ``code * scale`` bit for bit
+as the plain version decodes; for bf16 queries the codes go to the tensor
+cores as bf16 with the K scale on the score and the V scale on the
+probability before P is rounded to bf16
+(``tests/test_torch_paged_decode_tiles.py`` holds that contract against
+JAX).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.kv_quant import QUANT_DTYPES
 from repro_torch.kernels.ref import paged_decode_attention_ref
+from repro_torch.kernels.slot_decode import decode_info, num_splits
 
 MAX_HEAD_DIM = 256
 
@@ -91,25 +101,32 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
                          "valid must be contiguous")
     code = _build.dtype_code(q, "paged_decode_attention")
     o = torch.empty((B, HQ, dh), dtype=q.dtype, device=q.device)
+    nsplit = num_splits(B, HKV, nb * bs)
+    # each split's partial O (B, HQ, nsplit, dh), then its (m, l) pairs
+    ws = (torch.empty(B * HQ * nsplit * (dh + 2), dtype=torch.float32,
+                      device=q.device) if nsplit > 1 else None)
     dims = [(q, (0, 1)), (kp, (0, 1, 2)), (vp, (0, 1, 2)), (tables, (0,)),
             (valid, (0,)), (o, (0, 1))]
-    lib, scale, stream = _build.library(), 1.0 / math.sqrt(dh), \
-        _build.stream(q)
     if quant:
-        st = _build.strides(*dims, (ks, (0,)), (vs, (0,)))
-        err = lib.rt_paged_decode_attention_quant(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-            vs.data_ptr(), tables.data_ptr(), valid.data_ptr(), o.data_ptr(),
-            B, nb, bs, HQ, HKV, dh, st, scale, code,
-            _build.KV_CODES[kp.dtype], stream)
-        _build.check(err, "paged_decode_attention (quantized)")
-        _build.launches["paged_decode_quant"] += 1
-        return o
+        dims += [(ks, (0,)), (vs, (0,))]
     st = _build.strides(*dims)
-    err = lib.rt_paged_decode_attention(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
-        valid.data_ptr(), o.data_ptr(), B, nb, bs, HQ, HKV, dh, st, scale,
-        code, stream)
-    _build.check(err, "paged_decode_attention")
-    _build.launches["paged_decode"] += 1
+    err = _build.library().rt_paged_decode_attention(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        tables.data_ptr(), valid.data_ptr(), o.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, nb, bs, HQ, HKV, dh,
+        nsplit, st, 1.0 / math.sqrt(dh), code,
+        _build.KV_CODES[kp.dtype] if quant else -1, _build.stream(q))
+    name = "paged_decode_quant" if quant else "paged_decode"
+    _build.check(err, f"paged_decode_attention ({name})")
+    _build.launches[name] += 1
     return o
+
+
+def launch_info(dtype: torch.dtype, kv_dtype, G: int, dh: int) -> dict:
+    """The split kernel's launch for queries of ``dtype`` over a pool of
+    ``kv_dtype`` (None: q's dtype; torch.int8 / torch.float8_e4m3fn), G
+    query heads per KV head and head dim ``dh``: its dynamic shared memory
+    and how many of its blocks fit on one SM of the current device."""
+    kv = -1 if kv_dtype is None else _build.KV_CODES[kv_dtype]
+    return decode_info(True, dtype, kv, G, dh)

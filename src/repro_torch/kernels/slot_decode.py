@@ -83,13 +83,22 @@ def slot_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def decode_info(paged: bool, dtype: torch.dtype, kv_code: int, G: int,
+                dh: int) -> dict:
+    """The split kernel's launch over slot rows (``paged`` False, kv_code
+    -1) or a block pool of storage ``kv_code`` (-1: q's dtype; else
+    ``_build.KV_CODES``): its dynamic shared memory and how many of its
+    blocks fit on one SM of the current device."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = _build.library().rt_decode_info(
+        int(paged), _build.DTYPE_CODES[dtype], kv_code, G, dh,
+        ctypes.byref(smem), ctypes.byref(blocks))
+    _build.check(err, "decode attention launch info")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
 def launch_info(dtype: torch.dtype, G: int, dh: int) -> dict:
     """The split kernel's launch for queries of ``dtype``, G query heads per
     KV head and head dim ``dh``: its dynamic shared memory and how many of
     its blocks fit on one SM of the current device."""
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    err = _build.library().rt_slot_decode_info(
-        _build.DTYPE_CODES[dtype], G, dh, ctypes.byref(smem),
-        ctypes.byref(blocks))
-    _build.check(err, "slot_decode_attention launch info")
-    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+    return decode_info(False, dtype, -1, G, dh)

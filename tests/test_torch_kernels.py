@@ -286,7 +286,6 @@ def test_build_fingerprint_tracks_sources(tmp_path):
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {"rmsnorm.cu", "flash_attention.cu",
                                       "decode_attention.cu",
-                                      "paged_attention.cu",
                                       "paged_prefill.cu", "moe_route.cu",
                                       "rwkv_scan.cu", "mamba_scan.cu"}
 

@@ -2,7 +2,13 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py route   # the build and the moe_route phase only
+    python3 chip_smoke.py route [PREFIX ...]  # the build and the moe_route
+                                  # phase (the cases whose label starts
+                                  # with a PREFIX, all without one)
+    python3 chip_smoke.py norm    # the build and the rmsnorm cases
+    python3 chip_smoke.py compare # the build, the rmsnorm cases, the
+                                  # router's path, jamba, large and tie
+                                  # cases, the MoE path and its profile
     python3 chip_smoke.py moe     # the build, the MoE path and its profile
     python3 chip_smoke.py rwkv    # the build, rwkv_scan, the RWKV path
     python3 chip_smoke.py mamba   # the build, jamba's kernel shapes,
@@ -19,7 +25,9 @@ non-zero before the result line):
    one library (all sources at once), timed; ptxas's registers, spills and
    static shared memory per kernel, and the dynamic shared memory and
    blocks per SM of each instantiation of the flash, slot decode, paged
-   decode and paged prefill kernels.
+   decode and paged prefill kernels; the launch geometry that rmsnorm and
+   moe_route choose at the paths' and the sweeps' shapes, with the
+   router's dynamic shared memory and the blocks of each that fit an SM.
 2. kernels — every hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (full-width tinyllama-1.1b: D=2048,
    HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; the
@@ -30,7 +38,11 @@ non-zero before the result line):
    sliding window, non-power-of-two lengths, block sizes 8 and 16, chunks
    of 1, 7 and to a block boundary, paged prefill at W=1 against paged
    decode and at dh 36 and 256, which take every copy width of its
-   staging), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm,
+   staging), in float32 (atol = rtol = 1e-4) and bfloat16 (2e-2); rmsnorm
+   also at decode rows of D 7168 and 12288 (several warps a row), at
+   (4096, 2048) with a bf16 scale, at (16384, 4096), whose input and output
+   are larger than the 50 MB L2, and at a row of 70001 (wider than a
+   block's registers: streamed twice); rmsnorm,
    flash attention and slot decode also at the MoE path's shapes
    (moonshot-v1-16b-a3b: D 2048, HQ = HKV = 16, dh 128, G = 1) and at the
    Mamba path's (jamba-v0.1-52b: D 4096, HQ 32, HKV 8, dh 128, G = 4); at
@@ -68,11 +80,17 @@ non-zero before the result line):
    ``quant_insert`` (the quantized write; plain PyTorch in both packages,
    no TPU kernel) is timed per call at path C's pool and at the large
    decode's pool. ``moe_route`` against ``moe_route_ref`` (``route_phase``):
-   the MoE path's shapes (N 4 and 32, D 2048, E 64, k 6), a sweep, an
-   exact-tie case and N 4096, float32 and bfloat16 inputs; gates within
-   1e-5, indices equal except where the plain probabilities tie within
-   1e-6 (``check_route`` counts those rows); timed the same way, the
-   library yardstick being three calls (matmul, softmax, topk).
+   the MoE path's shapes (N 4 and 32, D 2048, E 64, k 6), kimi-k2's router
+   (N 4 and 32, D 7168, E 384, k 8), a sweep (E 1 to 2048, E 100 at decode
+   and at prefill, k = E at E 384, a prefill of six expert slices with D
+   split), exact-tie cases at E 64 (decode) and E 384 (prefill) and N
+   4096, float32 and bfloat16 inputs; gates within 1e-5, indices equal
+   except where the plain probabilities tie within 1e-6 (``check_route``
+   counts those rows); timed the same way, the library yardstick being
+   three calls (matmul, softmax, topk). The decode shapes of both
+   kernels also get an L2-cold device time (``cold_device_ms``: 128 MB
+   written between launches, the kernel's own time only), the condition
+   the engine runs them in.
    ``rwkv_scan`` against ``rwkv_scan_ref`` (``rwkv_scan_phase``): the
    RWKV path's admission (1,32,64,64), a sweep (hd 16/32/128, nh 3, S 1,
    31 and 70, B 2) and (4,1024,64,64); y and the final state within 1e-4;
@@ -224,11 +242,13 @@ def _self_device_us(e) -> float:
                  or getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, iters: int = 50):
+def device_ms(fn, iters: int = 50, between=None, only: str = ""):
     """Device time per call: the CUDA kernels' own time under
     ``torch.profiler`` (CUPTI), summed and divided by the call count —
     free of the host launch cost that the event timing of back-to-back
-    calls includes. None when the profiler records no device time."""
+    calls includes. ``between`` runs before each call (the L2 flush of
+    ``cold_device_ms``); ``only`` keeps the kernels whose name holds it.
+    None when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -236,10 +256,28 @@ def device_ms(fn, iters: int = 50):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
-    total = sum(_self_device_us(e) for e in _device_events(prof))
+    total = sum(_self_device_us(e) for e in _device_events(prof)
+                if only in e.key)
     return total / iters / 1e3 if total > 0 else None
+
+
+#: bytes written between launches for an L2-cold time: more than the
+#: H100's 50 MB of L2
+FLUSH_BYTES = 128 * 2 ** 20
+
+
+def cold_device_ms(fn, kernel: str, iters: int = 50):
+    """The device time of the kernels named ``kernel`` with L2 cold, as the
+    engine runs a decode step's kernels between layers: FLUSH_BYTES are
+    written before each call, and only ``kernel``'s own time counts."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return device_ms(fn, iters, between=lambda: flush.fill_(1.0),
+                     only=kernel)
 
 
 def nbytes(*ts) -> int:
@@ -685,8 +723,17 @@ def make_cases(gen, dtype):
         prefill_is_decode_quant_case("sweep paged prefill W=1 == paged "
                                      "decode dh=129 bs=16", kvd, 2, 3, 16, 8,
                                      2, 129, (47, 5))
-    # larger shapes, where the bound is more than launch cost
+    # decode rows at kimi-k2's and mistral-large's widths: several warps a
+    # row
+    rms_case("wide: decode rows (4,1,7168)", (SLOTS, 1, 7168))
+    rms_case("wide: decode rows (4,1,12288)", (SLOTS, 1, 12288))
+    # larger shapes, where the bound is more than launch cost; (16384,
+    # 4096) reads and writes more than the 50 MB L2 holds
     rms_case("large (4096,2048)", (4096, 2048))
+    rms_case("large (4096,2048) bf16 scale", (4096, 2048), torch.bfloat16)
+    rms_case("large past L2 (16384,4096)", (16384, 4096))
+    # a row wider than a block's registers streams (read twice)
+    rms_case("sweep streamed row (2,70001)", (2, 70001))
     flash_case("large prefill q (1,2048,32,64)", 1, 2048, 32, 4, 64)
     slot_case("large decode q (32,32,64) kv (32,2048,4,64)", 32, 2048, 32, 4,
               64, (2048,) * 32)
@@ -789,13 +836,15 @@ def kernel_phase(gen, only: str = "", names=None):
             torch.cuda.synchronize()
             err = check_close(f"{name} [{label}] {dtype}", got, want, dtype)
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
-            if label.startswith(("main", "large", "moe", "jamba")):
+            if label.startswith(("main", "large", "moe", "jamba", "wide")):
                 b_ms, b_by = bound(nb, ops, dtype)
                 row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(lib), bound_ms=b_ms,
                            bound_by=b_by, device_ms=device_ms(call),
                            plain_device_ms=device_ms(plain),
                            library_device_ms=device_ms(lib))
+                if name == "rmsnorm" and "decode" in label:
+                    row.update(cold_device_ms=cold_device_ms(call, name))
                 if gather:
                     row.update(library_gather_ms=cuda_ms(gather[0]),
                                library_gather_device_ms=device_ms(gather[0]))
@@ -839,14 +888,35 @@ def route_cases(gen, dtype):
             ("sweep N=33 D=100 E=16 k=4", 33, 100, 16, 4),
             ("sweep k=E N=3 D=96 E=8 k=8", 3, 96, 8, 8),
             ("sweep N=5 D=8192 E=256 k=8", 5, 8192, 256, 8),
+            # past the old kernel's E <= 256: E 100 (not a whole 16-byte
+            # group in bf16) at decode and at prefill (D 99: element
+            # staging), k = E at E 384, E 512, 1024 and 2048, a prefill
+            # of 6 expert slices whose D is split too, and E 1
+            ("sweep N=7 D=300 E=100 k=6", 7, 300, 100, 6),
+            ("sweep N=70 D=99 E=100 k=6", 70, 99, 100, 6),
+            ("sweep k=E N=5 D=64 E=384 k=384", 5, 64, 384, 384),
+            ("sweep N=5 D=100 E=512 k=8", 5, 100, 512, 8),
+            ("sweep N=3 D=64 E=1024 k=4", 3, 64, 1024, 4),
+            ("sweep N=2 D=32 E=2048 k=2", 2, 32, 2048, 2),
+            ("sweep N=300 D=256 E=384 k=8", 300, 256, 384, 8),
+            ("sweep N=3 D=40 E=1 k=1", 3, 40, 1, 1),
+            # kimi-k2-1t-a32b's router: D 7168, E 384, top-8
+            ("kimi: decode microstep x (4,7168) router (7168,384) k=8",
+             SLOTS, 7168, 384, 8),
+            ("kimi: admission x (32,7168) router (7168,384) k=8", PROMPT,
+             7168, 384, 8),
             ("large N=4096 D=2048 E=64 k=6", 4096, 2048, 64, 6)):
         cases.append((label, rn(N, D), rn(D, E, scale=0.02), k, False))
-    x = torch.randint(-1, 2, (64, 2048), generator=gen, device="cuda")
-    half = torch.randint(-1, 2, (2048, 32), generator=gen, device="cuda")
-    cases.append(("ties: x (64,2048) integers, router column pairs equal "
-                  "k=6", x.to(dtype),
-                  (half * 2.0 ** -5).repeat_interleave(2, dim=1).to(dtype),
-                  6, True))
+    for label, N, D, E, k in (
+            ("ties: x (64,2048) integers, router column pairs equal k=6", 64,
+             2048, 64, 6),
+            ("sweep ties: x (100,7168) integers, router (7168,384) column "
+             "pairs equal k=8", 100, 7168, 384, 8)):
+        x = torch.randint(-1, 2, (N, D), generator=gen, device="cuda")
+        half = torch.randint(-1, 2, (D, E // 2), generator=gen, device="cuda")
+        cases.append((label, x.to(dtype),
+                      (half * 2.0 ** -5).repeat_interleave(2, dim=1).to(dtype),
+                      k, True))
     return cases
 
 
@@ -888,14 +958,15 @@ def check_route(name, got, want, x, w, k, exact):
     return err, reordered, swapped
 
 
-def route_phase(gen, only: str = ""):
+def route_phase(gen, only=""):
     """moe_route against ``moe_route_ref`` on the card, float32 and
     bfloat16 inputs; the main and large cases timed like the other
     kernels. Library yardstick: ``torch.topk(torch.softmax(x.float() @
     router.float(), -1), k)``, three PyTorch calls (the port never makes
     them). Bound: bytes of x, router, gates and indices over 3.35 TB/s, or
     the 2·N·D·E operations over the input type's peak. ``only``: the
-    cases whose label starts with it."""
+    cases whose label starts with it (or with one of a tuple). The decode
+    shapes also get an L2-cold device time (``cold_device_ms``)."""
     import torch
     from repro_torch.kernels import ops, ref
     rows = []
@@ -912,7 +983,7 @@ def route_phase(gen, only: str = ""):
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err,
                    "near_tie_rows_reordered": reordered,
                    "near_tie_rows_kth_swapped": swapped}
-            if label.startswith(("main", "large", "jamba")):
+            if label.startswith(("main", "large", "jamba", "kimi")):
                 N, D = x.shape
                 lib = lambda: torch.topk(torch.softmax(  # noqa: E731
                     x.float() @ w.float(), -1), k)
@@ -923,6 +994,8 @@ def route_phase(gen, only: str = ""):
                            bound_by=b_by, device_ms=device_ms(call),
                            plain_device_ms=device_ms(plain),
                            library_device_ms=device_ms(lib))
+                if "decode" in label:
+                    row.update(cold_device_ms=cold_device_ms(call, "route"))
             log(f"kernel {'moe_route':15s} {str(dtype):15s} {label:45s} "
                 + " ".join(f"{k_}={v!r}" for k_, v in row.items()
                            if k_ not in ("label", "dtype")))
@@ -2050,11 +2123,16 @@ def launch_log():
     head dim), for flash each (type, padded head dim), for the split decode
     kernel each fp32 (query heads a block) and bf16 (padded head dim)
     instantiation over slot rows and over each pool type; the shared
-    memory of each and how many of its blocks fit on one SM."""
+    memory of each and how many of its blocks fit on one SM. Then the
+    geometry that ``rmsnorm`` and ``moe_route`` choose at the paths' and
+    the sweep's shapes, with the router's shared memory and the blocks of
+    each that fit on one SM."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import moe_route as kroute
     from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import paged_prefill as kpp
+    from repro_torch.kernels import rmsnorm as krms
     from repro_torch.kernels import slot_decode as ksd
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (64, 128, 256):
@@ -2083,6 +2161,27 @@ def launch_log():
                 log(f"  paged_prefill launch: q {dtype} pool "
                     f"{kvd or dtype} dh<={dh}: {info['smem_bytes']} bytes "
                     f"of shared memory, {info['blocks_per_sm']} blocks/SM")
+    for dtype in (torch.float32, torch.bfloat16):
+        for sdt in sorted({torch.float32, dtype}, key=str):
+            for D, rows in ((2048, 4), (2048, 4096), (4096, 4), (7168, 4),
+                            (12288, 4), (33, 35), (70001, 2)):
+                info = krms.launch_info(dtype, sdt, D, rows)
+                g = info["geometry"]
+                log(f"  rmsnorm launch: x {dtype} scale {sdt} D={D} "
+                    f"rows={rows}: {g.warps} warps a row, {g.rows} rows a "
+                    f"block, {g.nv} packs of {g.vec} a lane, grid {g.grid}: "
+                    f"{info['blocks_per_sm']} blocks/SM")
+        for N, D, E in ((4, 2048, 64), (32, 2048, 64), (4, 4096, 16),
+                        (4, 7168, 384), (32, 7168, 384), (5, 100, 512),
+                        (2, 32, 2048), (4096, 2048, 64), (70, 99, 100),
+                        (300, 256, 384)):
+            info = kroute.launch_info(dtype, N, D, E)
+            g = info["geometry"]
+            log(f"  moe_route launch: {dtype} N={N} D={D} E={E}: {g.mode}, "
+                f"{g.tiles} tiles of {g.tn}, {g.slices} slices of {g.cw} "
+                f"experts, {g.splits} splits of {g.rows} rows: "
+                f"{info['smem_bytes']} bytes of shared memory, "
+                f"{info['blocks_per_sm']} blocks/SM")
 
 
 def main() -> int:
@@ -2106,7 +2205,6 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill")):
             log("  ptxas:", line.split("info    :")[-1].strip()[:160])
-    launch_log()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -2116,8 +2214,20 @@ def main() -> int:
         log(f"phase {fn.__name__} done at {time.time() - t0:.1f} s")
         return out
 
-    if sys.argv[1:] == ["route"]:
-        phase(route_phase, gen)
+    if sys.argv[1:] == ["compare"]:
+        # the rmsnorm and router cases and the MoE path with its profile,
+        # with no launch log: the mode also runs over an older tree's src/
+        # with this script copied in, to compare two trees in one call
+        phase(kernel_phase, gen, "", ("rmsnorm",))
+        phase(route_phase, gen, ("main", "jamba", "large", "ties"))
+        phase(moe_phases, False)
+        return 0
+    launch_log()
+    if sys.argv[1:2] == ["route"]:
+        phase(route_phase, gen, tuple(sys.argv[2:]) or "")
+        return 0
+    if sys.argv[1:] == ["norm"]:
+        phase(kernel_phase, gen, "", ("rmsnorm",))
         return 0
     if sys.argv[1:] == ["prefill"]:
         phase(kernel_phase, gen, "", PAGED_KERNELS)

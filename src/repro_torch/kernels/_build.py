@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -122,7 +123,9 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rt_rmsnorm.argtypes = [P, P, P, I, I, F, I, I, P]
+        L = ctypes.c_longlong
+        lib.rt_rmsnorm.argtypes = [P, P, P, L, I, F, I, I, I, I, I, I, I, P]
+        lib.rt_rmsnorm_info.argtypes = [I, I, I, I, I, P]
         lib.rt_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
                                            I, I, F, I, P]
         lib.rt_flash_info.argtypes = [I, I, P, P]
@@ -137,16 +140,20 @@ def library() -> ctypes.CDLL:
         lib.rt_paged_prefill_attention_quant.argtypes = [
             P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, F, I, I, P]
         lib.rt_paged_prefill_info.argtypes = [I, I, I, P, P]
-        lib.rt_moe_route.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.rt_moe_route.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     I, I, I, I, P]
+        lib.rt_moe_route_info.argtypes = [I, I, I, I, I, I, I, P, P]
         lib.rt_rwkv_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
         lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
-        for fn in (lib.rt_rmsnorm, lib.rt_flash_attention,
+        for fn in (lib.rt_rmsnorm, lib.rt_rmsnorm_info,
+                   lib.rt_flash_attention,
                    lib.rt_flash_info, lib.rt_slot_decode_attention,
                    lib.rt_decode_info, lib.rt_paged_decode_attention,
                    lib.rt_paged_prefill_attention,
                    lib.rt_paged_prefill_attention_quant,
                    lib.rt_paged_prefill_info,
-                   lib.rt_moe_route, lib.rt_rwkv_scan, lib.rt_mamba_scan):
+                   lib.rt_moe_route, lib.rt_moe_route_info,
+                   lib.rt_rwkv_scan, lib.rt_mamba_scan):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -161,6 +168,17 @@ def strides(*tensors_and_dims) -> ctypes.Array:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SMs of the CUDA device ``t`` lies on (for launch geometry)."""
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -59,18 +59,25 @@ def _close(got_t, want_j, dt):
 # rmsnorm (Pallas rmsnorm.py:36)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,dt,br", [
-    ((3, 40, 96), F32, 16),
-    ((2, 33, 256), BF16, 8),
-    ((5, 7, 33), F32, 8),          # odd D
-    ((4, 1, 2048), F32, 4),        # tinyllama decode rows
+@pytest.mark.parametrize("shape,dt,br,sdt", [
+    pytest.param((3, 40, 96), F32, 16, F32, id="shape0-float32-16"),
+    pytest.param((2, 33, 256), BF16, 8, F32, id="shape1-bfloat16-8"),
+    pytest.param((5, 7, 33), F32, 8, F32, id="shape2-float32-8"),   # odd D
+    pytest.param((4, 1, 2048), F32, 4, F32,                # tinyllama decode
+                 id="shape3-float32-4"),
+    # a bf16 scale (bfloat16 parameters), and rows of 2-12 warps: jamba's D
+    # 4096, kimi-k2's 7168, mistral-large's 12288
+    pytest.param((4, 1, 2048), BF16, 4, BF16, id="bf16-scale"),
+    pytest.param((2, 3, 4096), F32, 8, F32, id="d4096"),
+    pytest.param((4, 1, 7168), BF16, 4, BF16, id="d7168-bf16-scale"),
+    pytest.param((2, 1, 12288), F32, 2, F32, id="d12288"),
 ])
-def test_rmsnorm_matches_pallas(shape, dt, br):
+def test_rmsnorm_matches_pallas(shape, dt, br, sdt):
     from repro.kernels.rmsnorm import rmsnorm
     rng = np.random.default_rng(sum(shape))
     xj, xt = _pair(_randn(rng, *shape), dt)
     s = _randn(rng, shape[-1]) * 0.1 + 1.0
-    sj, st = _pair(s, F32)
+    sj, st = _pair(s, sdt)
     want = rmsnorm(xj, sj, block_rows=br, interpret=True)
     _close(trms.rmsnorm(xt, st), want, dt)
     _close(tops.rmsnorm(xt, st, eps=1e-5), want, dt)

@@ -133,17 +133,23 @@ def test_top_k_stable_matches_lax_top_k_on_ties():
 
 
 def test_moe_route_wrapper_splits_d_as_the_kernel_checks():
-    """The wrapper's D split is one the kernel's even split reproduces
-    (the kernel refuses any other), small N splits D, large N does not."""
-    for N in (1, 4, 16, 17, 32, 100, 264, 1000, 4096, 70000):
-        for D in (1, 16, 64, 127, 128, 129, 1000, 2048, 4095, 8192):
-            s = troute.d_splits(N, D)
-            chunks = -(-D // troute.D_CHUNK)
-            per = -(-chunks // s)
-            assert 1 <= s <= chunks and -(-chunks // per) == s, (N, D, s)
-    assert troute.d_splits(4, 2048) == 16
-    assert troute.d_splits(4096, 2048) == 2       # 256 tiles: two per SM
-    assert troute.d_splits(8192, 2048) == 1
+    """The wrapper's launch (``route_geometry``) is one the kernel takes:
+    whole D slices of ``rows`` rows, none empty (the kernel refuses a
+    split count that is not ceil(D / rows)), whole 32- or 64-row chunks
+    above the decode sizes; small N splits D, N 16384 at D 2048 does
+    not."""
+    for N in (1, 4, 16, 17, 32, 64, 65, 100, 264, 1000, 4096, 70000):
+        for D in (1, 16, 64, 127, 128, 129, 1000, 2048, 4095, 8192, 100000):
+            for E, size in ((64, 2), (64, 4), (384, 2), (100, 4)):
+                g = troute.route_geometry(N, D, E, size, True)
+                assert g.splits == -(-D // g.rows), (N, D, g)
+                assert (g.splits - 1) * g.rows < D, (N, D, g)
+                if g.mode != "decode":
+                    assert g.rows % troute.CHUNK[g.mode] == 0, (N, D, g)
+    assert troute.route_geometry(4, 2048, 64, 2, True).splits == 16
+    assert troute.route_geometry(4096, 2048, 64, 2, True).splits == 3
+    assert troute.route_geometry(8192, 2048, 64, 2, True).splits == 2
+    assert troute.route_geometry(16384, 2048, 64, 2, True).splits == 1
 
 
 def test_moe_route_wrapper_counts_no_launch_on_the_cpu():
@@ -507,6 +513,13 @@ def test_cuda_moe_route_matches_plain(cuda, dtype):
     got, gi = tops.moe_route(x, w, 6)
     assert torch.equal(gi, tref.moe_route_ref(x, w, 6)[1])
     assert bool((gi[:, 0::2] % 2 == 0).all())
+    # kimi-k2's router (D 7168, E 384, top-8), past the old E <= 256
+    x = torch.randn(4, 7168, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(7168, 384, generator=g, device=cuda) * 0.02).to(dtype)
+    got, gi = tops.moe_route(x, w, 8)
+    want, wi = tref.moe_route_ref(x, w, 8)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(gi, wi)
     with pytest.raises(ValueError, match="the kernel takes"):
         tops.moe_route(torch.zeros(2, 8, device=cuda),
-                       torch.zeros(8, 300, device=cuda), 2)
+                       torch.zeros(8, 4, device=cuda), 5)       # k > E

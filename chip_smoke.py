@@ -6,13 +6,21 @@
                                   # phase (the cases whose label starts
                                   # with a PREFIX, all without one)
     python3 chip_smoke.py norm    # the build and the rmsnorm cases
-    python3 chip_smoke.py compare # the build, the rmsnorm cases, the
-                                  # router's path, jamba, large and tie
-                                  # cases, the MoE path and its profile
+    python3 chip_smoke.py compare [KERNEL ...]  # the build, then for
+                                  # each of rmsnorm, moe_route, rwkv_scan
+                                  # and mamba_scan named (all without one)
+                                  # its cases and its path's profile (the
+                                  # router: its path, jamba, large and tie
+                                  # cases, the MoE path); no launch log,
+                                  # and the cases a tree refuses skipped:
+                                  # runs over an older tree's src/ too
     python3 chip_smoke.py moe     # the build, the MoE path and its profile
     python3 chip_smoke.py rwkv    # the build, rwkv_scan, the RWKV path
     python3 chip_smoke.py mamba   # the build, jamba's kernel shapes,
                                   # mamba_scan, the Mamba path
+    python3 chip_smoke.py scan-tiles  # the build, both scans under every
+                                  # lane tile at their paths' admissions
+                                  # and large shapes
     python3 chip_smoke.py prefill # the build, the paged kernels' cases,
                                   # the teacher-forced check
     python3 chip_smoke.py attention  # the build, every attention kernel's
@@ -25,9 +33,10 @@ non-zero before the result line):
    one library (all sources at once), timed; ptxas's registers, spills and
    static shared memory per kernel, and the dynamic shared memory and
    blocks per SM of each instantiation of the flash, slot decode, paged
-   decode and paged prefill kernels; the launch geometry that rmsnorm and
-   moe_route choose at the paths' and the sweeps' shapes, with the
-   router's dynamic shared memory and the blocks of each that fit an SM.
+   decode and paged prefill kernels; the launch geometry that rmsnorm,
+   moe_route, rwkv_scan and mamba_scan choose at the paths' and the
+   sweeps' shapes, with the router's and the scans' dynamic shared memory
+   and the blocks of each that fit an SM.
 2. kernels — every hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes (full-width tinyllama-1.1b: D=2048,
    HQ=32, HKV=4, dh=64; 4 slots, prompt 32, gen 32, max_len 72; the
@@ -92,15 +101,22 @@ non-zero before the result line):
    written between launches, the kernel's own time only), the condition
    the engine runs them in.
    ``rwkv_scan`` against ``rwkv_scan_ref`` (``rwkv_scan_phase``): the
-   RWKV path's admission (1,32,64,64), a sweep (hd 16/32/128, nh 3, S 1,
-   31 and 70, B 2) and (4,1024,64,64); y and the final state within 1e-4;
-   timed the same way. No single PyTorch call computes the recurrence, so
-   its library time is null. ``mamba_scan`` against ``mamba_scan_ref``
-   (``mamba_scan_phase``): the Mamba path's admission (1,32,8192,16),
-   a sweep (tests/test_kernels.py's shapes, S 1, a ragged di, B 4, odd
-   ds, ds 32) and (4,1024,8192,16), float32 and bfloat16 inputs; y and
-   the final state within 1e-4 / 2e-2; timed the same way, the exps' SFU
-   time printed beside the bound; library time null. The router also runs
+   RWKV path's admission (1,32,64,64), a sweep (hd 16 to 512 -- 33 and
+   100 take narrow staged copies, 192, 256 and 512 16 and 32 key rows a
+   lane; nh 3, S 1, 31 and 70, B 2; 8 columns a lane over 320 heads),
+   bfloat16 r, k, v, w with u in bfloat16 or float32, and (4,1024,64,64);
+   y and the final state within 1e-4 in both dtypes (both sides widen
+   exactly and compute in float32); timed the same way, the admission
+   also L2-cold, each device time read both as a sum over the profiler's
+   records and as their mean times the launches a call
+   (``kernel_device_ms``). No single PyTorch call computes the
+   recurrence, so its library time is null. ``mamba_scan`` against
+   ``mamba_scan_ref`` (``mamba_scan_phase``): the Mamba path's admission
+   (1,32,8192,16), a sweep (tests/test_kernels.py's shapes, S 1, a ragged
+   di, B 4 and 8, ds 5, 32, 64, 100, 128 and 256) and (4,1024,8192,16),
+   float32 and bfloat16 inputs; y and the final state within 1e-4 / 2e-2;
+   timed as ``rwkv_scan``, the exps' SFU time printed beside the bound;
+   library time null. The router also runs
    at jamba's shapes (N 4 and 32, D 4096, E 16, k 2).
 4. path — the main paths through their entry points, full-width
    tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
@@ -242,17 +258,17 @@ def _self_device_us(e) -> float:
                  or getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, iters: int = 50, between=None, only: str = ""):
-    """Device time per call: the CUDA kernels' own time under
-    ``torch.profiler`` (CUPTI), summed and divided by the call count —
-    free of the host launch cost that the event timing of back-to-back
-    calls includes. ``between`` runs before each call (the L2 flush of
-    ``cold_device_ms``); ``only`` keeps the kernels whose name holds it.
-    None when the profiler records no device time."""
+def _profiled(fn, iters: int, between=None):
+    """The CUDA kernels' records of ``iters`` calls of ``fn`` (after one
+    warm call) under ``torch.profiler`` (CUPTI), and the launches the
+    port's wrappers counted over those calls. ``between`` runs before
+    each call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
     fn()
     torch.cuda.synchronize()
+    before = dict(_build.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -260,9 +276,45 @@ def device_ms(fn, iters: int = 50, between=None, only: str = ""):
                 between()
             fn()
         torch.cuda.synchronize()
-    total = sum(_self_device_us(e) for e in _device_events(prof)
-                if only in e.key)
+    made = {k: n - before.get(k, 0) for k, n in _build.launches.items()}
+    return _device_events(prof), made
+
+
+def device_ms(fn, iters: int = 50, between=None, only: str = ""):
+    """Device time per call: the CUDA kernels' own time under
+    ``torch.profiler`` (CUPTI), summed and divided by the call count —
+    free of the host launch cost that the event timing of back-to-back
+    calls includes. ``between`` runs before each call (the L2 flush of
+    ``cold_device_ms``); ``only`` keeps the kernels whose name holds it.
+    None when the profiler records no device time. A record the profiler
+    drops lowers it (ROADMAP M2): ``kernel_device_ms`` reads a
+    hand-written kernel both ways."""
+    events, _ = _profiled(fn, iters, between)
+    total = sum(_self_device_us(e) for e in events if only in e.key)
     return total / iters / 1e3 if total > 0 else None
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 50, between=None):
+    """The device time per call of the hand-written kernel ``kernel``
+    (its CUDA records are those whose name holds it), read two ways from
+    one profiled loop: as ``device_ms`` (the records summed over the calls
+    made), and as the records' mean times the launches a call its wrapper
+    counted (``_build.launches``), which a record the profiler drops does
+    not lower (ROADMAP M2). (None, None) when no record was kept; raises
+    when the wrapper counted no whole number of launches a call or the
+    records outnumber the launches."""
+    events, made = _profiled(fn, iters, between)
+    per_call, rest = divmod(made.get(kernel, 0), iters)
+    records = [e for e in events if kernel in e.key]
+    kept = sum(e.count for e in records)
+    if per_call < 1 or rest or kept > per_call * iters:
+        raise AssertionError(f"{kernel}: {made.get(kernel, 0)} counted "
+                             f"launches and {kept} records over {iters} "
+                             f"calls")
+    total = sum(_self_device_us(e) for e in records)
+    if not kept or total <= 0:
+        return None, None
+    return total / iters / 1e3, total / kept * per_call / 1e3
 
 
 #: bytes written between launches for an L2-cold time: more than the
@@ -270,14 +322,19 @@ def device_ms(fn, iters: int = 50, between=None, only: str = ""):
 FLUSH_BYTES = 128 * 2 ** 20
 
 
+def l2_flush():
+    """A call that writes FLUSH_BYTES on the card (``between`` for an
+    L2-cold device time)."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return lambda: flush.fill_(1.0)
+
+
 def cold_device_ms(fn, kernel: str, iters: int = 50):
     """The device time of the kernels named ``kernel`` with L2 cold, as the
     engine runs a decode step's kernels between layers: FLUSH_BYTES are
     written before each call, and only ``kernel``'s own time counts."""
-    import torch
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-    return device_ms(fn, iters, between=lambda: flush.fill_(1.0),
-                     only=kernel)
+    return device_ms(fn, iters, between=l2_flush(), only=kernel)
 
 
 def nbytes(*ts) -> int:
@@ -1003,57 +1060,124 @@ def route_phase(gen, only=""):
     return rows
 
 
-def rwkv_scan_phase(gen):
+def _scan_row(kernel, label, dtype, call, plain, err, n_bytes, n_ops, slow):
+    """The record of one scan case; a main or large case timed like the
+    other kernels (the plain version ``slow`` calls), its device time
+    read both ways (``kernel_device_ms``), and a main case's L2-cold
+    device time."""
+    row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
+    if label.startswith(("main", "large")):
+        b_ms, b_by = bound(n_bytes, n_ops, "torch.float32")
+        dev, mean = kernel_device_ms(call, kernel)
+        row.update(ms=cuda_ms(call), library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by, device_ms=dev, device_mean_ms=mean,
+                   library_device_ms=None,
+                   plain_ms=cuda_ms(plain, iters=slow, warmup=1),
+                   plain_device_ms=device_ms(plain, iters=slow))
+        if label.startswith("main"):
+            cold, cold_mean = kernel_device_ms(call, kernel,
+                                               between=l2_flush())
+            row.update(cold_device_ms=cold, cold_device_mean_ms=cold_mean)
+    return row
+
+
+def _log_row(kernel, row):
+    log(f"kernel {kernel:15s} {row['dtype']:15s} {row['label']:45s} "
+        + " ".join(f"{k}={v!r}" for k, v in row.items()
+                   if k not in ("label", "dtype")))
+
+
+def _refused(kernel, label, dtype, exc, refused_ok):
+    """A case the kernel's wrapper refused: logged and skipped where
+    ``refused_ok`` (``compare`` over an older tree, whose kernels took
+    less), raised otherwise."""
+    if not refused_ok:
+        raise exc
+    log(f"kernel {kernel:15s} {str(dtype):15s} {label:45s} refused by this "
+        f"tree: {type(exc).__name__}: {exc}")
+
+
+def rwkv_inputs(gen, B, S, nh, hd, dtype, udtype):
+    """r, k, v unit normals, w = exp(-exp(n - 2)), u at 0.5 (as
+    tests/test_kernels.py draws them), r, k, v, w in ``dtype`` and u in
+    ``udtype``."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    shape = (B, S, nh, hd)
+    return tuple(t.to(d) for t, d in (
+        (rn(*shape), dtype), (rn(*shape), dtype), (rn(*shape), dtype),
+        (torch.exp(-torch.exp(rn(*shape) - 2)), dtype),
+        (rn(nh, hd) * 0.5, udtype)))
+
+
+def rwkv_scan_phase(gen, refused_ok=False):
     """rwkv_scan against ``rwkv_scan_ref`` on the card, y and the final
-    state within 1e-4 (fp32): the RWKV path's admission shape (1,32,64,64)
-    (rwkv6-7b: nh 64, hd 64), a sweep and one larger shape, r, k, v unit
-    normals, w = exp(-exp(n - 2)), u at 0.5 (as tests/test_kernels.py draws
-    them). The main and large cases timed like the other kernels, with the
-    final state stored, as the prefill asks for it. Bound: r, k, v, w, u
-    read once, y and the state written once, over 3.35 TB/s, or the
-    function's 5 hd² + 5 hd flops per (token, head) over the fp32 peak (the
-    read-out Σ r S one fma per state element, the decay and add w S + k v a
-    multiply and an fma, the bonus v·Σ r u k per token). No PyTorch call
-    computes the recurrence: the library time is null."""
+    state within 1e-4 (the kernel and the plain version both widen their
+    inputs exactly and compute in float32, so bfloat16 inputs take the
+    float32 gate too): the RWKV path's admission shape (1,32,64,64)
+    (rwkv6-7b: nh 64, hd 64), a sweep (hd 16 to 512 -- 100 and 33 take 16-
+    and 4-byte staged copies, and element copies in bfloat16; 192, 256 and
+    512 take 16 and 32 key rows a lane --, nh 3, S 1, 31 and 70, B 2),
+    bfloat16 r, k, v, w with u in bfloat16 or float32, and (4,1024,64,64)
+    (inputs from ``rwkv_inputs``). The main and large cases timed like the
+    other kernels, with the final state stored, as the prefill asks for
+    it; the admission also L2-cold. Bound: r, k, v, w, u read once, y and
+    the state written once, over 3.35 TB/s, or the function's 5 hd² + 5 hd
+    flops per (token, head) over the fp32 peak (the read-out Σ r S one fma
+    per state element, the decay and add w S + k v a multiply and an fma,
+    the bonus v·Σ r u k per token). No PyTorch call computes the
+    recurrence: the library time is null. ``refused_ok``: see
+    ``_refused``."""
     import torch
     from repro_torch.kernels import ops, ref
+    f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    for label, B, S, nh, hd in (
-            ("main: admission (1,32,64,64)", 1, PROMPT, 64, 64),
-            ("sweep B=2 S=1 nh=3 hd=16", 2, 1, 3, 16),
-            ("sweep B=2 S=31 nh=3 hd=32", 2, 31, 3, 32),
-            ("sweep B=2 S=70 nh=3 hd=16", 2, 70, 3, 16),
-            ("sweep B=2 S=70 nh=3 hd=32", 2, 70, 3, 32),
-            ("sweep B=2 S=31 nh=1 hd=64", 2, 31, 1, 64),
-            ("sweep B=1 S=9 nh=2 hd=128", 1, 9, 2, 128),
-            ("large (4,1024,64,64)", 4, 1024, 64, 64)):
-        def rn(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda")
-        shape = (B, S, nh, hd)
-        ins = (rn(*shape), rn(*shape), rn(*shape),
-               torch.exp(-torch.exp(rn(*shape) - 2)), rn(nh, hd) * 0.5)
+    for label, B, S, nh, hd, dtype, udtype in (
+            ("main: admission (1,32,64,64)", 1, PROMPT, 64, 64, f32, f32),
+            ("sweep B=2 S=1 nh=3 hd=16", 2, 1, 3, 16, f32, f32),
+            ("sweep B=2 S=31 nh=3 hd=32", 2, 31, 3, 32, f32, f32),
+            ("sweep B=2 S=70 nh=3 hd=16", 2, 70, 3, 16, f32, f32),
+            ("sweep B=2 S=70 nh=3 hd=32", 2, 70, 3, 32, f32, f32),
+            ("sweep B=2 S=31 nh=1 hd=64", 2, 31, 1, 64, f32, f32),
+            ("sweep B=1 S=9 nh=2 hd=128", 1, 9, 2, 128, f32, f32),
+            ("sweep B=1 S=5 nh=2 hd=100", 1, 5, 2, 100, f32, f32),
+            ("sweep B=2 S=9 nh=3 hd=33", 2, 9, 3, 33, f32, f32),
+            ("sweep B=1 S=9 nh=2 hd=192", 1, 9, 2, 192, f32, f32),
+            ("sweep B=2 S=5 nh=2 hd=256", 2, 5, 2, 256, f32, f32),
+            ("sweep B=1 S=3 nh=1 hd=512", 1, 3, 1, 512, f32, f32),
+            ("sweep 8 columns a lane B=8 S=3 nh=40 hd=100", 8, 3, 40, 100,
+             f32, f32),
+            ("main: admission (1,32,64,64)", 1, PROMPT, 64, 64, bf16, bf16),
+            ("sweep u f32 B=2 S=31 nh=3 hd=64", 2, 31, 3, 64, bf16, f32),
+            ("sweep B=2 S=9 nh=3 hd=33", 2, 9, 3, 33, bf16, bf16),
+            ("sweep B=1 S=5 nh=2 hd=100", 1, 5, 2, 100, bf16, bf16),
+            ("sweep B=1 S=9 nh=2 hd=192", 1, 9, 2, 192, bf16, bf16),
+            ("sweep B=2 S=5 nh=2 hd=256", 2, 5, 2, 256, bf16, f32),
+            ("sweep 8 columns a lane B=8 S=3 nh=40 hd=33", 8, 3, 40, 33, bf16,
+             bf16),
+            ("large (4,1024,64,64)", 4, 1024, 64, 64, f32, f32)):
+        ins = rwkv_inputs(gen, B, S, nh, hd, dtype, udtype)
         call = lambda: ops.rwkv_scan(*ins)  # noqa: E731
         plain = lambda: ref.rwkv_scan_ref(*ins)  # noqa: E731
-        (y, st), (wy, ws) = call(), plain()
+        try:
+            y, st = call()
+        except (ValueError, TypeError) as exc:
+            _refused("rwkv_scan", label, dtype, exc, refused_ok)
+            continue
+        wy, ws = plain()
         torch.cuda.synchronize()
-        err = max(check_close(f"rwkv_scan [{label}] {what}", got, want,
-                              torch.float32)
+        err = max(check_close(f"rwkv_scan [{label}] {dtype} u {udtype} "
+                              f"{what}", got, want, f32)
                   for what, got, want in (("y", y, wy), ("state", st, ws)))
-        row = {"label": label, "dtype": "torch.float32", "max_abs_err": err}
-        if label.startswith(("main", "large")):
-            b_ms, b_by = bound(nbytes(*ins, y, st),
-                               B * S * nh * (5.0 * hd * hd + 5.0 * hd),
-                               torch.float32)
-            slow = 3 if S > PROMPT else 50       # the plain loop over S
-            row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain, iters=slow,
-                                                          warmup=1),
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                       device_ms=device_ms(call),
-                       plain_device_ms=device_ms(plain, iters=slow),
-                       library_device_ms=None)
-        log(f"kernel {'rwkv_scan':15s} {'torch.float32':15s} {label:45s} "
-            + " ".join(f"{k}={v!r}" for k, v in row.items()
-                       if k not in ("label", "dtype")))
+        slow = 3 if S > PROMPT else 50       # the plain loop over S
+        row = _scan_row("rwkv_scan", label, dtype, call, plain, err,
+                        nbytes(*ins, y, st),
+                        B * S * nh * (5.0 * hd * hd + 5.0 * hd), slow)
+        if udtype != dtype:
+            row["u_dtype"] = str(udtype)
+        _log_row("rwkv_scan", row)
         rows.append(row)
     return rows
 
@@ -1063,22 +1187,39 @@ def rwkv_scan_phase(gen):
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
-def mamba_scan_phase(gen):
-    """mamba_scan against ``mamba_scan_ref`` on the card, y and the final
-    state, float32 within 1e-4 and bfloat16 inputs within 2e-2: the Mamba
-    path's admission shape (1,32,8192,16) (jamba-v0.1-52b: di 8192, ds
-    16), tests/test_kernels.py's sweep ((2,100,96,8), (1,64,64,4),
-    (2,33,128,16)) with S = 1, a ragged di, B = 4, odd ds and ds 32, and
-    one larger shape; x at 0.5, dt = softplus(n - 1), A = -exp(0.3 n),
-    B and C unit normals (as tests/test_kernels.py draws them). The main
-    and large cases timed like the other kernels. Bound: x, dt, A, B, C
-    read once, y and the state written once, over 3.35 TB/s, or the
-    function's 7 operations per (token, channel, state) (dt A, exp, (dt x)
-    B, a h + bx, h C summed) plus dt x per (token, channel) over the fp32
-    peak; beside it the exps alone over the SFUs' rate. No PyTorch call
-    computes the selective scan: the library time is null."""
+def mamba_inputs(gen, B, S, di, ds, dtype):
+    """x at 0.5, dt = softplus(n - 1), A = -exp(0.3 n), B and C unit
+    normals (as tests/test_kernels.py draws them); A in float32, the rest
+    in ``dtype``."""
     import torch
     import torch.nn.functional as F
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = (rn(B, S, di) * 0.5).to(dtype)
+    dt = F.softplus(rn(B, S, di) - 1).to(dtype)
+    A = -torch.exp(rn(di, ds) * 0.3)
+    return x, dt, A, rn(B, S, ds).to(dtype), rn(B, S, ds).to(dtype)
+
+
+def mamba_scan_phase(gen, refused_ok=False):
+    """mamba_scan against ``mamba_scan_ref`` on the card, y and the final
+    state, float32 within 1e-4 and bfloat16 inputs within 2e-2 (dt·x is
+    rounded to bfloat16 in both): the Mamba path's admission shape
+    (1,32,8192,16) (jamba-v0.1-52b: di 8192, ds 16), tests/test_kernels.py's
+    sweep ((2,100,96,8), (1,64,64,4), (2,33,128,16)) with S = 1, a ragged
+    di, B = 4, odd ds, ds 32, 64, 100 (bfloat16 rows of 200 bytes: 8-byte
+    copies), 128 and 256 (8 and 16 states a lane over 16 lanes), a ragged
+    last block at B 8, and one larger shape (inputs from
+    ``mamba_inputs``). The main and large cases timed like the other
+    kernels, the admission also L2-cold. Bound: x, dt, A, B, C read once,
+    y and the state written once, over 3.35 TB/s, or the function's 7
+    operations per (token, channel, state) (dt A, exp, (dt x) B, a h + bx,
+    h C summed) plus dt x per (token, channel) over the fp32 peak; beside
+    it the exps alone over the SFUs' rate. No PyTorch call computes the
+    selective scan: the library time is null. ``refused_ok``: see
+    ``_refused``."""
+    import torch
     from repro_torch.kernels import ops, ref
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1092,40 +1233,84 @@ def mamba_scan_phase(gen):
                 ("sweep B=4 (4,20,64,16)", 4, 20, 64, 16),
                 ("sweep odd ds (2,17,70,5)", 2, 17, 70, 5),
                 ("sweep ds=32 (1,9,40,32)", 1, 9, 40, 32),
+                ("sweep ds=64 (2,9,72,64)", 2, 9, 72, 64),
+                ("sweep ds=100 (1,7,40,100)", 1, 7, 40, 100),
+                ("sweep ds=128 (1,9,48,128)", 1, 9, 48, 128),
+                ("sweep ds=256 (2,5,20,256)", 2, 5, 20, 256),
+                ("sweep ragged block (8,6,4098,16)", 8, 6, 4098, 16),
                 ("large (4,1024,8192,16)", 4, 1024, 8192, 16)):
-            def rn(*shape):
-                return torch.randn(*shape, generator=gen, device="cuda")
-            x = (rn(B, S, di) * 0.5).to(dtype)
-            dt = F.softplus(rn(B, S, di) - 1).to(dtype)
-            A = -torch.exp(rn(di, ds) * 0.3)
-            Bv, Cv = rn(B, S, ds).to(dtype), rn(B, S, ds).to(dtype)
-            ins = (x, dt, A, Bv, Cv)
+            ins = mamba_inputs(gen, B, S, di, ds, dtype)
             call = lambda: ops.mamba_scan(*ins)  # noqa: E731
             plain = lambda: ref.mamba_scan_ref(*ins)  # noqa: E731
-            (y, h), (wy, wh) = call(), plain()
+            try:
+                y, h = call()
+            except (ValueError, TypeError) as exc:
+                _refused("mamba_scan", label, dtype, exc, refused_ok)
+                continue
+            wy, wh = plain()
             torch.cuda.synchronize()
             err = max(check_close(f"mamba_scan [{label}] {what}", got, want,
                                   dtype)
                       for what, got, want in (("y", y, wy),
                                               ("state", h, wh)))
-            row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
-            if label.startswith(("main", "large")):
-                elems = B * S * di * ds
-                b_ms, b_by = bound(nbytes(*ins, y, h),
-                                   7.0 * elems + B * S * di, torch.float32)
-                slow = 3 if S > PROMPT else 50   # the plain loop over S
-                row.update(ms=cuda_ms(call),
-                           plain_ms=cuda_ms(plain, iters=slow, warmup=1),
-                           library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                           sfu_exp_ms=elems / SFU_EXP_PER_S * 1e3,
-                           device_ms=device_ms(call),
-                           plain_device_ms=device_ms(plain, iters=slow),
-                           library_device_ms=None)
-            log(f"kernel {'mamba_scan':15s} {str(dtype):15s} {label:45s} "
-                + " ".join(f"{k}={v!r}" for k, v in row.items()
-                           if k not in ("label", "dtype")))
+            elems = B * S * di * ds
+            slow = 3 if S > PROMPT else 50   # the plain loop over S
+            row = _scan_row("mamba_scan", label, dtype, call, plain, err,
+                            nbytes(*ins, y, h), 7.0 * elems + B * S * di,
+                            slow)
+            if "ms" in row:
+                row["sfu_exp_ms"] = elems / SFU_EXP_PER_S * 1e3
+            _log_row("mamba_scan", row)
             rows.append(row)
     return rows
+
+
+def scan_tiles_phase(gen):
+    """Both scans at their paths' admissions and large shapes in float32
+    under every lane tile their sources instantiate that pads the state
+    at most 2x (rwkv: key rows x value columns; mamba: states a lane x
+    lanes a channel), each checked against the plain version (within
+    1e-4) and read by its device time both ways (``kernel_device_ms``) and
+    by CUDA events over back-to-back calls (at the large shapes the two
+    agree; at the admissions the latter is the host's launch cost); the
+    geometry functions' own choice is marked."""
+    import torch
+    from repro_torch.kernels import mamba_ssm, ref, rwkv6
+    for B, S, nh, hd in ((1, PROMPT, 64, 64), (4, 1024, 64, 64)):
+        ins = rwkv_inputs(gen, B, S, nh, hd, torch.float32, torch.float32)
+        want = ref.rwkv_scan_ref(*ins)
+        chosen = rwkv6.rwkv_geometry(B, S, nh, hd)
+        for tile, (ti, _) in enumerate(rwkv6.TILES):
+            if not hd <= rwkv6.LANES * ti < 4 * hd:
+                continue
+            g = rwkv6.tile_geometry(S, hd, tile)
+            _tile_row("rwkv_scan", (B, S, nh, hd), f"{g.ti}x{g.tj} "
+                      f"slices={g.slices}", g == chosen, want,
+                      lambda: rwkv6._launch(*ins, geometry=g))  # noqa: B023
+    for B, S, di, ds in ((1, PROMPT, 8192, 16), (4, 1024, 8192, 16)):
+        ins = mamba_inputs(gen, B, S, di, ds, torch.float32)
+        want = ref.mamba_scan_ref(*ins)
+        chosen = mamba_ssm.mamba_geometry(S, ds)
+        for tile, (ns, lanes) in enumerate(mamba_ssm.TILES):
+            if not ds <= ns * lanes < 4 * ds:
+                continue
+            g = mamba_ssm.tile_geometry(S, tile)
+            _tile_row("mamba_scan", (B, S, di, ds), f"{ns} states x {lanes} "
+                      f"lanes", g == chosen, want,
+                      lambda: mamba_ssm._launch(*ins, geometry=g))  # noqa: B023
+
+
+def _tile_row(kernel, shape, name, chosen, want, call):
+    import torch
+    got = call()
+    torch.cuda.synchronize()
+    err = max(check_close(f"{kernel} {shape} tile {name} {what}", a, b,
+                          torch.float32)
+              for what, a, b in zip(("y", "state"), got, want))
+    dev, mean = kernel_device_ms(call, kernel)
+    log(f"tile {kernel:15s} {str(shape):22s} {name:22s} chosen={chosen} "
+        f"max_abs_err={err!r} device_ms={dev!r} device_mean_ms={mean!r} "
+        f"ms={cuda_ms(call, iters=20)!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -1891,10 +2076,10 @@ def rwkv_profile_phase(params, cfg):
                  "program, fp32", eng, reqs, also=("rwkv", "rmsnorm"))
 
 
-def rwkv_phases():
-    """The RWKV path, then its teacher-forced check and its profile over
-    one seeded set of fp32 parameters (32.2 GB; the path phase's own are
-    freed first). Returns the path's launch counts."""
+def rwkv_phases(check: bool = True):
+    """The RWKV path, then its teacher-forced check (``check``) and its
+    profile over one seeded set of fp32 parameters (32.2 GB; the path
+    phase's own are freed first). Returns the path's launch counts."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -1905,7 +2090,8 @@ def rwkv_phases():
     cfg = get_config(RWKV_ARCH)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    rwkv_teacher_forced_phase(params, cfg)
+    if check:
+        rwkv_teacher_forced_phase(params, cfg)
     rwkv_profile_phase(params, cfg)
     del params
     _release()
@@ -2097,10 +2283,10 @@ def mamba_profile_phase(params, cfg):
                  also=("mamba", "route", "decode", "flash", "rmsnorm"))
 
 
-def mamba_phases():
-    """The Mamba path, then its teacher-forced check and its profile over
-    one seeded set of fp32 parameters (53.2 GB; the path phase's own are
-    freed first). Returns the path's launch counts."""
+def mamba_phases(check: bool = True):
+    """The Mamba path, then its teacher-forced check (``check``) and its
+    profile over one seeded set of fp32 parameters (53.2 GB; the path
+    phase's own are freed first). Returns the path's launch counts."""
     import torch
     from repro_torch.models import init_params
 
@@ -2110,7 +2296,8 @@ def mamba_phases():
     cfg = mamba_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    mamba_teacher_forced_phase(params, cfg)
+    if check:
+        mamba_teacher_forced_phase(params, cfg)
     mamba_profile_phase(params, cfg)
     del params
     _release()
@@ -2126,13 +2313,17 @@ def launch_log():
     memory of each and how many of its blocks fit on one SM. Then the
     geometry that ``rmsnorm`` and ``moe_route`` choose at the paths' and
     the sweep's shapes, with the router's shared memory and the blocks of
-    each that fit on one SM."""
+    each that fit on one SM; and the geometry that ``rwkv_scan`` and
+    ``mamba_scan`` choose at the paths', the sweeps' and the large shapes,
+    with their shared memory and blocks per SM."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_ssm as kmamba
     from repro_torch.kernels import moe_route as kroute
     from repro_torch.kernels import paged_decode as kpd
     from repro_torch.kernels import paged_prefill as kpp
     from repro_torch.kernels import rmsnorm as krms
+    from repro_torch.kernels import rwkv6 as krwkv
     from repro_torch.kernels import slot_decode as ksd
     for dtype in (torch.float32, torch.bfloat16):
         for dh in (64, 128, 256):
@@ -2182,6 +2373,28 @@ def launch_log():
                 f"experts, {g.splits} splits of {g.rows} rows: "
                 f"{info['smem_bytes']} bytes of shared memory, "
                 f"{info['blocks_per_sm']} blocks/SM")
+        for B, S, nh, hd in ((1, PROMPT, 64, 64), (4, 1024, 64, 64),
+                             (2, 31, 3, 32), (1, 5, 2, 100), (2, 9, 3, 33),
+                             (1, 9, 2, 128), (1, 9, 2, 192), (2, 5, 2, 256),
+                             (1, 3, 1, 512)):
+            info = krwkv.launch_info(dtype, B, S, nh, hd)
+            g = info["geometry"]
+            log(f"  rwkv_scan launch: {dtype} (B,S,nh,hd)=({B},{S},{nh},"
+                f"{hd}): {g.ti} key rows x {g.tj} columns a lane, "
+                f"{g.slices} blocks a head, grid {B * nh * g.slices}, runs "
+                f"of {g.tc} tokens: {info['smem_bytes']} bytes of shared "
+                f"memory, {info['blocks_per_sm']} blocks/SM")
+        for B, S, di, ds in ((1, PROMPT, 8192, 16), (4, 1024, 8192, 16),
+                             (2, 17, 70, 5), (1, 9, 40, 32), (2, 9, 72, 64),
+                             (1, 9, 48, 128), (2, 5, 20, 256)):
+            info = kmamba.launch_info(dtype, S, ds)
+            g = info["geometry"]
+            log(f"  mamba_scan launch: {dtype} (B,S,di,ds)=({B},{S},{di},"
+                f"{ds}): {g.ns} states a lane, {g.lanes} lanes a channel, "
+                f"{g.channels} channels a block, grid "
+                f"{-(-di // g.channels)}x{B}, runs "
+                f"of {g.tc} tokens: {info['smem_bytes']} bytes of shared "
+                f"memory, {info['blocks_per_sm']} blocks/SM")
 
 
 def main() -> int:
@@ -2214,13 +2427,29 @@ def main() -> int:
         log(f"phase {fn.__name__} done at {time.time() - t0:.1f} s")
         return out
 
-    if sys.argv[1:] == ["compare"]:
-        # the rmsnorm and router cases and the MoE path with its profile,
-        # with no launch log: the mode also runs over an older tree's src/
-        # with this script copied in, to compare two trees in one call
-        phase(kernel_phase, gen, "", ("rmsnorm",))
-        phase(route_phase, gen, ("main", "jamba", "large", "ties"))
-        phase(moe_phases, False)
+    if sys.argv[1:2] == ["compare"]:
+        # each kernel named (all when none is) through its cases and its
+        # path with the profile, without the teacher-forced checks or the
+        # launch log: the mode also runs over an older tree's src/ with
+        # this script copied in, to compare two trees in one call, and
+        # skips the cases that tree refuses
+        groups = {
+            "rmsnorm": ((kernel_phase, gen, "", ("rmsnorm",)),),
+            "moe_route": ((route_phase, gen,
+                           ("main", "jamba", "large", "ties")),
+                          (moe_phases, False)),
+            "rwkv_scan": ((rwkv_scan_phase, gen, True),
+                          (rwkv_phases, False)),
+            "mamba_scan": ((mamba_scan_phase, gen, True),
+                           (mamba_phases, False))}
+        names = sys.argv[2:] or list(groups)
+        if not set(names) <= set(groups):
+            print(f"chip_smoke compare: kernels {sorted(groups)}, got "
+                  f"{names}", file=sys.stderr)
+            return 2
+        for name in names:
+            for fn, *args in groups[name]:
+                phase(fn, *args)
         return 0
     launch_log()
     if sys.argv[1:2] == ["route"]:
@@ -2239,6 +2468,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["moe"]:
         phase(moe_phases, False)
+        return 0
+    if sys.argv[1:] == ["scan-tiles"]:
+        phase(scan_tiles_phase, gen)
         return 0
     if sys.argv[1:] == ["rwkv"]:
         phase(rwkv_scan_phase, gen)
@@ -2348,17 +2580,20 @@ def main() -> int:
         if jamba:     # at the Mamba path's shapes, in its dtype (fp32)
             out[-1]["jamba"] = [{k: v for k, v in r.items() if k != "dtype"}
                                 for r in jamba]
+        if name in ("rwkv_scan", "mamba_scan"):
+            out[-1].update({k: main_row[k] for k in (
+                "device_mean_ms", "cold_device_ms", "cold_device_mean_ms")})
+            out[-1]["bfloat16"] = [{k: v for k, v in r.items()
+                                    if k != "dtype"}
+                                   for r in records[name]
+                                   if r["dtype"] == "torch.bfloat16"
+                                   and "ms" in r]
         if name == "rwkv_scan":
             out[-1]["library_calls"] = ("none: no PyTorch call computes the "
                                         "RWKV-6 recurrence")
         if name == "mamba_scan":
             out[-1]["library_calls"] = ("none: no PyTorch call computes the "
                                         "selective scan")
-            out[-1]["bfloat16"] = [{k: v for k, v in r.items()
-                                    if k != "dtype"}
-                                   for r in records[name]
-                                   if r["dtype"] == "torch.bfloat16"
-                                   and "ms" in r]
         if name == "moe_route":
             out[-1]["library_calls"] = ("torch.topk(torch.softmax(x.float() "
                                         "@ router.float(), -1), k): 3 calls")

@@ -29,6 +29,44 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
+// Four consecutive elements of T in shared memory (16-byte aligned for
+// float, 8 for bfloat16), widened to fp32 in one load.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// Two consecutive elements (8-byte aligned for float, 4 for bfloat16).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const unsigned raw = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(raw << 16), __uint_as_float(raw & 0xffff0000u));
+}
+
+// N consecutive elements (N 1, 2 or a multiple of 4; aligned to N
+// elements up to 16 bytes) widened into out[0 .. N).
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, float (&out)[N]) {
+  if constexpr (N == 1) {
+    out[0] = to_f(*p);
+  } else if constexpr (N == 2) {
+    const float2 f = load2(p);
+    out[0] = f.x, out[1] = f.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 f = load4(p + q);
+      out[q] = f.x, out[q + 1] = f.y, out[q + 2] = f.z, out[q + 3] = f.w;
+    }
+  }
+}
+
 // 2^x on the special-function unit (ftz: 0 below 2^-126).
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -44,6 +82,38 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Sum each of V values over the N lanes of a group (N a power of two up to
+// 32; the groups aligned runs of adjacent lanes), scattering while a lane
+// holds more than one: at offset O = 1, 2, 4, ... a lane keeps half of its
+// values (the upper half when bit O of `lane`, its place in the group, is
+// set) and adds its partner's copy of that half; once one value is left,
+// it adds its partner's. Each value's sum is the balanced xor tree over
+// the N lanes (offsets 1, 2, 4, ...), whichever lane ends with it: 16
+// values over 16 lanes take 15 shuffles where an all-reduce takes 64, in
+// chains 4 long, with no branch. Call with first = 0. On return the lane
+// holds the sums of values first .. first + max(1, V / N) - 1 in v[0 ..];
+// lanes with lane >= V hold copies of other lanes'.
+template <int N, int V, int C = V, int O = 1>
+__device__ __forceinline__ void scatter_sum(float (&v)[V], int lane, int& first) {
+  if constexpr (O < N) {
+    if constexpr (C > 1) {
+      constexpr int H = C / 2;
+      const bool hi = lane & O;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = hi ? v[i] : v[i + H];
+        const float keep = hi ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      first += hi ? H : 0;
+      scatter_sum<N, V, H, O * 2>(v, lane, first);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      scatter_sum<N, V, 1, O * 2>(v, lane, first);
+    }
+  }
 }
 
 // Row stride of a (rows, dh) float tile in shared memory: odd, so the 32

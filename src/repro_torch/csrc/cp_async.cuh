@@ -1,6 +1,7 @@
 // Asynchronous global -> shared copies (cp.async), shared by the kernels
 // that stage key/value rows into a ring of shared-memory tiles
-// (paged_prefill.cu, flash_attention.cu, decode_attention.cu).
+// (paged_prefill.cu, flash_attention.cu, decode_attention.cu) and by the
+// scans, which stage runs of tokens (rwkv_scan.cu, mamba_scan.cu).
 #pragma once
 
 #include <cstdint>
@@ -40,6 +41,36 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage `rows` rows of `len` elements of T into shared memory at `dst`
+// (row stride `ld` elements): row t is read from src + t * stride, and its
+// elements from `valid` on are zero-filled. All `nthreads` threads of the
+// block take part, `vbytes` bytes a copy: cp.async of 16, 8 or 4 bytes
+// (src, `stride` and `valid` aligned to it, `len` and `ld` whole copies),
+// or with vbytes 0 element by element through registers, for rows no
+// copy width divides. `len` is a power of two. The caller commits and
+// waits.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, long long stride,
+                                           int rows, int len, int valid, int vbytes, int tid,
+                                           int nthreads) {
+  const int ve = vbytes == 0 ? 1 : vbytes / static_cast<int>(sizeof(T));
+  const int per = len / ve, sh = __ffs(per) - 1;  // copies a row, a power of two
+  for (int e = tid; e < rows * per; e += nthreads) {
+    const int t = e >> sh, c = (e & (per - 1)) * ve;
+    const bool ok = c < valid;
+    const T* s = ok ? src + t * stride + c : src;
+    T* d = dst + t * ld + c;
+    if (vbytes == 16)
+      cp_async<16>(d, s, ok);
+    else if (vbytes == 8)
+      cp_async<8>(d, s, ok);
+    else if (vbytes == 4)
+      cp_async<4>(d, s, ok);
+    else
+      *d = ok ? *s : from_f<T>(0.f);
+  }
 }
 
 // The widest copy (16, 8 or 4 bytes) that `addr_bits` (the OR of every

@@ -143,8 +143,12 @@ def library() -> ctypes.CDLL:
         lib.rt_moe_route.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
                                      I, I, I, I, P]
         lib.rt_moe_route_info.argtypes = [I, I, I, I, I, I, I, P, P]
-        lib.rt_rwkv_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
-        lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+        lib.rt_rwkv_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                     I, I, I, I, P]
+        lib.rt_rwkv_scan_info.argtypes = [I, I, I, P, P]
+        lib.rt_mamba_scan.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                      I, I, I, P]
+        lib.rt_mamba_scan_info.argtypes = [I, I, I, P, P]
         for fn in (lib.rt_rmsnorm, lib.rt_rmsnorm_info,
                    lib.rt_flash_attention,
                    lib.rt_flash_info, lib.rt_slot_decode_attention,
@@ -153,7 +157,8 @@ def library() -> ctypes.CDLL:
                    lib.rt_paged_prefill_attention_quant,
                    lib.rt_paged_prefill_info,
                    lib.rt_moe_route, lib.rt_moe_route_info,
-                   lib.rt_rwkv_scan, lib.rt_mamba_scan):
+                   lib.rt_rwkv_scan, lib.rt_rwkv_scan_info,
+                   lib.rt_mamba_scan, lib.rt_mamba_scan_info):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -179,6 +184,15 @@ def sm_count(t: torch.Tensor) -> int:
     """The SMs of the CUDA device ``t`` lies on (for launch geometry)."""
     return _sm_count(t.device.index if t.device.index is not None
                      else torch.cuda.current_device())
+
+
+def copy_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
+    """The widest copy (16, 8 or 4 bytes) that divides ``row_bytes`` and
+    every tensor's address, or 0 for element copies (``rt::vec_width``)."""
+    bits = row_bytes
+    for t in tensors:
+        bits |= t.data_ptr()
+    return next((v for v in (16, 8, 4) if bits % v == 0), 0)
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -104,8 +104,9 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
 
 def rwkv_scan(r, k, v, w, u):
     """The RWKV-6 time-mix recurrence (JAX ``ops.py:108``): r, k, v, w
-    (B,S,nh,hd) and u (nh,hd) in float32 (the layer casts them, as
-    ``layers.py:1098`` does) -> (y (B,S,nh,hd) f32, the final state
+    (B,S,nh,hd) in float32 or bfloat16 and u (nh,hd) in either (the
+    layer casts them to float32, as ``layers.py:1098`` does; the kernel
+    widens them exactly) -> (y (B,S,nh,hd) f32, the final state
     (B,nh,hd,hd) f32). JAX's returns y alone; the final state is what the
     serving prefill keeps. JAX's ``chunk`` was a TPU tile and does not
     change the result; it is not an argument here."""

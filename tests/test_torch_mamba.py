@@ -616,7 +616,7 @@ def test_cuda_mamba_scan_matches_plain(cuda, dtype):
     for B, S, di, ds in [(1, 32, 8192, 16), (2, 100, 96, 8), (1, 64, 64, 4),
                          (2, 33, 128, 16), (2, 1, 96, 8), (1, 40, 100, 16),
                          (4, 20, 64, 16), (2, 17, 70, 5), (1, 9, 40, 32),
-                         (1, 0, 64, 16)]:
+                         (2, 9, 72, 64), (1, 9, 48, 128), (1, 0, 64, 16)]:
         x, d, A, Bv, Cv = (torch.from_numpy(a).to(cuda) for a in
                            _scan_inputs(B, S, di, ds, seed=S + ds))
         x, d, Bv, Cv = (t.to(dtype) for t in (x, d, Bv, Cv))
@@ -637,10 +637,10 @@ def test_cuda_mamba_scan_matches_plain(cuda, dtype):
     with pytest.raises(ValueError, match="contiguous"):
         tops.mamba_scan(x.transpose(1, 2).contiguous().transpose(1, 2), d, A,
                         Bv, Cv)
-    big = torch.zeros(8, 33, device=cuda)
+    big = torch.zeros(8, 513, device=cuda)
     with pytest.raises(ValueError, match="state sizes"):
-        tops.mamba_scan(x, d, big, torch.zeros(1, 4, 33, device=cuda),
-                        torch.zeros(1, 4, 33, device=cuda))
+        tops.mamba_scan(x, d, big, torch.zeros(1, 4, 513, device=cuda),
+                        torch.zeros(1, 4, 513, device=cuda))
 
 
 @pytest.mark.cuda

@@ -452,11 +452,17 @@ def cuda():
 def test_cuda_rwkv_scan_matches_plain(cuda):
     from repro_torch import resolve_device
     resolve_device("cuda")                          # TF32 off
-    for B, S, nh, hd in [(1, 32, 64, 64), (2, 70, 3, 16), (1, 64, 2, 32),
-                         (2, 31, 1, 64), (2, 1, 3, 16), (1, 5, 2, 100),
-                         (1, 9, 2, 128)]:
+    cases = [(1, 32, 64, 64), (2, 70, 3, 16), (1, 64, 2, 32), (2, 31, 1, 64),
+             (2, 1, 3, 16), (1, 5, 2, 100), (1, 9, 2, 128), (1, 6, 2, 192),
+             (2, 4, 2, 256)]
+    for (B, S, nh, hd), dtype in [(c, torch.float32) for c in cases] + [
+            ((1, 32, 64, 64), torch.bfloat16), ((1, 6, 2, 192), torch.bfloat16),
+            ((2, 4, 2, 256), torch.bfloat16)]:
         ins = [torch.from_numpy(a).to(cuda)
                for a in _scan_inputs(B, S, nh, hd, seed=S)]
+        # bfloat16 r, k, v, w (u stays float32): widened in the kernel, as
+        # the plain version widens them, so the float32 gates hold
+        ins = [t.to(dtype) for t in ins[:4]] + ins[4:]
         tops.reset_launch_counts()
         y, state = tops.rwkv_scan(*ins)
         assert tops.launch_counts()["rwkv_scan"] == 1
@@ -465,12 +471,12 @@ def test_cuda_rwkv_scan_matches_plain(cuda):
         torch.testing.assert_close(state, want_s, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(tops.rwkv_scan(*ins)[0], y, atol=0,
                                    rtol=0)
-    r, k, v, w, u = ins
-    with pytest.raises(TypeError, match="float32"):
+    r, k, v, w, u = (t.float() for t in ins)
+    with pytest.raises(TypeError, match="one dtype"):
         tops.rwkv_scan(r.bfloat16(), k, v, w, u)
     with pytest.raises(ValueError, match="contiguous"):
         tops.rwkv_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                        w, u)
-    big = torch.zeros(1, 2, 1, 129, device=cuda)
+    big = torch.zeros(1, 2, 1, 513, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
-        tops.rwkv_scan(big, big, big, big, torch.zeros(1, 129, device=cuda))
+        tops.rwkv_scan(big, big, big, big, torch.zeros(1, 513, device=cuda))

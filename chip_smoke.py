@@ -25,6 +25,10 @@
                                   # the teacher-forced check
     python3 chip_smoke.py attention  # the build, every attention kernel's
                                   # cases, the teacher-forced check
+    python3 chip_smoke.py modes   # the build, the verify-shape paged
+                                  # prefill cases, threefry, paths E, T,
+                                  # S1-S3, the verify pass teacher-forced,
+                                  # the new paths' profiles
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -178,6 +182,22 @@ non-zero before the result line):
    and paged chunked, the MoE model's slotted run in bf16, the RWKV
    model's and the Mamba model's in fp32: wall time, device busy time, the
    device's idle share, the top kernels.
+7. the serve step's other modes, tinyllama-1.1b at full width in fp32,
+   between the tinyllama profile and the router phase: ``prng_phase``
+   (threefry keys, ``fold_in``, ``split`` and random bits on CUDA equal to
+   the CPU's bit for bit, 64 seeds, rids 0..7, (32000,) and (4, 32000));
+   ``modes_phase``: path E (slotted ``--chunked --budget 48
+   --chunk-width 24``: rmsnorm and slot decode launch, flash never), path
+   T (slotted, temperature 0.8, top-k 40, 4 slots and 1: every request's
+   last key equals the CPU key chain) and paths S1-S3 (n-gram speculation
+   of width 4 over programs of 4: slotted, paged, paged int8; drafts
+   accepted, S2 through ``paged_prefill``, S3 through the fused-dequant
+   kernels only), every request finished; ``verify_teacher_forced_phase``
+   (the paged verify pass's (B, W, V) logits, kernels vs plain versions,
+   within 2e-3 over fp32 and int8 pools); ``modes_profile_phase`` (wall,
+   busy, idle share of E, T against greedy, S1-S3). The kernel phase also
+   checks and times paged prefill at the verify shape (labels ``verify``;
+   device time by ``kernel_device_ms``).
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -219,6 +239,14 @@ MAX_LEN = PROMPT + GEN + 8
 # shared prefix (path A), budget 48 and chunks of 24 (path B)
 BS, SHARED, BUDGET, CHUNK_W = 16, 16, 48, 24
 NB = -(-MAX_LEN // BS)
+# the serve step's other modes (paths E, T, S1-S3): sampling at
+# temperature 0.8 and top-k 40 from seed 7 (path T); n-gram speculation of
+# width 4 over programs of 4 decode steps, on prompts tiling an 8-token
+# core (paths S1-S3); the verify pass's kernel case (row 5v)
+TEMP, TOP_K, SAMPLE_SEED = 0.8, 40, 7
+SPEC_W, SPEC_K, SPEC_CORE = 4, 4, 8
+VERIFY_STARTS = (33, 47, 60, 18)
+VERIFY_LABEL = "verify: paged prefill q (4,4,32,64) starts (33,47,60,18)"
 
 
 def log(*a):
@@ -294,9 +322,13 @@ def device_ms(fn, iters: int = 50, between=None, only: str = ""):
     return total / iters / 1e3 if total > 0 else None
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 50, between=None):
+def kernel_device_ms(fn, kernel: str, iters: int = 50, between=None,
+                     symbol: str = ""):
     """The device time per call of the hand-written kernel ``kernel``
-    (its CUDA records are those whose name holds it), read two ways from
+    (its CUDA records are those whose name holds ``symbol``, by default
+    ``kernel``: the fused-dequant paged prefill counts as
+    ``paged_prefill_quant`` and runs ``paged_prefill_kernel``), read two
+    ways from
     one profiled loop: as ``device_ms`` (the records summed over the calls
     made), and as the records' mean times the launches a call its wrapper
     counted (``_build.launches``), which a record the profiler drops does
@@ -305,7 +337,7 @@ def kernel_device_ms(fn, kernel: str, iters: int = 50, between=None):
     records outnumber the launches."""
     events, made = _profiled(fn, iters, between)
     per_call, rest = divmod(made.get(kernel, 0), iters)
-    records = [e for e in events if kernel in e.key]
+    records = [e for e in events if (symbol or kernel) in e.key]
     kept = sum(e.count for e in records)
     if per_call < 1 or rest or kept > per_call * iters:
         raise AssertionError(f"{kernel}: {made.get(kernel, 0)} counted "
@@ -687,6 +719,13 @@ def make_cases(gen, dtype):
         paged_prefill_quant_case("main: paged prefill q (4,24,32,64) starts "
                                  "(0,8,24,40)", kvd, SLOTS, CHUNK_W, NB, BS,
                                  32, 4, 64, (0, 8, 24, 40))
+    # the paged verify pass (paths S2 and S3), after every main case (the
+    # first case of a kernel is its record): W = 4 (a committed token and
+    # up to 3 drafts) a row at decode positions, over path B's pools
+    paged_prefill_case(VERIFY_LABEL, SLOTS, SPEC_W, NB, BS, 32, 4, 64,
+                       VERIFY_STARTS)
+    paged_prefill_quant_case(VERIFY_LABEL, "int8", SLOTS, SPEC_W, NB, BS, 32,
+                             4, 64, VERIFY_STARTS)
     # the MoE path's shapes: moonshot-v1-16b-a3b, D 2048, HQ = HKV = 16,
     # dh 128 (G = 1), the same slots, prompt and cache length; the norm
     # scales in bf16, as all of its parameters
@@ -893,7 +932,8 @@ def kernel_phase(gen, only: str = "", names=None):
             torch.cuda.synchronize()
             err = check_close(f"{name} [{label}] {dtype}", got, want, dtype)
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
-            if label.startswith(("main", "large", "moe", "jamba", "wide")):
+            if label.startswith(("main", "large", "moe", "jamba", "wide",
+                                 "verify")):
                 b_ms, b_by = bound(nb, ops, dtype)
                 row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(lib), bound_ms=b_ms,
@@ -902,6 +942,10 @@ def kernel_phase(gen, only: str = "", names=None):
                            library_device_ms=device_ms(lib))
                 if name == "rmsnorm" and "decode" in label:
                     row.update(cold_device_ms=cold_device_ms(call, name))
+                if label.startswith("verify"):
+                    row["device_ms"], row["device_mean_ms"] = (
+                        kernel_device_ms(call, name,
+                                         symbol="paged_prefill_kernel"))
                 if gather:
                     row.update(library_gather_ms=cuda_ms(gather[0]),
                                library_gather_device_ms=device_ms(gather[0]))
@@ -1662,6 +1706,395 @@ def profile_phase():
         out[label] = _profile_run(label, eng, reqs,
                                   also=("paged_prefill_kernel",
                                         "decode_split"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serve step's other modes at full width (tinyllama-1.1b, fp32):
+# threefry sampling, slotted chunked prefill, n-gram speculation
+# ---------------------------------------------------------------------------
+
+def prng_phase():
+    """Threefry on the card against the same computation on the CPU, bit
+    for bit: the keys of seeds 0..63, ``fold_in`` of rids 0..7 under each,
+    ``split`` of those 512 keys, and 32-bit random bits under them at
+    (32000,) and under each seed's key at (4, 32000). The Gumbel noise of
+    seeds 0..7 (two ``log``s, which may round differently on the two
+    devices) is printed, not gated."""
+    import torch
+    from repro_torch.core import prng
+
+    def draws(dev):
+        seeds = torch.stack([prng.PRNGKey(s, dev) for s in range(64)])
+        keys = torch.stack([prng.fold_in(seeds, rid) for rid in range(8)],
+                           dim=1)                                # (64, 8, 2)
+        return ((seeds, keys, prng.split(keys),
+                 prng.random_bits(keys, (32000,)),
+                 prng.random_bits(seeds, (4, 32000))),
+                prng.gumbel(keys[:8], (32000,)))
+
+    (exact, noise), (exact_c, noise_c) = draws("cuda"), draws("cpu")
+    for what, a, b in zip(("PRNGKey", "fold_in", "split",
+                           "random_bits (64, 8, 32000)",
+                           "random_bits (64, 4, 32000)"), exact, exact_c):
+        if not torch.equal(a.cpu(), b):
+            bad = (a.cpu() != b).nonzero()[0].tolist()
+            raise AssertionError(f"prng: {what} differs between CUDA and "
+                                 f"the CPU first at {bad}")
+    worst = (noise.cpu() - noise_c).abs().max().item()
+    log(f"prng: seeds 0..63 x rids 0..7, keys, fold_in, split and random "
+        f"bits at (32000,) and (4, 32000) bit-exact on CUDA vs the CPU; "
+        f"Gumbel noise (8 seeds, 8, 32000) max |CUDA - CPU| {worst:.3e} "
+        "(not gated)")
+    return worst
+
+
+def _serve(cfg, params, lk, opts, reqs, *, load="open", n_slots=SLOTS,
+           **kw):
+    """One engine run as ``run_engine`` makes it (a warm request through
+    the same programs first, counters reset), launch counts zeroed just
+    before the timed run and read just after; every request must finish
+    with its budget. Returns (report, streams, launch counts, each
+    request's key when it finished)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, serve_report
+    from repro_torch.serve import synthetic_requests
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=n_slots,
+                      max_len=MAX_LEN, **kw)
+    eng.run(synthetic_requests(1, PROMPT, eng.tokens_per_program + 1,
+                               cfg.vocab_size, seed=1), load="closed")
+    eng.reset_counters()
+    keys, finalize = {}, eng._finalize
+
+    def keep_key(slot, now_fn):
+        keys[eng.sched.active[slot].req.rid] = eng.kv.keys[slot].clone()
+        return finalize(slot, now_fn)
+    eng._finalize = keep_key
+    ops.reset_launch_counts()
+    comps, wall = eng.run(reqs, load=load)
+    counts = ops.launch_counts()
+    rep = serve_report(comps, wall, eng.utilization())
+    want = sum(r.max_new_tokens for r in reqs)
+    if rep["requests"] != len(reqs) or rep["total_tokens"] != want:
+        raise AssertionError(f"{rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{len(reqs)} x {want // len(reqs)}")
+    return rep, {c.rid: c.tokens.tolist() for c in comps}, counts, keys
+
+
+def _agreement(got, want) -> str:
+    agree = sum(int(a == b) for rid in want
+                for a, b in zip(got[rid], want[rid]))
+    return f"{agree}/{sum(len(w) for w in want.values())} tokens"
+
+
+def spec_requests(vocab_size, n=REQUESTS):
+    """Prompts tiling a random 8-token core 4 times (the JAX tests'
+    ``_spec_reqs``), so prompt lookup drafts hit, arriving as the open-load
+    requests do (Poisson, 25 requests/s, seed 0)."""
+    import numpy as np
+    from repro_torch.serve import Request, synthetic_requests
+    rng = np.random.default_rng(5)
+    arrivals = synthetic_requests(n, PROMPT, GEN, vocab_size, seed=0,
+                                  rate=25.0)
+    return [Request(rid=r.rid, prompt=np.tile(rng.integers(
+        0, vocab_size, SPEC_CORE, dtype=np.int32), PROMPT // SPEC_CORE),
+        max_new_tokens=GEN, arrival_s=r.arrival_s) for r in arrivals]
+
+
+def modes_phase():
+    """Paths E, T and S1-S3 at full width, fp32, ``nss_shortcut``, 8
+    requests of prompt 32 and gen 32, 4 slots, open load:
+
+    E   slotted chunked prefill (budget 48, chunks of 24): rmsnorm and
+        slot decode launch, flash attention never; stream agreement with
+        the two-phase slotted run printed.
+    T   slotted two-phase sampling (temperature 0.8, top-k 40, seed 7),
+        with 4 slots and with 1: each request's last key equals the CPU
+        chain split^n(request_key(rid))[0], n the draws its slot made (1
+        at admission and K a decode program: the tokens it emitted and
+        the draws past its budget in its last program); the two
+        schedules' stream agreement printed.
+    S1-S3  n-gram speculation of width 4 over programs of 4 decode steps
+        (slotted; paged, blocks of 16; paged over int8 pools): drafts
+        accepted; S2 launches paged prefill (the verify pass), S3 only
+        the fused-dequant paged kernels. Acceptance rate, tokens per
+        verify step, tokens/s and the agreement with the plain path
+        printed.
+
+    Every request must finish with its budget. Returns the launch counts
+    by path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SamplingConfig, preset, prng
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import synthetic_requests
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(REQUESTS, PROMPT, GEN, cfg.vocab_size, seed=0,
+                              rate=25.0)
+    counts = {}
+
+    def report(name, rep, c):
+        counts[name] = c
+        log(f"serve report (path {name}):", json.dumps(rep))
+        log(f"launches (path {name}):", c)
+
+    def launched(name, want=(), never=()):
+        for k in want:
+            if counts[name].get(k, 0) < 1:
+                raise AssertionError(f"path {name}: kernel {k} was never "
+                                     "launched")
+        for k in never:
+            if counts[name].get(k, 0):
+                raise AssertionError(f"path {name} launched {k} "
+                                     f"{counts[name][k]} times")
+
+    two_phase, two_streams, _, _ = _serve(cfg, params, lk, opts, reqs)
+    rep, streams, c, _ = _serve(cfg, params, lk, opts, reqs, chunked=True,
+                                chunk_budget=BUDGET, chunk_width=CHUNK_W)
+    report("E", rep, c)
+    launched("E", ("rmsnorm", "slot_decode"), ("flash_attention",))
+    log(f"path E: tokens/s {rep['tokens_per_s']:.6g} (two-phase slotted "
+        f"{two_phase['tokens_per_s']:.6g}); stream agreement with the "
+        f"two-phase slotted run {_agreement(streams, two_streams)} (not "
+        "gated)")
+
+    sc = SamplingConfig(temperature=TEMP, top_k=TOP_K, seed=SAMPLE_SEED)
+    draws = 1 + GEN * -(-(GEN - 1) // GEN)    # K = GEN microsteps a program
+    chains = {}
+    for r in reqs:
+        key = sc.request_key(r.rid)
+        for _ in range(draws):
+            key = prng.split(key)[0]
+        chains[r.rid] = key
+    sampled = {}
+    for name, n_slots in (("T", SLOTS), ("T1", 1)):
+        rep, sampled[name], c, keys = _serve(cfg, params, lk, opts, reqs,
+                                             n_slots=n_slots, sampling=sc)
+        report(name, rep, c)
+        for rid, key in chains.items():
+            if not torch.equal(keys[rid].cpu(), key):
+                raise AssertionError(f"path {name}: request {rid}'s last key "
+                                     f"{keys[rid].tolist()} is not the CPU "
+                                     f"chain's {key.tolist()}")
+        log(f"path {name} ({n_slots} slots): tokens/s "
+            f"{rep['tokens_per_s']:.6g}; every request's last key equals "
+            f"the CPU chain split^{draws}(request_key(rid))[0]")
+    log(f"path T: 4-slot vs 1-slot sampled stream agreement "
+        f"{_agreement(sampled['T'], sampled['T1'])}; vs greedy "
+        f"{_agreement(sampled['T'], two_streams)} (not gated)")
+
+    lk_s = dataclasses.replace(preset(PRESET), decode_steps=SPEC_K)
+    sreqs = spec_requests(cfg.vocab_size)
+    unquantized = ("paged_decode", "paged_prefill")
+    for name, kw, want, never in (
+            ("S1", {}, ("slot_decode", "rmsnorm"), ()),
+            ("S2", dict(kv="paged", block_size=BS),
+             ("paged_prefill", "paged_decode", "rmsnorm"),
+             ("paged_prefill_quant", "paged_decode_quant")),
+            ("S3", dict(kv="paged", block_size=BS, kv_dtype="int8"),
+             ("paged_prefill_quant", "rmsnorm"), unquantized)):
+        _, plain, _, _ = _serve(cfg, params, lk_s, opts, sreqs, **kw)
+        rep, got, c, _ = _serve(cfg, params, lk_s, opts, sreqs,
+                                spec_decode="ngram", spec_width=SPEC_W, **kw)
+        report(name, rep, c)
+        launched(name, want, never)
+        if rep["spec_steps"] < 1 or rep["spec_accepted_tokens"] < 1:
+            raise AssertionError(f"path {name}: {rep['spec_steps']} verify "
+                                 f"steps, {rep['spec_accepted_tokens']} "
+                                 "accepted drafts")
+        log(f"path {name}: verify steps {rep['spec_steps']}, drafts "
+            f"{rep['spec_draft_tokens']}, accepted "
+            f"{rep['spec_accepted_tokens']}, acceptance rate "
+            f"{rep.get('spec_acceptance_rate')}, tokens per verify step "
+            f"{rep.get('spec_tokens_per_step')}, tokens/s "
+            f"{rep['tokens_per_s']:.6g}; stream agreement with the plain "
+            f"path {_agreement(got, plain)} (not gated)")
+    del params
+    return counts
+
+
+def verify_teacher_forced_phase(tol: float = 2e-3):
+    """The speculative verify pass at full width, kernels against plain
+    versions on the card, fed the plain path's tokens: 4 rows at position
+    32 after a prefill, each feeding its committed token and 3, 2, 1 or 0
+    drafts from the plain path's greedy continuation, over pools filled
+    from the plain prefill through a permuted table: the (B, W, V) logits
+    of ``serve_verify_step_paged`` within ``tol``, over fp32 pools and
+    over int8 pools (there the kernel path replays the plain path's K/V
+    writes, ``paged_writes``: an ulp of difference in K can move a code).
+    ``build_verify_step``'s emitted counts on both paths are printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import build_verify_step, preset
+    from repro_torch.models import (ModelOptions, decode_step, init_params,
+                                    prefill, serve_verify_step_paged)
+    from repro_torch.models.transformer import clone_cache
+    from repro_torch.serve.paging import init_paged_cache, scatter_kv
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT), generator=g,
+                            device="cuda", dtype=torch.int32)
+    logits, c0 = prefill(params, prompts, cfg, plain, MAX_LEN)
+    cont = [torch.argmax(logits, -1).to(torch.int32)]
+    c = clone_cache(c0)
+    for _ in range(SPEC_W - 1):
+        logits, c = decode_step(params, c, cont[-1], cfg, plain)
+        cont.append(torch.argmax(logits, -1).to(torch.int32))
+    toks = torch.stack(cont, dim=1)                          # (B, W)
+    clen = torch.tensor([4, 3, 2, 1], dtype=torch.int32, device="cuda")
+    toks = torch.where(torch.arange(SPEC_W, device="cuda")[None]
+                       < clen[:, None], toks, 0)
+    start = torch.full((SLOTS,), PROMPT, dtype=torch.int32, device="cuda")
+    P = SLOTS * NB + 1
+    tables = torch.randperm(P, generator=torch.Generator().manual_seed(2))[
+        :SLOTS * NB].reshape(SLOTS, NB).to(torch.int32).cuda()
+
+    def pools(kv_dtype):
+        pc = init_paged_cache(cfg, P, BS, SLOTS, torch.float32, "cuda",
+                              kv_dtype=kv_dtype)
+        p = torch.arange(PROMPT, device="cuda")
+        for b in range(SLOTS):
+            scatter_kv(pc, [{"k": x["k"][b:b + 1, :PROMPT],
+                             "v": x["v"][b:b + 1, :PROMPT]} for x in c0],
+                       tables[b, p // BS].long(), p % BS, b, PROMPT)
+        return pc
+
+    keys = torch.zeros((SLOTS, 2), dtype=torch.int64, device="cuda")
+    vmask = clen > 0
+    out = {}
+    for kv_dtype in ("bf16", "int8"):
+        writes = []
+        with paged_writes(writes, replay=False):
+            lp, _ = serve_verify_step_paged(params, pools(kv_dtype), toks,
+                                            tables, start, clen, cfg, plain,
+                                            MAX_LEN)
+        with paged_writes(writes, replay=kv_dtype == "int8"):
+            lk, _ = serve_verify_step_paged(params, pools(kv_dtype), toks,
+                                            tables, start, clen, cfg, kern,
+                                            MAX_LEN)
+        torch.cuda.synchronize()
+        worst = (lp - lk).abs().max().item()
+        pools_name = "fp32" if kv_dtype == "bf16" else kv_dtype
+        log(f"teacher-forced (paged verify pass, {pools_name} pools, q "
+            f"(4,4,32,64), clen 4/3/2/1) max |dlogit|: {worst:.3e} "
+            f"(tolerance {tol}; logit scale {lp.abs().max().item():.3g})")
+        if not math.isfinite(worst) or worst > tol:
+            raise AssertionError(f"teacher-forced verify ({pools_name} "
+                                 f"pools) logits differ by {worst}")
+        emitted = []
+        for opts in (plain, kern):
+            fn = build_verify_step(cfg, opts, preset(PRESET), MAX_LEN,
+                                   kv_kind="paged")
+            _, _, n_emit, _ = fn(params, pools(kv_dtype), toks, clen, start,
+                                 vmask, keys, tables)
+            emitted.append(n_emit.tolist())
+        log(f"build_verify_step ({pools_name} pools) n_emit: plain "
+            f"{emitted[0]}, kernels {emitted[1]} (drafts are the plain "
+            "path's own; not gated)")
+        out[pools_name] = worst
+    del params
+    return out
+
+
+def _kineto_profile_run(label, eng, reqs):
+    """``_profile_run``'s wall, device busy time and idle share, with the
+    busy time summed from the profiler's raw CUDA records (CUDA activity
+    only): building its event tree, which ``key_averages`` needs, takes
+    minutes at these runs' hundreds of thousands of launches. Prints the
+    top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng.run(reqs, load="closed")                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs, load="closed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run(reqs, load="closed")
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = by.get(e.name(), (0.0, 0))
+            by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    busy = sum(us for us, _ in by.values()) / 1e6
+    tokens = sum(r.max_new_tokens for r in reqs)
+    log(f"profile ({label}): wall {wall:.6f} s, device busy {busy:.6f} s, "
+        f"idle share {1 - busy / wall:.4f}, tokens/s {tokens / wall:.6g}, "
+        f"programs {eng.programs_run}, device records "
+        f"{sum(n for _, n in by.values())}")
+    for name, (us, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  device {us / 1e3:10.3f} ms  x{n:6d}  {name[:110]}")
+    return wall, busy
+
+
+def modes_profile_phase():
+    """Where the time goes in the new modes, as ``profile_phase`` reads
+    it (4 requests of prompt 32 and 33 tokens, a warm run first; the busy
+    time from the raw records, ``_kineto_profile_run``): the
+    slotted two-phase run greedy and sampled (temperature 0.8, top-k 40),
+    slotted chunked (path E), and speculation over programs of 4 (paths
+    S1-S3, on the tiled-core prompts)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SamplingConfig, preset
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    lk_s = dataclasses.replace(preset(PRESET), decode_steps=SPEC_K)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7)
+    sreqs = [dataclasses.replace(r, arrival_s=0.0, max_new_tokens=GEN + 1)
+             for r in spec_requests(cfg.vocab_size, SLOTS)]
+    sc = SamplingConfig(temperature=TEMP, top_k=TOP_K, seed=SAMPLE_SEED)
+    spec = dict(spec_decode="ngram", spec_width=SPEC_W)
+    out = {}
+    for label, link, rq, kw in (
+            ("slotted greedy (the sampled run's control)", lk, reqs, {}),
+            (f"slotted sampled (path T): temperature {TEMP}, top-k {TOP_K}",
+             lk, reqs, dict(sampling=sc)),
+            (f"slotted chunked (path E): chunks of <= {CHUNK_W}, budget "
+             f"{BUDGET}", lk, reqs, dict(chunked=True, chunk_budget=BUDGET,
+                                         chunk_width=CHUNK_W)),
+            (f"spec slotted (path S1): width {SPEC_W}, K {SPEC_K}", lk_s,
+             sreqs, spec),
+            (f"spec paged (path S2): width {SPEC_W}, K {SPEC_K}", lk_s,
+             sreqs, dict(spec, kv="paged", block_size=BS)),
+            (f"spec paged int8 (path S3): width {SPEC_W}, K {SPEC_K}",
+             lk_s, sreqs, dict(spec, kv="paged", block_size=BS,
+                               kv_dtype="int8"))):
+        eng = ServeEngine(cfg, params, opts, link, n_slots=SLOTS,
+                          max_len=MAX_LEN, **kw)
+        out[label] = _kineto_profile_run(label, eng, rq)
+        if eng.proposer is not None:
+            u = eng.utilization()
+            log(f"  verify steps {u['spec_steps']} of {eng.programs_run} "
+                f"programs, acceptance rate "
+                f"{u.get('spec_acceptance_rate')}, tokens per verify step "
+                f"{u.get('spec_tokens_per_step')} (the three runs)")
+    del params
     return out
 
 
@@ -2476,6 +2909,13 @@ def main() -> int:
         phase(rwkv_scan_phase, gen)
         phase(rwkv_phases)
         return 0
+    if sys.argv[1:] == ["modes"]:
+        phase(kernel_phase, gen, "verify")
+        phase(prng_phase)
+        phase(modes_phase)
+        phase(verify_teacher_forced_phase)
+        phase(modes_profile_phase)
+        return 0
     if sys.argv[1:] == ["mamba"]:
         phase(kernel_phase, gen, "jamba")
         phase(route_phase, gen, "jamba")
@@ -2487,6 +2927,10 @@ def main() -> int:
     _, _, counts, paged = phase(path_phase)
     phase(teacher_forced_phase)
     phase(profile_phase)
+    phase(prng_phase)
+    mode_counts = phase(modes_phase)
+    phase(verify_teacher_forced_phase)
+    phase(modes_profile_phase)
     route_rows = phase(route_phase, gen)
     rwkv_rows = phase(rwkv_scan_phase, gen)
     mamba_rows = phase(mamba_scan_phase, gen)
@@ -2504,7 +2948,8 @@ def main() -> int:
                **{f"paged {n}": paged[n][1] for n in "ABCD"},
                "moe slotted open": moe_counts,
                "rwkv slotted open": rwkv_counts,
-               "mamba slotted open": mamba_counts}
+               "mamba slotted open": mamba_counts,
+               **{f"modes {n}": c for n, c in mode_counts.items()}}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",
@@ -2562,6 +3007,10 @@ def main() -> int:
         })
         if "library_gather_ms" in main_row:
             out[-1]["library_gather_ms"] = main_row["library_gather_ms"]
+        verify = [r for r in rows if r["label"].startswith("verify")]
+        if verify:    # at the verify pass's shape (paths S2, S3)
+            out[-1]["verify"] = {k: v for k, v in verify[0].items()
+                                 if k != "dtype"}
         if seq:       # slot_decode through the uniform wrapper (--load seq)
             out[-1]["seq"] = {k: v for k, v in seq[0].items()
                               if k != "dtype"}

@@ -6,9 +6,9 @@ from repro_torch.core.linkage import (L0_EAGER, L1_BASE, L2_BYP, L3_NSS,
 from repro_torch.core.step import (SamplingConfig, build_decode_step,
                                    build_paged_decode_step, build_prefill_fn,
                                    build_serve_step, build_slot_decode_step,
-                                   make_decode_fn, make_paged_decode_fn,
-                                   make_sampler, make_slot_decode_fn,
-                                   program_label)
+                                   build_verify_step, make_decode_fn,
+                                   make_paged_decode_fn, make_sampler,
+                                   make_slot_decode_fn, program_label)
 
 __all__ = [
     "AdmissionWorker", "MetricWriter",
@@ -16,6 +16,6 @@ __all__ = [
     "LinkageConfig", "preset",
     "SamplingConfig", "build_decode_step", "build_paged_decode_step",
     "build_prefill_fn", "build_serve_step", "build_slot_decode_step",
-    "make_decode_fn", "make_paged_decode_fn", "make_sampler",
-    "make_slot_decode_fn", "program_label",
+    "build_verify_step", "make_decode_fn", "make_paged_decode_fn",
+    "make_sampler", "make_slot_decode_fn", "program_label",
 ]

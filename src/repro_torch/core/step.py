@@ -1,7 +1,9 @@
 """Serving programs of the port (``src/repro/core/step.py``, serving
 subset): the prefill program, the uniform, slotted and paged decode
-programs, the paged unified serve program of chunked prefill, and the
-greedy sampler, each built at a point of the linkage spectrum.
+programs, the unified serve program of chunked prefill and the
+speculative verify program (slotted and paged), and the sampler with its
+per-slot threefry key chains (``repro_torch.core.prng``), each built at a
+point of the linkage spectrum.
 
 PyTorch runs eagerly, so a "program" here is a Python callable: at L3 it
 runs ``decode_steps`` microsteps back to back without a host sync and
@@ -17,49 +19,78 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import decode_step_paged as model_decode_paged
 from repro_torch.models import decode_step_slots as model_decode_slots
 from repro_torch.models import prefill
+from repro_torch.models import serve_chunk_step as model_chunk
 from repro_torch.models import serve_chunk_step_paged as model_chunk_paged
+from repro_torch.models import serve_verify_step as model_verify
+from repro_torch.models import serve_verify_step_paged as model_verify_paged
 from repro_torch.models.layers import ModelOptions
+from repro_torch.models.transformer import _check_pageable, clone_cache
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
-    """Token-sampling policy. ``temperature == 0`` is greedy argmax (the
-    default, and the mode the token-identity tests pin down). Sampling at
-    ``temperature > 0`` draws from JAX threefry key chains in the reference;
-    its port is ROADMAP module item 3, so it raises here."""
+    """Token-sampling policy (``step.py:178``). ``temperature == 0`` is
+    greedy argmax (the default, and the mode the token-identity tests pin
+    down). Otherwise logits are divided by ``temperature``, optionally
+    truncated to the ``top_k`` highest, and sampled with a per-slot
+    threefry key threaded through the serving programs: each slot's chain
+    is seeded from (seed, request id) at admission, so a request's sampled
+    stream depends only on the request and the seed, never on the slot it
+    landed in or when it was admitted."""
     temperature: float = 0.0
     top_k: int = 0
     seed: int = 0
 
-    def validate(self) -> "SamplingConfig":
-        if self.temperature > 0.0:
-            raise NotImplementedError(
-                "sampling at temperature > 0 needs the threefry key chains "
-                "of the JAX reference (ROADMAP module item 3); the port "
-                "decodes greedily")
-        return self
+    def request_key(self, rid: int, device="cpu") -> torch.Tensor:
+        """``fold_in(PRNGKey(seed), rid)``: the (2,) key a request's chain
+        starts from, made on ``device``."""
+        return prng.fold_in(prng.PRNGKey(self.seed, device), rid)
 
 
 def make_sampler(sampling: Optional[SamplingConfig]) -> Callable:
-    """logits (B,V) -> tokens (B,) int32: greedy argmax (ties go to the
-    first index, as ``jnp.argmax``)."""
-    (sampling or SamplingConfig()).validate()
+    """(logits (B,V), keys (B,2)) -> (tokens (B,) int32, new keys)
+    (``step.py:199-215``). Greedy: argmax (ties to the first index, as
+    ``jnp.argmax``), the keys returned as they came. Sampled: every row's
+    key splits in two; the first half is the row's next key, the second
+    draws the token by the Gumbel-max trick over ``logits / temperature``
+    in float32, masked to the values at or above the ``top_k``-th
+    largest."""
+    if sampling is None or sampling.temperature <= 0.0:
+        def greedy(logits, keys):
+            return torch.argmax(logits, dim=-1).to(torch.int32), keys
+        return greedy
 
-    def greedy(logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    return greedy
+    def sample(logits, keys):
+        splits = prng.split(keys)                          # (B, 2, 2)
+        new_keys, subs = splits[:, 0], splits[:, 1]
+        lg = logits.float() / sampling.temperature
+        if sampling.top_k > 0:
+            kth = torch.topk(lg, sampling.top_k, dim=-1).values[..., -1:]
+            lg = torch.where(lg >= kth, lg, float("-inf"))
+        return prng.categorical(subs, lg).to(torch.int32), new_keys
+    return sample
+
+
+def _gate(mask: torch.Tensor, new, old):
+    """Rows of ``new`` where ``mask`` (B,), else of ``old``: the key
+    chains of the rows a program emitted for (a greedy sampler returns its
+    keys unchanged, and nothing needs choosing)."""
+    if new is old:
+        return old
+    return torch.where(mask[:, None], new, old)
 
 
 def program_label(cfg: ArchConfig, linkage: LinkageConfig,
                   kind: str) -> str:
     """A stable human-readable label for a serving program — ``kind`` is the
     program family the engine dispatched ("decode", "serve_chunk",
-    "prefill_admit").
+    "verify", "prefill_admit").
     Telemetry stamps it on ``engine_step`` trace events."""
     tag = linkage.level
     if linkage.level == L3_NSS:
@@ -72,36 +103,42 @@ def program_label(cfg: ArchConfig, linkage: LinkageConfig,
 
 
 def _serving_decode_fn(one: Callable, linkage: LinkageConfig) -> Callable:
-    """Lift a one-token microstep ``(params, cache, tokens) -> (cache, nxt)``
-    over the linkage spectrum: at L3 ``decode_steps`` tokens per program
-    (one host transition per K tokens), else one. Returns ``(params, cache,
-    tokens (B,)) -> (cache, tokens (B, K))``."""
+    """Lift a one-token microstep ``(params, cache, tokens, keys) -> (cache,
+    nxt, keys)`` over the linkage spectrum: at L3 ``decode_steps`` tokens
+    per program (one host transition per K tokens), else one. Returns
+    ``(params, cache, tokens (B,), keys (B,2)) -> (cache, tokens (B, K),
+    keys)``."""
     if linkage.level == L3_NSS:
-        def many(params, cache, tokens):
+        def many(params, cache, tokens, keys):
             seq = []
             for _ in range(linkage.decode_steps):
-                cache, tokens = one(params, cache, tokens)
+                cache, tokens, keys = one(params, cache, tokens, keys)
                 seq.append(tokens)
-            return cache, torch.stack(seq, dim=1)     # (B, K)
+            return cache, torch.stack(seq, dim=1), keys   # (B, K)
         return many
 
-    def single(params, cache, tokens):
-        cache, nxt = one(params, cache, tokens)
-        return cache, nxt[:, None]
+    def single(params, cache, tokens, keys):
+        cache, nxt, keys = one(params, cache, tokens, keys)
+        return cache, nxt[:, None], keys
     return single
 
 
 def make_decode_fn(cfg: ArchConfig, opts: ModelOptions,
                    linkage: LinkageConfig) -> Callable:
     """Uniform-layout greedy decode (every row at one position):
-    ``decode_steps`` tokens per program at L3, else one."""
+    ``decode_steps`` tokens per program at L3, else one. ``(params, cache,
+    tokens (B,)) -> (cache, tokens (B, K))``, as JAX's."""
     sample = make_sampler(None)
 
-    def one(params, cache, tokens):
+    def one(params, cache, tokens, keys):
         logits, cache = model_decode(params, cache, tokens, cfg, opts,
                                      inplace=linkage.donate)
-        return cache, sample(logits)
-    return _serving_decode_fn(one, linkage)
+        return (cache,) + sample(logits, keys)
+    fn = _serving_decode_fn(one, linkage)
+
+    def decode(params, cache, tokens):
+        return fn(params, cache, tokens, None)[:2]
+    return decode
 
 
 def build_decode_step(cfg: ArchConfig, opts: ModelOptions,
@@ -115,13 +152,14 @@ def make_slot_decode_fn(cfg: ArchConfig, opts: ModelOptions,
                         sampling: Optional[SamplingConfig] = None
                         ) -> Callable:
     """Slot-layout decode for the serving engine: every batch row is an
-    independent in-flight sequence at its own position."""
+    independent in-flight sequence at its own position, with its own
+    sampling-key chain."""
     sample = make_sampler(sampling)
 
-    def one(params, cache, tokens):
+    def one(params, cache, tokens, keys):
         logits, cache = model_decode_slots(params, cache, tokens, cfg, opts,
                                            inplace=linkage.donate)
-        return cache, sample(logits)
+        return (cache,) + sample(logits, keys)
     return _serving_decode_fn(one, linkage)
 
 
@@ -129,7 +167,8 @@ def build_slot_decode_step(cfg: ArchConfig, opts: ModelOptions,
                            linkage: LinkageConfig,
                            sampling: Optional[SamplingConfig] = None
                            ) -> Callable:
-    """(params, slot_cache, tokens (B,)) -> (slot_cache, tokens (B, K))."""
+    """(params, slot_cache, tokens (B,), keys (B,2)) -> (slot_cache,
+    tokens (B, K), keys)."""
     linkage.validate()
     return make_slot_decode_fn(cfg, opts, linkage, sampling)
 
@@ -142,16 +181,17 @@ def make_paged_decode_fn(cfg: ArchConfig, opts: ModelOptions,
     layer, and each slot's view goes through its block table, passed per
     call — the engine allocates and forks blocks between programs, so the
     table is host state, not program state. Returns ``(params, cache,
-    tokens (B,), tables (B, nb)) -> (cache, tokens (B, K))``."""
+    tokens (B,), keys (B,2), tables (B, nb)) -> (cache, tokens (B, K),
+    keys)``."""
     sample = make_sampler(sampling)
 
-    def fn(params, cache, tokens, tables):
-        def one(params, cache, tokens):
+    def fn(params, cache, tokens, keys, tables):
+        def one(params, cache, tokens, keys):
             logits, cache = model_decode_paged(params, cache, tokens, tables,
                                                cfg, opts, max_len,
                                                inplace=linkage.donate)
-            return cache, sample(logits)
-        return _serving_decode_fn(one, linkage)(params, cache, tokens)
+            return (cache,) + sample(logits, keys)
+        return _serving_decode_fn(one, linkage)(params, cache, tokens, keys)
     return fn
 
 
@@ -159,59 +199,157 @@ def build_paged_decode_step(cfg: ArchConfig, opts: ModelOptions,
                             linkage: LinkageConfig, max_len: int,
                             sampling: Optional[SamplingConfig] = None
                             ) -> Callable:
-    """(params, paged_cache, tokens (B,), tables (B, nb)) ->
-    (paged_cache, tokens (B, K))."""
+    """(params, paged_cache, tokens (B,), keys (B,2), tables (B, nb)) ->
+    (paged_cache, tokens (B, K), keys)."""
     linkage.validate()
     return make_paged_decode_fn(cfg, opts, linkage, max_len, sampling)
 
 
+def _kv_kind(kv_kind: str) -> bool:
+    if kv_kind not in ("slotted", "paged"):
+        raise ValueError(f"unknown kv_kind {kv_kind!r}")
+    return kv_kind == "paged"
+
+
 def build_serve_step(cfg: ArchConfig, opts: ModelOptions,
                      linkage: LinkageConfig, max_len: int,
-                     sampling: Optional[SamplingConfig] = None) -> Callable:
-    """The *unified* serve program of chunked prefill over the paged pools
-    (``step.py:555``, its ``kv_kind="paged"`` branch):
+                     sampling: Optional[SamplingConfig] = None, *,
+                     kv_kind: str = "slotted") -> Callable:
+    """The *unified* serve program of chunked prefill (``step.py:555``):
     one program per engine step, [chunk pass] + [K decode microsteps].
 
       1. Chunk pass: each slot absorbs its own variable-length prompt chunk
          (decode and empty slots carry a zero-length chunk); K/V written,
          then attended with per-row positions. Rows whose chunk completes
          their prompt sample their first token from the chunk's last
-         position (the caller reads ``t0`` only where ``emit0``).
+         position (``emit0`` gates their key chains; the caller reads
+         ``t0`` only there).
       2. Decode scan: the linkage level's K microsteps — the two-phase
-         decode body — advance the rows past prefill (``dec_mask``). The
-         other rows ride the scan against ``scan_tables``, where their
+         decode body — advance the rows past prefill (``dec_mask`` gates
+         their key chains). The other rows keep their state: on the paged
+         pools they ride the scan against ``scan_tables``, where their
          whole row is the trash block, so their garbage never lands in a
-         live block; and they keep their position, which the engine's
-         pure-decode path trusts between programs.
+         live block, and they keep their position, which the engine's
+         pure-decode path trusts between programs; on slot rows every
+         leaf of theirs is put back bit-exact after each microstep, since
+         a garbage write would wrap the circular row (``pos % T``) over
+         resident prompt K/V whenever pos + K > T.
 
-    Signature: (params, cache, chunk_tokens (B,W) i32, clen (B,) i32,
-    start (B,) i32, dec_tok (B,) i32, dec_mask (B,) bool, tables (B,nb)
-    i32, scan_tables (B,nb) i32) -> (cache, t0 (B,) i32, seq (B,K) i32).
-    Greedy decoding carries no key chains, so JAX's ``emit0`` and ``keys``
-    operands have nothing to gate. The slotted program is the rest of
-    ROADMAP module item 6.
+    Signature (slotted): (params, cache, chunk_tokens (B,W) i32, clen (B,)
+    i32, start (B,) i32, reset (B,) bool, emit0 (B,) bool, dec_tok (B,)
+    i32, dec_mask (B,) bool, keys (B,2)) -> (cache, t0 (B,) i32, seq
+    (B,K) i32, keys). Paged adds trailing ``tables (B,nb)`` (chunk pass)
+    and ``scan_tables`` (decode scan); ``reset`` is the slotted pass's
+    only (rows admitted this step drop their stale ``slot_pos`` marks).
     """
     linkage.validate()
     sample = make_sampler(sampling)
     K = linkage.decode_steps if linkage.level == L3_NSS else 1
+    paged = _kv_kind(kv_kind)
+    _check_pageable(cfg, "serve_chunk_step_paged" if paged
+                    else "serve_chunk_step")
 
-    def fn(params, cache, chunk_toks, clen, start, dec_tok, dec_mask, tables,
-           scan_tables):
-        logits, cache = model_chunk_paged(
-            params, cache, chunk_toks, tables, start, clen, cfg, opts,
-            max_len, inplace=linkage.donate)
-        t0 = sample(logits)
+    def fn(params, cache, chunk_toks, clen, start, reset, emit0, dec_tok,
+           dec_mask, keys, *tabs):
+        if paged:
+            tables, scan_tables = tabs
+            logits, cache = model_chunk_paged(
+                params, cache, chunk_toks, tables, start, clen, cfg, opts,
+                max_len, inplace=linkage.donate)
+        else:
+            logits, cache = model_chunk(params, cache, chunk_toks, start,
+                                        clen, reset, cfg, opts,
+                                        inplace=linkage.donate)
+        t0, keys_c = sample(logits, keys)
+        keys = _gate(emit0, keys_c, keys)
         toks, seq = dec_tok, []
         for _ in range(K):
-            held = [g["pos"].clone() for g in cache]
-            logits, cache = model_decode_paged(params, cache, toks,
-                                               scan_tables, cfg, opts,
-                                               max_len)
-            for g, pos in zip(cache, held):
-                g["pos"].copy_(torch.where(dec_mask, g["pos"], pos))
-            toks = sample(logits)
+            if paged:
+                held = [g["pos"].clone() for g in cache]
+                logits, cache = model_decode_paged(params, cache, toks,
+                                                   scan_tables, cfg, opts,
+                                                   max_len)
+                for g, pos in zip(cache, held):
+                    g["pos"].copy_(torch.where(dec_mask, g["pos"], pos))
+            else:
+                held = clone_cache(cache)
+                logits, cache = model_decode_slots(params, cache, toks, cfg,
+                                                   opts)
+                for g, old in zip(cache, held):
+                    for name, leaf in g.items():
+                        m = dec_mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+                        leaf.copy_(torch.where(m, leaf, old[name]))
+            toks, ks = sample(logits, keys)
+            keys = _gate(dec_mask, ks, keys)
             seq.append(toks)
-        return cache, t0, torch.stack(seq, dim=1)
+        return cache, t0, torch.stack(seq, dim=1), keys
+    return fn
+
+
+def build_verify_step(cfg: ArchConfig, opts: ModelOptions,
+                      linkage: LinkageConfig, max_len: int,
+                      sampling: Optional[SamplingConfig] = None, *,
+                      kv_kind: str = "slotted") -> Callable:
+    """The speculative *verify* program: one draft-widened decode step
+    (``step.py:667-757``).
+
+    Each decode row feeds ``toks[s] = [next_token, d_1 .. d_m]`` (clen =
+    m + 1) through the chunk pass at its own position and gets logits at
+    every fed position. The accept loop then resolves the longest accepted
+    prefix per row, on the device: position j's logits condition on the
+    fed prefix, so the token ``t_j`` sampled there is exactly what plain
+    decode would produce; a row emits ``t_j`` while it is still accepting,
+    and keeps accepting past j iff ``t_j`` equals the draft it fed at
+    j + 1. ``n_emit`` = 1 + accepted drafts; ``out[s, n_emit - 1]`` is the
+    row's new committed next token. Keys advance once per *emitted* token,
+    so sampled verify is key-chain-exact.
+
+    The cache is repaired in the program: per-row ``pos`` returns to
+    ``start + n_emit`` (both backends), and slotted ``slot_pos`` marks at
+    or beyond it are invalidated (every live entry sits below ``start``,
+    so only this program's rejected writes match). Paged block residency
+    is host state: its truncation is the backend's ``rollback``.
+
+    Signature (slotted): (params, cache, toks (B,W) i32, clen (B,) i32,
+    start (B,) i32, vmask (B,) bool, keys (B,2)) -> (cache, out (B,W) i32,
+    n_emit (B,) i32, keys); paged adds trailing ``tables (B,nb)``. Rows
+    with vmask False carry clen 0, write nothing and emit nothing.
+    """
+    linkage.validate()
+    sample = make_sampler(sampling)
+    paged = _kv_kind(kv_kind)
+    _check_pageable(cfg, "serve_verify_step_paged" if paged
+                    else "serve_verify_step")
+
+    def fn(params, cache, toks, clen, start, vmask, keys, *tabs):
+        if paged:
+            (tables,) = tabs
+            logits, cache = model_verify_paged(
+                params, cache, toks, tables, start, clen, cfg, opts, max_len,
+                inplace=linkage.donate)
+        else:
+            logits, cache = model_verify(params, cache, toks, start, clen,
+                                         cfg, opts, inplace=linkage.donate)
+        fed_next = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])],
+                             dim=1)
+        accepting = torch.ones_like(vmask)
+        n_emit = torch.zeros_like(clen)
+        out = []
+        for j in range(toks.shape[1]):
+            t, ks = sample(logits[:, j], keys)
+            emit = vmask & accepting & (clen > j)
+            keys = _gate(emit, ks, keys)
+            n_emit = n_emit + emit.to(n_emit.dtype)
+            accepting = emit & (clen > j + 1) & (t == fed_next[:, j])
+            out.append(t)
+        new_pos = start + n_emit
+        for g in cache:
+            if not paged:
+                sp = g["slot_pos"]
+                sp.masked_fill_(vmask[:, None] & (sp >= new_pos[:, None]),
+                                -1)
+            g["pos"].copy_(torch.where(vmask, new_pos, g["pos"]))
+        return cache, torch.stack(out, dim=1), n_emit, keys
     return fn
 
 

@@ -8,10 +8,14 @@ Two paths share one model/linkage setup:
                     closed-loop load, reporting tokens/s and p50/p99 latency.
                     ``--kv paged`` swaps the dense slot rows for the paged
                     block-table subsystem (demand allocation, CoW prefix
-                    sharing, recompute preemption); ``--chunked`` adds
-                    chunked prefill on it, and ``--kv-dtype int8|fp8``
-                    stores its blocks quantized (per-block scales, read by
-                    the fused-dequant kernels).
+                    sharing, recompute preemption), and ``--kv-dtype
+                    int8|fp8`` stores its blocks quantized (per-block
+                    scales, read by the fused-dequant kernels).
+                    ``--chunked`` serves chunked prefill on either
+                    backend; ``--spec-decode ngram`` drafts from each
+                    slot's history and verifies the drafts in one program
+                    a step; ``--temperature`` / ``--top-k`` sample with
+                    per-request threefry key chains.
 
       python -m repro_torch.launch.serve --preset nss_shortcut --load open
       python -m repro_torch.launch.serve --preset ret_byp --load closed \\
@@ -22,6 +26,11 @@ Two paths share one model/linkage setup:
           --chunk-width 24
       python -m repro_torch.launch.serve --kv paged --kv-dtype int8 \\
           [--chunked]
+      python -m repro_torch.launch.serve --chunked --budget 48 \\
+          --chunk-width 24                     # slotted chunked prefill
+      python -m repro_torch.launch.serve --kv paged --spec-decode ngram \\
+          --spec-width 4 --decode-steps 4      # n-gram speculation
+      python -m repro_torch.launch.serve --temperature 0.8 --top-k 40
       python -m repro_torch.launch.serve --device cpu     # off the card
       python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
           --dtype bf16                   # the MoE model, bf16 parameters
@@ -45,12 +54,12 @@ fp32; jamba-v0.1-52b's 51.57 B fit one card at no dtype, and
 can serve it cut in depth (one of its four blocks: 13.3 B, 53.2 GB in
 fp32); the CLI has no depth option, as the JAX launcher has none. RWKV and
 Mamba layers carry a recurrent state, so rwkv6-7b and jamba-v0.1-52b run
-on the slotted backend only: ``--kv paged`` and ``--bucket-prompts``
-raise ``ValueError``, as in JAX. Chunked
-prefill on the slotted backend, speculation, swap (quantized blocks
-included), the prefix cache, meshes and sampling at temperature > 0 raise
-``NotImplementedError`` naming their ROADMAP item; ``--kv-dtype int8|fp8``
-without ``--kv paged`` raises ``ValueError``.
+on the slotted backend only: ``--kv paged``, ``--bucket-prompts``,
+``--chunked`` and ``--spec-decode`` raise ``ValueError``, as in JAX.
+Swap (quantized blocks included), the prefix cache and meshes raise
+``NotImplementedError`` naming their ROADMAP item, alone or beside the
+other options; ``--kv-dtype int8|fp8`` without ``--kv paged`` raises
+``ValueError``. ``--load seq`` decodes greedily, as JAX's does.
 """
 from __future__ import annotations
 
@@ -107,11 +116,12 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                smoke: bool = True, seed: int = 0, device="cuda",
                kv: str = "slotted", block_size: int = 16,
                num_blocks: int = 0, bucket_prompts: bool = False,
-               temperature: float = 0.0, eos_id: int = -1,
+               temperature: float = 0.0, top_k: int = 0, eos_id: int = -1,
                shared_prefix_len: int = 0, chunked: bool = False,
                budget: int = 256, chunk_width: int = 0,
                preempt: str = "recompute", victim: str = "youngest",
-               kv_dtype: str = "bf16", trace: str = "", metrics: str = "",
+               kv_dtype: str = "bf16", spec_decode: str = "none",
+               spec_width: int = 0, trace: str = "", metrics: str = "",
                log_interval: float = 0.0, profile_dir: str = "",
                dtype="fp32"):
     """Continuous-batching serving run; returns the engine report dict.
@@ -131,7 +141,8 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
 
     if requests < 1:
         raise ValueError("need --requests >= 1")
-    sampling = SamplingConfig(temperature=temperature, seed=seed).validate()
+    sampling = SamplingConfig(temperature=temperature, top_k=top_k,
+                              seed=seed)
     cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
                                    gen_len=gen_len,
                                    decode_steps=decode_steps, device=device,
@@ -161,7 +172,8 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                       bucket_prompts=bucket_prompts, chunked=chunked,
                       chunk_budget=budget, chunk_width=chunk_width,
                       preempt=PreemptionPolicy(mode=preempt, victim=victim),
-                      kv_dtype=kv_dtype, telemetry=tel)
+                      kv_dtype=kv_dtype, spec_decode=spec_decode,
+                      spec_width=spec_width, telemetry=tel)
 
     # warmup: one request through prefill and one decode program, outside
     # the timed region (first launches load the kernel library and warm
@@ -319,9 +331,9 @@ def main(argv=None) -> int:
                    help="preemption victim: youngest admission, or the "
                         "least-recently-emitting slot")
     p.add_argument("--chunked", action="store_true",
-                   help="paged: chunked prefill — one unified program per "
-                        "engine step (decode tokens first, budget-packed "
-                        "prompt chunks after)")
+                   help="chunked prefill — one unified program per engine "
+                        "step (decode tokens first, budget-packed prompt "
+                        "chunks after), on either KV backend")
     p.add_argument("--budget", type=int, default=256,
                    help="chunked: target tokens per serve step")
     p.add_argument("--chunk-width", type=int, default=0,
@@ -333,8 +345,18 @@ def main(argv=None) -> int:
     p.add_argument("--bucket-prompts", action="store_true",
                    help="pad admitted prompts to power-of-two buckets")
     p.add_argument("--temperature", type=float, default=0.0,
-                   help="sampling temperature (0 = greedy argmax; > 0 is "
-                        "ROADMAP module item 3 and raises)")
+                   help="sampling temperature (0 = greedy argmax)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="top-k truncation when sampling (0 = full vocab)")
+    p.add_argument("--spec-decode", default="none",
+                   choices=["none", "ngram"],
+                   help="speculative decoding: ngram drafts W-1 tokens per "
+                        "decode row by prompt lookup over the slot's own "
+                        "history, verified in one chunk-shaped program "
+                        "(greedy streams stay identical)")
+    p.add_argument("--spec-width", type=int, default=0,
+                   help="verify window W per row: 1 next token + up to W-1 "
+                        "drafts (0 = default 4)")
     p.add_argument("--eos-id", type=int, default=-1,
                    help="stop token id (-1 = length-based completion only)")
     p.add_argument("--rate", type=float, default=25.0,
@@ -368,19 +390,15 @@ def main(argv=None) -> int:
                         "per-block scaled codes")
     # the JAX launcher's options that later slices bring (each raises
     # NotImplementedError unless left at its default)
-    p.add_argument("--spec-decode", default="none", choices=["none", "ngram"])
     p.add_argument("--mesh", default="")
     p.add_argument("--prefix-cache", default="")
     args = p.parse_args(argv)
 
     from repro_torch.serve import check_slice
-    check_slice(kv=args.kv, chunked=args.chunked,
-                spec_decode=args.spec_decode, mesh=args.mesh,
+    check_slice(kv=args.kv, spec_decode=args.spec_decode, mesh=args.mesh,
                 kv_dtype=args.kv_dtype, preempt=args.preempt,
                 prefix_cache=args.prefix_cache)
     if args.load == "seq":
-        from repro_torch.core import SamplingConfig
-        SamplingConfig(temperature=args.temperature).validate()
         rep = run_server(args.arch, args.preset, batch=args.batch,
                          prompt_len=args.prompt_len, gen_len=args.gen_len,
                          requests=args.requests, seed=args.seed,
@@ -396,12 +414,15 @@ def main(argv=None) -> int:
                          block_size=args.block_size,
                          num_blocks=args.num_blocks,
                          bucket_prompts=args.bucket_prompts,
-                         temperature=args.temperature, eos_id=args.eos_id,
+                         temperature=args.temperature, top_k=args.top_k,
+                         eos_id=args.eos_id,
                          shared_prefix_len=args.shared_prefix_len,
                          chunked=args.chunked, budget=args.budget,
                          chunk_width=args.chunk_width,
                          preempt=args.preempt, victim=args.victim,
                          kv_dtype=args.kv_dtype,
+                         spec_decode=args.spec_decode,
+                         spec_width=args.spec_width,
                          trace=args.trace, metrics=args.metrics,
                          log_interval=args.log_interval,
                          profile_dir=args.profile_dir, dtype=args.dtype)

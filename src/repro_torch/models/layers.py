@@ -432,6 +432,54 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
     return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
 
 
+def attention_serve_chunk(params: Params, x: torch.Tensor, cache: Params,
+                          cfg: ArchConfig, opts: ModelOptions,
+                          start: torch.Tensor,
+                          clen: torch.Tensor) -> torch.Tensor:
+    """Variable-length *chunk* attention against the slot cache — the
+    slotted unified serve step's prefill half and the slotted verify pass
+    (``layers.py:543-604``).
+
+      x:     (B, W, D) chunk hidden states, right-padded per row
+      cache: {"k"/"v": (B,T,HKV,dh), "slot_pos": (B,T), "pos": (B,)},
+             updated in place
+      start: (B,) first position each row's chunk occupies
+      clen:  (B,) real tokens in the row's chunk (0 = no chunk)
+
+    The chunk K/V lands at ``(start + j) % T`` for ``j < clen``; padding
+    positions write back the value they read, so a row near max_len never
+    clobbers resident state. Then all W queries attend over the updated
+    row under the per-query causal mask ``0 <= slot_pos <= q_pos``: each
+    real query computes what a full prefill computes for it, and garbage
+    that fused decode microsteps marked valid past ``start + clen`` stays
+    masked until the chunk that covers it overwrites it. The einsum and
+    softmax are the plain slotted decode's, so a width-1 chunk is exactly
+    a decode step. ``pos`` becomes ``start + clen``: positions are the
+    host's in chunked serving. No kernel: the reference's is a dense
+    masked einsum too.
+    """
+    B, W, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)                       # (B, W, H, dh)
+    q_pos = start[:, None] + torch.arange(W, dtype=start.dtype,
+                                          device=x.device)[None]
+    q = rope(q, q_pos, cfg.rope_theta)
+    k = rope(k, q_pos, cfg.rope_theta)
+    ck, cv, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    rows = torch.arange(B, device=x.device)[:, None]
+    idx = (q_pos % ck.shape[1]).long()                   # (B, W) write slots
+    real = torch.arange(W, device=x.device)[None] < clen[:, None]
+    m = real[..., None, None]
+    ck[rows, idx] = torch.where(m, k.to(ck.dtype), ck[rows, idx])
+    cv[rows, idx] = torch.where(m, v.to(cv.dtype), cv[rows, idx])
+    slot_pos[rows, idx] = torch.where(real, q_pos.to(slot_pos.dtype),
+                                      slot_pos[rows, idx])
+    valid = ((slot_pos[:, None, :] >= 0)
+             & (slot_pos[:, None, :] <= q_pos[:, :, None]))   # (B, W, T)
+    out = _attend_ref(q, ck, cv, valid, x.dtype)
+    cache["pos"].copy_(start + clen)
+    return out.reshape(B, W, -1) @ params["wo"].to(x.dtype)
+
+
 def _paged_write(cache: Params, blk: torch.Tensor, off: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor):
     """Write K/V at pool positions (blk, off), in place: a plain store on

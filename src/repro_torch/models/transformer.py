@@ -1,12 +1,13 @@
 """Model assembly of the port: init, embed/unembed, backbone, prefill,
-one-token decode (uniform, slotted and paged), the paged serve chunk pass
-and the shared-prefix suffix prefill, for the ATTN/SWA and Mamba mixers
-with a dense SwiGLU or a top-k MoE in the MLP position, and for the RWKV-6
-time mix with its channel mix (``src/repro/models/transformer.py``). Every
-layer function reaches its MLP through one dispatch (``mlp_block``), so the
-slotted, paged and chunked engines all serve the MoE layer. Mamba and RWKV
-layers carry a recurrent state, not K/V: models with them run on the
-slotted backend only, as in JAX.
+one-token decode (uniform, slotted and paged), the serve chunk and verify
+passes (slotted and paged) and the shared-prefix suffix prefill, for the
+ATTN/SWA and Mamba mixers with a dense SwiGLU or a top-k MoE in the MLP
+position, and for the RWKV-6 time mix with its channel mix
+(``src/repro/models/transformer.py``). Every layer function reaches its
+MLP through one dispatch (``mlp_block``), so the slotted, paged, chunked
+and speculative engines all serve the MoE layer. Mamba and RWKV layers
+carry a recurrent state, not K/V: models with them run on the slotted
+two-phase engine only, as in JAX.
 
 JAX stacks each block-pattern position's parameters and scans over blocks;
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in
@@ -312,14 +313,20 @@ def decode_step_paged(params: Params, cache: Cache, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Serve chunk step: the unified serve program's prefill half
+# Serve chunk and verify steps: the unified serve program's prefill half,
+# and the speculative verify pass (the same pass, logits at every position)
 # ---------------------------------------------------------------------------
 
 def _serve_chunk_block(params: Params, cache: Cache, h: torch.Tensor,
-                       cfg: ArchConfig, layer_fn) -> torch.Tensor:
-    """The layer loop of the serve chunk passes (``transformer.py:397``)."""
+                       cfg: ArchConfig, opts: ModelOptions,
+                       attend) -> torch.Tensor:
+    """The layer loop of the serve chunk and verify passes
+    (``transformer.py:397``): ``attend(p, x, cache_l)`` is the mixer, the
+    slotted or the paged chunk attention; the MLP is ``mlp_block``'s, the
+    MoE layer's included (``_chunk_mlp``, ``transformer.py:423``)."""
     for p, spec, cl in zip(params["layers"], layer_specs(cfg), cache):
-        h = layer_fn(spec, p, h, cl)
+        hh = L.rmsnorm(p["norm1"], h, cfg.norm_eps, opts)
+        h = mlp_block(p, h + attend(p["mixer"], hh, cl), cfg, spec, opts)
     return h
 
 
@@ -334,6 +341,51 @@ def _chunk_logits(params: Params, h: torch.Tensor, clen: torch.Tensor,
     return unembed_logits(params, h_last, cfg)[:, 0]
 
 
+def _verify_logits(params: Params, h: torch.Tensor, cfg: ArchConfig,
+                   opts: ModelOptions) -> torch.Tensor:
+    """Logits at all W fed positions, (B, W, V) (``transformer.py:499``):
+    verify needs the next-token distribution after every drafted prefix."""
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
+    return unembed_logits(params, h, cfg)
+
+
+def _slotted_pass(params, cache, tokens, start, clen, cfg, opts):
+    h = embed(params, tokens, cfg, opts)
+    return _serve_chunk_block(
+        params, cache, h, cfg, opts,
+        lambda p, x, cl: L.attention_serve_chunk(p, x, cl, cfg, opts, start,
+                                                 clen))
+
+
+def _paged_pass(params, cache, tokens, tables, start, clen, cfg, opts,
+                max_len):
+    h = embed(params, tokens, cfg, opts)
+    return _serve_chunk_block(
+        params, cache, h, cfg, opts,
+        lambda p, x, cl: L.attention_serve_chunk_paged(
+            p, x, cl, tables, cfg, opts, start, clen, max_len))
+
+
+def serve_chunk_step(params: Params, cache: Cache, tokens: torch.Tensor,
+                     start: torch.Tensor, clen: torch.Tensor,
+                     reset: torch.Tensor, cfg: ArchConfig,
+                     opts: ModelOptions, inplace: bool = True
+                     ) -> Tuple[torch.Tensor, Cache]:
+    """Chunked-prefill pass over the slot cache (``transformer.py:443``):
+    every row absorbs its own variable-length prompt chunk in one program.
+    tokens: (B, W) right-padded chunk ids; start/clen: (B,) write position
+    and true length; reset: (B,) bool — rows admitted this step drop their
+    stale ``slot_pos`` marks before the write. Returns (logits at ``start +
+    clen - 1`` per row, cache)."""
+    _check_pageable(cfg, "serve_chunk_step")
+    if not inplace:
+        cache = clone_cache(cache)
+    for g in cache:
+        g["slot_pos"].masked_fill_(reset[:, None], -1)
+    h = _slotted_pass(params, cache, tokens, start, clen, cfg, opts)
+    return _chunk_logits(params, h, clen, cfg, opts), cache
+
+
 def serve_chunk_step_paged(params: Params, cache: Cache,
                            tokens: torch.Tensor, tables: torch.Tensor,
                            start: torch.Tensor, clen: torch.Tensor,
@@ -341,24 +393,47 @@ def serve_chunk_step_paged(params: Params, cache: Cache,
                            inplace: bool = True
                            ) -> Tuple[torch.Tensor, Cache]:
     """Chunked-prefill pass over the paged pools (``transformer.py:472``):
-    every row absorbs its own variable-length prompt chunk in one program.
-    tokens: (B, W) right-padded chunk ids; start/clen: (B,) write position
-    and true length. Returns (logits at ``start + clen - 1`` per row,
-    cache). No reset mask: paged validity is positional, and released slots
-    point at the trash block."""
+    ``serve_chunk_step`` through the block tables (B, nb). No reset mask:
+    paged validity is positional, and released slots point at the trash
+    block."""
     _check_pageable(cfg, "serve_chunk_step_paged")
     if not inplace:
         cache = clone_cache(cache)
-    h = embed(params, tokens, cfg, opts)
-
-    def layer_fn(spec, p, x, cl):
-        hh = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
-        mix = L.attention_serve_chunk_paged(p["mixer"], hh, cl, tables, cfg,
-                                            opts, start, clen, max_len)
-        return mlp_block(p, x + mix, cfg, spec, opts)
-
-    h = _serve_chunk_block(params, cache, h, cfg, layer_fn)
+    h = _paged_pass(params, cache, tokens, tables, start, clen, cfg, opts,
+                    max_len)
     return _chunk_logits(params, h, clen, cfg, opts), cache
+
+
+def serve_verify_step(params: Params, cache: Cache, tokens: torch.Tensor,
+                      start: torch.Tensor, clen: torch.Tensor,
+                      cfg: ArchConfig, opts: ModelOptions,
+                      inplace: bool = True) -> Tuple[torch.Tensor, Cache]:
+    """Speculative verify over the slot cache (``transformer.py:507``):
+    the ``serve_chunk_step`` write-then-attend pass, returning logits at
+    every fed position (B, W, V). No reset mask: verify rows are
+    mid-generation, and padding rows keep clen 0, writing nothing."""
+    _check_pageable(cfg, "serve_verify_step")
+    if not inplace:
+        cache = clone_cache(cache)
+    h = _slotted_pass(params, cache, tokens, start, clen, cfg, opts)
+    return _verify_logits(params, h, cfg, opts), cache
+
+
+def serve_verify_step_paged(params: Params, cache: Cache,
+                            tokens: torch.Tensor, tables: torch.Tensor,
+                            start: torch.Tensor, clen: torch.Tensor,
+                            cfg: ArchConfig, opts: ModelOptions,
+                            max_len: int, inplace: bool = True
+                            ) -> Tuple[torch.Tensor, Cache]:
+    """``serve_verify_step`` against the paged pools (``transformer.py:531``):
+    the ``serve_chunk_step_paged`` pass — the paged prefill kernels under
+    the shortcut — with all-position logits (B, W, V)."""
+    _check_pageable(cfg, "serve_verify_step_paged")
+    if not inplace:
+        cache = clone_cache(cache)
+    h = _paged_pass(params, cache, tokens, tables, start, clen, cfg, opts,
+                    max_len)
+    return _verify_logits(params, h, cfg, opts), cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,13 +8,15 @@ from repro_torch.serve.engine import ServeEngine, check_slice, serve_report
 from repro_torch.serve.paging import (BlockPool, BlockTable, PagedKV,
                                       PrefixIndex, init_paged_cache)
 from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
-                                         PreemptionPolicy, Request,
+                                         DraftProposer, PreemptionPolicy,
+                                         Request,
                                          SlotScheduler, SlotState, bucket_len,
                                          pack_chunks, synthetic_requests)
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
 __all__ = [
-    "BlockPool", "BlockTable", "Completion", "KVBackend", "MIN_BUCKET",
+    "BlockPool", "BlockTable", "Completion", "DraftProposer", "KVBackend",
+    "MIN_BUCKET",
     "NULL_TELEMETRY", "PagedKV", "PreemptionPolicy", "PrefixIndex",
     "Request", "ServeEngine", "SlotScheduler", "SlotState", "SlottedKV",
     "Telemetry", "bucket_len", "check_slice", "init_paged_cache",

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.step import (build_prefill_fn, build_slot_decode_step,
+from repro_torch.core.step import (build_prefill_fn, build_serve_step,
+                                   build_slot_decode_step, build_verify_step,
                                    make_sampler)
 from repro_torch.models.transformer import Cache, init_cache
 from repro_torch.serve.telemetry import NULL_TELEMETRY
@@ -86,8 +87,8 @@ class KVBackend(Protocol):
 
     ``SlottedKV`` (dense: one ``max_len`` row per slot) and
     ``repro_torch.serve.paging.PagedKV`` (demand-allocated blocks) implement
-    it; the chunked-prefill methods are the paged backend's only (slotted
-    chunked prefill is the rest of ROADMAP module item 6).
+    it. Each holds ``keys`` (n_slots, 2), every slot's sampling-key chain,
+    on the device.
     """
     kind: str
     #: telemetry hook bundle (``repro_torch.serve.telemetry.Telemetry``);
@@ -96,9 +97,10 @@ class KVBackend(Protocol):
     #: the resident cache (KV bytes are read off it for reports)
     cache: Cache
 
-    def admit(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
-        """Prefill ``prompt`` into ``slot``. Returns the first generated
-        token, shape (1,), on the device."""
+    def admit(self, slot: int, prompt: np.ndarray, key=None) -> torch.Tensor:
+        """Prefill ``prompt`` into ``slot`` and seed its sampling chain from
+        ``key`` (None keeps the row's key: greedy reads none). Returns the
+        first generated token, shape (1,), on the device."""
         ...
 
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
@@ -106,13 +108,14 @@ class KVBackend(Protocol):
         ...
 
     def reserve(self, slot: int, k: int) -> bool:
-        """Make room for the slot's next ``k`` decode writes. False = out
-        of memory: the engine preempts a slot and retries."""
+        """Make room for the slot's next ``k`` writes. False = out of
+        memory: the engine preempts a slot and retries."""
         ...
 
-    def admit_chunked(self, slot: int, prompt: np.ndarray) -> int:
-        """Begin a chunked admission (no program runs); returns the prompt
-        tokens already resident (a shared prefix)."""
+    def admit_chunked(self, slot: int, prompt: np.ndarray, key=None) -> int:
+        """Begin a chunked admission (no program runs) and seed the slot's
+        sampling chain; returns the prompt tokens already resident (a
+        shared prefix; 0 on slot rows)."""
         ...
 
     def append_chunk(self, slot: int, start: int, tokens: np.ndarray) -> bool:
@@ -124,6 +127,17 @@ class KVBackend(Protocol):
                    dec_tok):
         """Run one unified serve program; returns (first tokens (B,),
         decode tokens (B, K))."""
+        ...
+
+    def verify_step(self, tokens, clen, start, vmask) -> tuple:
+        """Run the verify program over the slots: each vmask row feeds its
+        committed next token plus its drafts at its own position. Returns
+        (out (B, W), n_emit (B,)) on the device."""
+        ...
+
+    def rollback(self, slot: int, new_len: int) -> None:
+        """Commit a verify outcome: the slot's sequence is ``new_len``
+        tokens long again (the program repaired the device state)."""
         ...
 
     def fits(self, prompt_len: int, max_new: int) -> bool:
@@ -147,31 +161,59 @@ class KVBackend(Protocol):
         ...
 
 
+def tensor(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (the serving programs'
+    host-built operands: chunk tokens, lengths, masks, block tables)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 class SlottedKV:
-    """Dense slot-row backend behind the KVBackend API. The cache lives on
-    the parameters' device."""
+    """Dense slot-row backend behind the KVBackend API (``cache.py:233``).
+    The cache and the key chains live on the parameters' device."""
 
     kind = "slotted"
     tel = NULL_TELEMETRY
 
     def __init__(self, cfg: ArchConfig, params, opts, linkage, n_slots: int,
-                 max_len: int, sampling=None, bucket_fn=None):
+                 max_len: int, sampling=None, bucket_fn=None,
+                 chunked: bool = False, spec: bool = False):
         self.cfg, self.params, self.opts = cfg, params, opts
         self.n_slots, self.max_len = n_slots, max_len
+        self.device = params["embed"].device
         self.cache = init_slot_cache(cfg, n_slots, max_len, opts.dtype,
-                                     params["embed"].device)
+                                     self.device)
+        # the decode program serves both step disciplines: two-phase
+        # decode, and the chunked engine's pure-decode steps
         self._dec = build_slot_decode_step(cfg, opts, linkage, sampling)
-        self._prefill = build_prefill_fn(cfg, opts, max_len,
-                                         bucket_fn=bucket_fn)
-        self._sample = make_sampler(sampling)
+        if chunked:
+            # the unified serve program replaces the admission prefill
+            self._serve = build_serve_step(cfg, opts, linkage, max_len,
+                                           sampling, kv_kind="slotted")
+        else:
+            self._prefill = build_prefill_fn(cfg, opts, max_len,
+                                             bucket_fn=bucket_fn)
+            self._sample = make_sampler(sampling)
+        if spec:
+            self._verify = build_verify_step(cfg, opts, linkage, max_len,
+                                             sampling, kv_kind="slotted")
+        self.keys = torch.zeros((n_slots, 2), dtype=torch.int64,
+                                device=self.device)
 
-    def admit(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
+    def _seed(self, slot: int, key) -> None:
+        if key is not None:
+            self.keys[slot] = key
+
+    def admit(self, slot: int, prompt: np.ndarray, key=None) -> torch.Tensor:
         logits, c1 = self._prefill(self.params, prompt)
         write_slot(self.cache, slotify(c1), slot)
-        return self._sample(logits)
+        self._seed(slot, key)
+        first, krow = self._sample(logits, self.keys[slot:slot + 1])
+        self.keys[slot] = krow[0]
+        return first
 
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
-        self.cache, toks = self._dec(self.params, self.cache, next_tokens)
+        self.cache, toks, self.keys = self._dec(self.params, self.cache,
+                                                next_tokens, self.keys)
         return toks
 
     def reserve(self, slot: int, k: int) -> bool:
@@ -191,3 +233,38 @@ class SlottedKV:
 
     def reset_counters(self) -> None:
         pass
+
+    # -- chunked prefill ----------------------------------------------------
+
+    def admit_chunked(self, slot: int, prompt: np.ndarray, key=None) -> int:
+        """Seed the slot's sampling chain; nothing is resident yet (a dense
+        row shares no prefix). The serve program's sampler splits the
+        request key as the two-phase admission's does, so key chains replay
+        bit for bit across step disciplines."""
+        self._seed(slot, key)
+        return 0
+
+    def append_chunk(self, slot: int, start: int, tokens: np.ndarray) -> bool:
+        return True                     # a slot row always holds max_len
+
+    def serve_step(self, chunk_tokens, clen, start, reset, emit0, dec_mask,
+                   dec_tok):
+        d = self.device
+        self.cache, t0, seq, self.keys = self._serve(
+            self.params, self.cache, tensor(chunk_tokens, d),
+            tensor(clen, d), tensor(start, d), tensor(reset, d),
+            tensor(emit0, d), dec_tok, tensor(dec_mask, d), self.keys)
+        return t0, seq
+
+    # -- speculative decode -------------------------------------------------
+
+    def verify_step(self, tokens, clen, start, vmask):
+        d = self.device
+        self.cache, out, n_emit, self.keys = self._verify(
+            self.params, self.cache, tensor(tokens, d), tensor(clen, d),
+            tensor(start, d), tensor(vmask, d), self.keys)
+        return out, n_emit
+
+    def rollback(self, slot: int, new_len: int) -> None:
+        pass    # the verify program repaired slot_pos and pos; a dense row
+                # has no host-side residency to truncate

@@ -26,15 +26,20 @@ Device memory is owned by a ``KVBackend`` (``kv=``):
              is gated on free *blocks*.
 
 Two step disciplines: two-phase (admission runs a blocking prefill, then
-the occupied slots decode together) and, on the paged backend, chunked
-(``chunked=True``): every step is one program with a token budget, decode
+the occupied slots decode together) and chunked (``chunked=True``, on
+either backend): every step is one program with a token budget, decode
 tokens first and prompt chunks after, so admission never stalls decode.
+Speculative decoding (``spec_decode="ngram"``) runs on either: a
+scheduler-side ``DraftProposer`` drafts from each slot's own history, and
+one verify program per step checks the drafts of every slot; a step where
+no slot drew a draft runs the plain decode program.
 
 The engine is deterministic for a fixed request list: admission is FIFO,
 slots are assigned lowest-index-first, eviction happens only at program
-boundaries, and decoding is greedy — so each request's tokens are the ones
-it would get alone through prefill + decode, whichever backend and step
-discipline serve it (tests/test_torch_serve.py, test_torch_paging.py).
+boundaries, and sampling keys are derived from (seed, request id) — so
+each request's tokens are the ones it would get alone through prefill +
+decode, whichever backend, step discipline or speculation serves it
+(tests/test_torch_serve.py, test_torch_paging.py, test_torch_spec.py).
 
 The paged backend stores its blocks at ``kv_dtype`` "bf16" (the
 activation dtype, the uncompressed control), "int8" or "fp8" (per-block
@@ -42,9 +47,8 @@ scaled codes, read by the fused-dequant kernels); the slotted backend
 takes only "bf16" and raises ``ValueError`` otherwise.
 
 Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
-item: slotted chunked prefill (the rest of item 6), speculative decoding
-(item 7), swap preemption and the prefix cache (item 8), device meshes
-(item 13) and sampling at temperature > 0 (item 3).
+item: swap preemption and the prefix cache (item 8) and device meshes
+(item 13).
 """
 from __future__ import annotations
 
@@ -61,12 +65,13 @@ from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.core.step import SamplingConfig, program_label
 from repro_torch.serve.cache import KVBackend, SlottedKV
 from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
-                                         PreemptionPolicy, Request,
-                                         SlotScheduler, bucket_len,
+                                         DraftProposer, PreemptionPolicy,
+                                         Request, SlotScheduler, bucket_len,
                                          pack_chunks)
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
 KV_BACKENDS = ("slotted", "paged")
+SPEC_MODES = ("none", "ngram")
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -74,18 +79,18 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP module item {item})")
 
 
-def check_slice(*, kv: str = "slotted", chunked: bool = False,
-                spec_decode: str = "none", mesh=None, kv_dtype: str = "bf16",
-                preempt: str = "recompute", prefix_cache=None) -> None:
+def check_slice(*, kv: str = "slotted", spec_decode: str = "none", mesh=None,
+                kv_dtype: str = "bf16", preempt: str = "recompute",
+                prefix_cache=None) -> None:
     """Raise ``NotImplementedError`` for a serving option this port does not
-    have yet, naming the ROADMAP item that brings it, and ``ValueError``
-    for a combination the reference rejects too."""
+    have yet, naming the ROADMAP item that brings it (alone or beside
+    chunked prefill or speculation), and ``ValueError`` for a combination
+    the reference rejects too."""
     if kv not in KV_BACKENDS:
         raise ValueError(f"unknown kv backend {kv!r}; known: {KV_BACKENDS}")
-    if chunked and kv == "slotted":
-        raise _not_in_slice("chunked prefill on the slotted backend", "6")
-    if spec_decode != "none":
-        raise _not_in_slice(f"spec_decode={spec_decode!r}", "7")
+    if spec_decode not in SPEC_MODES:
+        raise ValueError(f"unknown spec_decode {spec_decode!r}; known: "
+                         f"{SPEC_MODES}")
     if preempt != "recompute":
         raise _not_in_slice(f"preempt={preempt!r} (the host tier)", "8")
     if prefix_cache:
@@ -107,13 +112,13 @@ class ServeEngine:
 
     two-phase (default)  admission runs a blocking full-prompt prefill,
                          then occupied slots decode together.
-    chunked              (``chunked=True``, paged only) no prefill phase:
-                         every step is ONE program with a token budget,
-                         filled with decode tokens from occupied slots first
-                         and prompt *chunks* of admitting requests after;
-                         pure-decode steps dispatch the plain decode
-                         program. Token streams are identical to the
-                         two-phase engine's.
+    chunked              (``chunked=True``) no prefill phase: every step
+                         is ONE program with a token budget, filled with
+                         decode tokens from occupied slots first and prompt
+                         *chunks* of admitting requests after; pure-decode
+                         steps dispatch the plain decode program (or, with
+                         speculation, the verify program). Token streams
+                         are identical to the two-phase engine's.
     """
 
     #: smallest admission bucket (owned by the scheduler)
@@ -126,8 +131,9 @@ class ServeEngine:
                  bucket_prompts: bool = False, chunked: bool = False,
                  chunk_budget: int = 256, chunk_width: int = 0,
                  preempt="recompute", kv_dtype: str = "bf16",
+                 spec_decode: str = "none", spec_width: int = 0,
                  telemetry: Optional[Telemetry] = None):
-        check_slice(kv=kv, chunked=chunked, kv_dtype=kv_dtype)
+        check_slice(kv=kv, spec_decode=spec_decode, kv_dtype=kv_dtype)
         linkage.validate()
         if n_slots < 1:
             raise ValueError("serving engine needs n_slots >= 1")
@@ -137,7 +143,8 @@ class ServeEngine:
         self.linkage = linkage
         self.n_slots = n_slots
         self.max_len = max_len
-        self.sampling = (sampling or SamplingConfig()).validate()
+        self.sampling = sampling or SamplingConfig()
+        self.device = params["embed"].device
         self.tokens_per_program = (linkage.decode_steps
                                    if linkage.level == L3_NSS else 1)
         self.chunked = chunked
@@ -151,24 +158,37 @@ class ServeEngine:
                 raise ValueError(f"chunk_width must be in [1, max_len] "
                                  f"(got {self.chunk_width})")
         self.preempt = PreemptionPolicy.parse(preempt)
+        # speculative decode: a scheduler-side DraftProposer feeds W-wide
+        # draft-and-verify programs; "none" never builds the verify program
+        self.proposer: Optional[DraftProposer] = None
+        self.spec_width = 0
+        if spec_decode != "none":
+            self.spec_width = spec_width or 4
+            if not 1 <= self.spec_width <= max_len:
+                raise ValueError(f"spec_width must be in [1, max_len] "
+                                 f"(got {self.spec_width})")
+            self.proposer = DraftProposer(self.spec_width)
+        spec = self.proposer is not None
         bucket_fn = self._bucket if bucket_prompts else None
         if kv == "paged":
             from repro_torch.serve.paging import PagedKV
             self.kv: KVBackend = PagedKV(
                 cfg, params, opts, linkage, n_slots, max_len, self.sampling,
                 bucket_fn, block_size=block_size, num_blocks=num_blocks,
-                chunked=chunked, kv_dtype=kv_dtype)
+                chunked=chunked, kv_dtype=kv_dtype, spec=spec)
         else:
             self.kv = SlottedKV(cfg, params, opts, linkage, n_slots, max_len,
-                                self.sampling, bucket_fn)
+                                self.sampling, bucket_fn, chunked=chunked,
+                                spec=spec)
         # NULL_TELEMETRY is the zero-cost disabled bundle (every hook a
         # no-op, now() never reads a clock)
         self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self.kv.tel = self.tel
         self._labels = {k: program_label(cfg, linkage, k)
-                        for k in ("decode", "serve_chunk", "prefill_admit")}
+                        for k in ("decode", "serve_chunk", "verify",
+                                  "prefill_admit")}
         self._next = torch.zeros((n_slots,), dtype=torch.int32,
-                                 device=params["embed"].device)
+                                 device=self.device)
         self.sched = SlotScheduler(n_slots)
         # next-step chunk grants packed under the device step, keyed on the
         # exact pack_chunks inputs; _plan_chunks uses them only on an exact
@@ -179,6 +199,11 @@ class ServeEngine:
         self.preemptions = 0         # paged: recompute-preempted admissions
         self.prefill_tokens = 0      # prompt tokens admitted (incl. shared)
         self.decode_tokens = 0       # decode tokens produced
+        self.spec_steps = 0          # verify programs run
+        self.spec_draft_tokens = 0   # drafts fed into verify programs
+        self.spec_accepted_tokens = 0   # ...that the model confirmed
+        self.spec_wasted_tokens = 0  # ...that it rejected
+        self.spec_emitted_tokens = 0    # tokens emitted by verify programs
 
     def _bucket(self, n: int) -> int:
         """Power-of-two admission bucket (``scheduler.bucket_len``)."""
@@ -205,7 +230,8 @@ class ServeEngine:
         self._check_fits(slot, req)
         tel.admit(req.rid, slot, int(req.prompt.shape[0]), adm)
         t0 = tel.now()
-        first = self.kv.admit(slot, np.asarray(req.prompt, np.int32))
+        first = self.kv.admit(slot, np.asarray(req.prompt, np.int32),
+                              self.sampling.request_key(req.rid, self.device))
         t1 = tel.now()
         self.prefill_tokens += int(req.prompt.shape[0])
         tel.prefill_tokens(int(req.prompt.shape[0]))
@@ -237,15 +263,18 @@ class ServeEngine:
 
     # -- decode -------------------------------------------------------------
 
-    def _reserve_all(self) -> None:
-        """Demand-allocate the blocks this program will write, preempting
-        the youngest slot (recompute on re-admission) while the pool is dry.
-        Oldest-first order keeps the head of the line progressing."""
+    def _reserve_all(self, width=None) -> None:
+        """Demand-allocate the blocks this program will write — K decode
+        tokens a slot, or ``width(state)`` for a verify row — preempting
+        the youngest slot (recompute on re-admission) while the pool is
+        dry. Oldest-first order keeps the head of the line progressing."""
         K = self.tokens_per_program
         while True:
             order = sorted(self.sched.active,
                            key=lambda s: self.sched.active[s].admit_seq)
-            if all(self.kv.reserve(slot, K) for slot in order):
+            if all(self.kv.reserve(
+                    s, K if width is None else width(self.sched.active[s]))
+                   for s in order):
                 return
             self._preempt_one()
 
@@ -271,14 +300,21 @@ class ServeEngine:
 
     def step(self, now_fn: Callable[[], float]) -> List[Completion]:
         """Run one decode program; harvest tokens; evict finished slots.
-        Split at the blocking host sync (``_step_begin``/``_step_end``), as
-        in the JAX engine, whose fleet runtime dispatches every replica
-        before committing any."""
+        With speculation on, a verify program runs instead whenever some
+        slot drew a draft. Split at the blocking host sync
+        (``_step_begin``/``_step_end``), as in the JAX engine, whose fleet
+        runtime dispatches every replica before committing any."""
         return self._step_end(self._step_begin(now_fn), now_fn)
 
     def _step_begin(self, now_fn: Callable[[], float]):
         """Dispatch half: reserve, launch the decode program, everything up
-        to (excluding) the blocking host copy."""
+        to (excluding) the blocking host copy. The verify step reads its
+        accept counts on the host, so it runs whole here and hands back
+        its completions."""
+        if self.proposer is not None:
+            spec = self._step_spec(now_fn)
+            if spec is not None:
+                return ("done", spec)
         tel = self.tel
         t0 = tel.now()
         self._reserve_all()
@@ -297,6 +333,8 @@ class ServeEngine:
         evict finished slots, stamp the step trace event. Dispatches on the
         ticket tag of ``_step_begin`` / ``_chunk_begin``."""
         tag, data = pending
+        if tag == "done":
+            return data
         if tag == "chunk":
             return self._chunk_end(data, now_fn)
         tel = self.tel
@@ -312,6 +350,94 @@ class ServeEngine:
                  tel.now() - t3, queued=self.sched.n_queued,
                  active=len(self.sched.active),
                  program=self._labels["decode"])
+        return finished
+
+    # -- speculative decode: draft-and-verify -------------------------------
+
+    def _step_spec(self, now_fn: Callable[[], float]
+                   ) -> Optional[List[Completion]]:
+        """One draft-and-verify program (``engine.py:480-572``), or None to
+        fall back to plain decode (no slot drew a draft).
+
+        Every active slot rides the program: drafted rows at width 1 +
+        |drafts|, the others at width 1, which is a decode step. The
+        accept counts and tokens come to the host (the one sync the step
+        needs, under RET too); each row's next token stays on the
+        device."""
+        order = sorted(self.sched.active)
+        if not all(self.sched.active[s].produced > 0 for s in order):
+            return None                   # a slot with no committed token
+        tel = self.tel
+        t0 = tel.now()
+        any_draft = False
+        for s in order:
+            st = self.sched.active[s]
+            st.pending_drafts = self.proposer.propose(st)
+            any_draft = any_draft or st.pending_drafts.size > 0
+        if not any_draft:
+            for s in order:
+                self.sched.active[s].pending_drafts = None
+            return None
+        # a row writes its committed token and its drafts this program
+        self._reserve_all(lambda st: 1 + int(st.pending_drafts.size))
+        order = sorted(self.sched.active)   # preemption may have evicted
+        B, W = self.n_slots, self.spec_width
+        toks = np.zeros((B, W), np.int32)
+        clen = np.zeros(B, np.int32)
+        start = np.zeros(B, np.int32)
+        vmask = np.zeros(B, bool)
+        nxt_host = _host(self._next)
+        for s in order:
+            st = self.sched.active[s]
+            m = int(st.pending_drafts.size)
+            toks[s, 0] = nxt_host[s]
+            toks[s, 1:1 + m] = st.pending_drafts
+            clen[s] = 1 + m
+            start[s] = st.prompt_len + st.produced - 1   # next write position
+            vmask[s] = True
+
+        t1 = tel.now()
+        out, n_emit = self.kv.verify_step(toks, clen, start, vmask)
+        self.programs_run += 1
+        self.spec_steps += 1
+        last = out.gather(1, (n_emit.long() - 1).clamp_min(0)[:, None])
+        self._next = torch.where(n_emit > 0, last[:, 0], self._next)
+        t2 = tel.now()
+        out_host, n_host = _host(out), _host(n_emit)
+        t3 = tel.now()
+
+        now = now_fn()
+        finished = []
+        for s in order:
+            st = self.sched.active[s]
+            m = int(st.pending_drafts.size)
+            st.pending_drafts = None
+            a = int(n_host[s])              # emitted = 1 + accepted drafts
+            self.spec_draft_tokens += m
+            self.spec_accepted_tokens += a - 1
+            self.spec_wasted_tokens += m - (a - 1)
+            self.spec_emitted_tokens += a
+            tel.verify_window(s, st.req.rid, m, a - 1, now)
+            chunk = out_host[s, :a]
+            st.chunks.append(chunk)
+            st.produced += a                # clamped drafting: never > budget
+            self.decode_tokens += a
+            if st.last_emit_s is not None:
+                tel.emit_gap(now - st.last_emit_s)
+            st.note_emit(now)
+            if st.first_decode_s is None:
+                st.first_decode_s = now
+            if st.req.eos_id is not None and st.req.eos_id in chunk:
+                st.eos_seen = True          # EOS inside the accepted window
+            # commit = roll back to the accepted length: frees draft-tail
+            # blocks (paged) and rewinds the host position
+            self.kv.rollback(s, int(start[s]) + a)
+            if st.produced >= st.req.max_new_tokens or st.eos_seen:
+                finished.append(self._finalize(s, now_fn))
+        tel.step("verify", self.programs_run, t0, t1 - t0, t2 - t1, t3 - t2,
+                 tel.now() - t3, queued=self.sched.n_queued,
+                 active=len(self.sched.active),
+                 program=self._labels["verify"])
         return finished
 
     def _harvest_decode(self, slots, toks, toks_host,
@@ -354,7 +480,9 @@ class ServeEngine:
         self._check_fits(slot, req)
         self.tel.admit(req.rid, slot, int(req.prompt.shape[0]),
                        self.sched.active[slot].admit_s)
-        shared = self.kv.admit_chunked(slot, np.asarray(req.prompt, np.int32))
+        shared = self.kv.admit_chunked(
+            slot, np.asarray(req.prompt, np.int32),
+            self.sampling.request_key(req.rid, self.device))
         # count the radix-shared prefix so prefill_tokens means the same in
         # both step modes (prompt tokens admitted, shared or computed)
         self.prefill_tokens += shared
@@ -611,6 +739,19 @@ class ServeEngine:
         if self.chunked:
             u["chunk_budget"] = self.chunk_budget
             u["chunk_width"] = self.chunk_width
+        if self.proposer is not None:
+            u["spec_decode"] = "ngram"
+            u["spec_width"] = self.spec_width
+            u["spec_steps"] = self.spec_steps
+            u["spec_draft_tokens"] = self.spec_draft_tokens
+            u["spec_accepted_tokens"] = self.spec_accepted_tokens
+            u["spec_wasted_tokens"] = self.spec_wasted_tokens
+            if self.spec_draft_tokens:
+                u["spec_acceptance_rate"] = round(
+                    self.spec_accepted_tokens / self.spec_draft_tokens, 4)
+            if self.spec_steps:
+                u["spec_tokens_per_step"] = round(
+                    self.spec_emitted_tokens / self.spec_steps, 2)
         u.update(self.kv.utilization())
         u["kv_bytes_per_shard"] = _kv_bytes(self.kv.cache)
         if "kv_blocks_hwm" in u:
@@ -627,6 +768,15 @@ class ServeEngine:
         self.preemptions = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
+        self.spec_steps = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_wasted_tokens = 0
+        self.spec_emitted_tokens = 0
+        if self.proposer is not None:
+            self.proposer.proposed_tokens = 0
+            self.proposer.lookups = 0
+            self.proposer.hits = 0
         self.kv.reset_counters()
         self.tel.reset()
 

@@ -47,12 +47,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linkage import L3_NSS
 from repro_torch.core.step import (build_paged_decode_step, build_prefill_fn,
-                                   build_serve_step, make_sampler)
+                                   build_serve_step, build_verify_step,
+                                   make_sampler)
 from repro_torch.kernels import kv_quant
 from repro_torch.kernels.kv_quant import quant_insert, raw
 from repro_torch.kernels.ref import gather_pool
 from repro_torch.models.transformer import (Cache, _check_pageable,
                                             layer_specs, prefill_suffix)
+from repro_torch.serve.cache import tensor
 from repro_torch.serve.telemetry import NULL_TELEMETRY
 
 
@@ -335,7 +337,8 @@ class PagedKV:
     def __init__(self, cfg: ArchConfig, params, opts, linkage, n_slots: int,
                  max_len: int, sampling=None, bucket_fn=None,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 chunked: bool = False, kv_dtype: str = "bf16"):
+                 chunked: bool = False, kv_dtype: str = "bf16",
+                 spec: bool = False):
         _check_pageable(cfg, "PagedKV")
         self.cfg, self.params, self.opts = cfg, params, opts
         self.kv_dtype = kv_dtype
@@ -378,16 +381,20 @@ class PagedKV:
             # prefill (full-prompt and shared-prefix suffix paths alike)
             self.prompts: Dict[int, np.ndarray] = {}
             self._serve = build_serve_step(cfg, opts, linkage, max_len,
-                                           sampling)
+                                           sampling, kv_kind="paged")
         else:
             self._sample = make_sampler(sampling)
             # full-prompt prefill (no sharing) — the slotted backend's own
             # program, so unshared admissions match it trivially
             self._prefill = build_prefill_fn(cfg, opts, max_len,
                                              bucket_fn=bucket_fn)
-
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        if spec:
+            # the verify window runs the chunk pass: the paged prefill
+            # kernels under the shortcut
+            self._verify = build_verify_step(cfg, opts, linkage, max_len,
+                                             sampling, kv_kind="paged")
+        self.keys = torch.zeros((n_slots, 2), dtype=torch.int64,
+                                device=self.device)
 
     # -- allocation ---------------------------------------------------------
 
@@ -437,7 +444,7 @@ class PagedKV:
 
     # -- KVBackend ----------------------------------------------------------
 
-    def admit(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
+    def admit(self, slot: int, prompt: np.ndarray, key=None) -> torch.Tensor:
         P = int(prompt.shape[0])
         chain, shared = self._claim_prefix(slot, prompt)
         for _ in range(len(chain), -(-P // self.bs)):
@@ -454,6 +461,7 @@ class PagedKV:
                 raise RuntimeError("paged admit ran out of KV blocks on "
                                    "CoW fork")
 
+        d = self.device
         if shared == 0:
             Sb = P if self.bucket_fn is None else self.bucket_fn(P)
             logits, c1 = self._prefill(self.params, prompt)
@@ -465,11 +473,10 @@ class PagedKV:
                                                        self.max_len - shared)
             padded = np.zeros((Sb,), np.int32)
             padded[:Ls] = prompt[shared:]
-            pre = gather_prefix(self.cache,
-                                self._tensor(self.tables_host[slot]),
+            pre = gather_prefix(self.cache, tensor(self.tables_host[slot], d),
                                 self.max_len)
             logits, kvs = prefill_suffix(self.params,
-                                         self._tensor(padded)[None], pre,
+                                         tensor(padded, d)[None], pre,
                                          shared, self.cfg, self.opts,
                                          true_len=Ls)
             logical = shared + np.arange(Sb)
@@ -478,23 +485,29 @@ class PagedKV:
         blks = np.array([chain[p // self.bs] if p < P else self.trash
                          for p in logical], np.int64)
         offs = (logical % self.bs).astype(np.int64)
-        scatter_kv(self.cache, kvs, self._tensor(blks), self._tensor(offs),
-                   slot, P)
+        scatter_kv(self.cache, kvs, tensor(blks, d), tensor(offs, d), slot, P)
         self.index.insert(prompt, chain.blocks, P // self.bs, self.pool)
         self.chains[slot] = chain
         self.pos_host[slot] = P
-        return self._sample(logits)
+        if key is not None:
+            self.keys[slot] = key
+        first, krow = self._sample(logits, self.keys[slot:slot + 1])
+        self.keys[slot] = krow[0]
+        return first
 
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
-        tables = self._tensor(self.tables_host)
-        self.cache, toks = self._dec(self.params, self.cache, next_tokens,
-                                     tables)
+        tables = tensor(self.tables_host, self.device)
+        self.cache, toks, self.keys = self._dec(self.params, self.cache,
+                                                next_tokens, self.keys,
+                                                tables)
         self.pos_host += self.K
         return toks
 
     def reserve(self, slot: int, k: int) -> bool:
-        """Demand-allocate (and CoW-fork) the blocks the next ``k`` decode
-        writes will touch. False = pool dry: the engine preempts a slot."""
+        """Demand-allocate (and CoW-fork) the blocks the next ``k`` writes
+        will touch — K decode microsteps, or a verify row's whole draft
+        span, so ``rollback`` never frees a shared block. False = pool
+        dry: the engine preempts a slot."""
         chain = self.chains[slot]
         pos = int(self.pos_host[slot])
         last = min(pos + k - 1, self.nb * self.bs - 1)
@@ -512,16 +525,19 @@ class PagedKV:
 
     # -- chunked prefill ----------------------------------------------------
 
-    def admit_chunked(self, slot: int, prompt: np.ndarray) -> int:
-        """Begin a chunked admission: radix-match the prompt and retain the
+    def admit_chunked(self, slot: int, prompt: np.ndarray, key=None) -> int:
+        """Begin a chunked admission: radix-match the prompt, retain the
         shared prefix blocks (resident already — a shared system prompt
-        prefills once). Blocks for the rest of the prompt are allocated
-        chunk by chunk (``append_chunk``). Returns the shared token count."""
+        prefills once) and seed the slot's sampling chain. Blocks for the
+        rest of the prompt are allocated chunk by chunk (``append_chunk``).
+        Returns the shared token count."""
         chain, shared = self._claim_prefix(slot, prompt)
         self.chains[slot] = chain
         self.prompts[slot] = np.asarray(prompt, np.int32)
         self.pos_host[slot] = shared
         self.prefix_shared_tokens += shared
+        if key is not None:
+            self.keys[slot] = key
         return shared
 
     def append_chunk(self, slot: int, start: int, tokens: np.ndarray) -> bool:
@@ -554,24 +570,55 @@ class PagedKV:
 
     def serve_step(self, chunk_tokens, clen, start, reset, emit0, dec_mask,
                    dec_tok):
-        """One unified serve program (``build_serve_step``). ``reset`` and
-        ``emit0`` are the slotted backend's business: paged validity is
-        positional, and greedy sampling has no key chains to gate."""
+        """One unified serve program (``build_serve_step``). ``reset`` is
+        the slotted backend's business: paged validity is positional."""
         dec_mask = np.asarray(dec_mask)
         # rows not in decode phase ride the scan against the trash block
         # only: their garbage microsteps never touch a live block (in
         # particular not a CoW-shared prefix block)
         scan_tables = np.where(dec_mask[:, None], self.tables_host,
                                self.trash).astype(np.int32)
-        self.cache, t0, seq = self._serve(
-            self.params, self.cache, self._tensor(chunk_tokens),
-            self._tensor(clen), self._tensor(start), dec_tok,
-            self._tensor(dec_mask), self._tensor(self.tables_host),
-            self._tensor(scan_tables))
+        d = self.device
+        self.cache, t0, seq, self.keys = self._serve(
+            self.params, self.cache, tensor(chunk_tokens, d), tensor(clen, d),
+            tensor(start, d), tensor(reset, d), tensor(emit0, d), dec_tok,
+            tensor(dec_mask, d), self.keys, tensor(self.tables_host, d),
+            tensor(scan_tables, d))
         self.pos_host[:] = (np.asarray(start, np.int64)
                             + np.asarray(clen, np.int64)
                             + self.K * dec_mask.astype(np.int64))
         return t0, seq
+
+    # -- speculative decode -------------------------------------------------
+
+    def verify_step(self, tokens, clen, start, vmask):
+        """One draft-widened verify program over the pools. Host positions
+        do not move here: the engine commits each row by ``rollback(slot,
+        start + n_emit)`` once it has read the accept counts."""
+        d = self.device
+        self.cache, out, n_emit, self.keys = self._verify(
+            self.params, self.cache, tensor(tokens, d), tensor(clen, d),
+            tensor(start, d), tensor(vmask, d), self.keys,
+            tensor(self.tables_host, d))
+        return out, n_emit
+
+    def rollback(self, slot: int, new_len: int) -> None:
+        """Truncate ``slot``'s residency to ``new_len`` tokens
+        (``paging.py:1555``): free the whole blocks past it and rewind the
+        host position. A freed block lies wholly past ``new_len`` > the
+        prompt, so it is neither radix-registered (the index covers prompt
+        blocks) nor shared (``reserve`` forked the draft span). The device
+        needs nothing: the verify program rewound ``pos``, position
+        ``new_len`` is rewritten by the next program, and past it is
+        causally masked."""
+        chain = self.chains[slot]
+        keep = -(-new_len // self.bs)
+        for b in chain.blocks[keep:]:
+            self.pool.free(b)
+        if len(chain) > keep:
+            self.tables_host[slot, keep:len(chain)] = self.trash
+            del chain.blocks[keep:]
+        self.pos_host[slot] = new_len
 
     def release(self, slot: int) -> None:
         for b in self.chains.pop(slot, BlockTable()).blocks:

@@ -1,11 +1,12 @@
 """Request/slot scheduling for the continuous-batching engine.
 
-The part of ``src/repro/serve/scheduler.py`` that the two-phase and the
-paged chunked engine use, copied (numpy only): the port imports nothing of
-the JAX package, and a fixed seed must give the same requests and the same
-schedule in both. Recompute preemption and the chunk packer are here; swap
-preemption, the budget tuner and the n-gram drafter come with the slices
-that port speculation and the host tier (ROADMAP module items 7-8).
+The part of ``src/repro/serve/scheduler.py`` that the two-phase, chunked
+and speculative engines use, copied (numpy only): the port imports nothing
+of the JAX package, and a fixed seed must give the same requests, the same
+schedule and the same drafts in both. Recompute preemption, the chunk
+packer and the n-gram drafter (``DraftProposer``) are here; swap
+preemption and the budget tuner come with the slice that ports the host
+tier (ROADMAP module item 8).
 
 Deterministic by construction: admission is FIFO over arrival order (ties
 broken by request id) and free slots are handed out lowest-index-first, so a
@@ -118,6 +119,84 @@ def pack_chunks(budget: int, width: int, decode_tokens: int,
     return grants
 
 
+class DraftProposer:
+    """Scheduler-side self-speculation: n-gram prompt-lookup drafts.
+
+    No second model — drafts come from the slot's own resident tokens
+    (prompt + produced history, which ends with the committed next token
+    the engine is about to feed). The proposer finds the most recent
+    earlier occurrence of the history's trailing n-gram and proposes the
+    tokens that followed it, longest-n first. Greedy verify makes wrong
+    drafts harmless (bit-identity holds regardless of what is proposed),
+    so the proposer is pure policy: hit rate decides throughput, never
+    correctness.
+
+    Draft length is clamped to ``min(width - 1, remaining - 1)`` so a row's
+    emissions (1 + accepted ≤ 1 + drafts) can never overshoot its
+    ``max_new_tokens`` budget or write past ``max_len``. A draft list is
+    truncated just *after* a proposed EOS (keeping it — the engine detects
+    EOS inside an accepted window at harvest, like mid-chunk EOS in plain
+    decode). ``width == 1`` therefore always proposes nothing: the engine
+    falls back to the plain decode program (speculation disabled ==
+    plain decode, the width-1 identity edge).
+    """
+
+    _EMPTY = np.zeros((0,), np.int32)
+
+    def __init__(self, width: int, ngram: int = 3,
+                 eos_id: Optional[int] = None):
+        if width < 1:
+            raise ValueError(f"spec width must be >= 1, got {width}")
+        if ngram < 1:
+            raise ValueError(f"ngram order must be >= 1, got {ngram}")
+        self.width = width
+        self.ngram = ngram
+        self.eos_id = eos_id
+        self.proposed_tokens = 0     # drafts handed to the engine
+        self.lookups = 0             # propose() calls with room to draft
+        self.hits = 0                # ... that found a non-empty draft
+
+    def history(self, st: "SlotState") -> np.ndarray:
+        """The slot's resident tokens: prompt then produced chunks (whose
+        last element is the committed next token the engine feeds first).
+        A chunk still on the device (RET) is copied to the host here."""
+        parts = [np.asarray(st.req.prompt, np.int32).ravel()]
+        parts += [np.asarray(c.cpu() if hasattr(c, "cpu") else c,
+                             np.int32).ravel() for c in st.chunks]
+        return np.concatenate(parts)
+
+    def propose(self, st: "SlotState") -> np.ndarray:
+        """Drafts for one decode-phase slot: (m,) int32, m in [0, width-1].
+
+        The verify row will feed ``[next_token, drafts...]`` — position j's
+        draft predicts the model's output after absorbing draft j-1."""
+        max_d = min(self.width - 1, st.remaining - 1)
+        if max_d <= 0 or st.eos_seen:
+            return self._EMPTY
+        self.lookups += 1
+        hist = self.history(st)
+        L = int(hist.shape[0])
+        for n in range(min(self.ngram, L - 1), 0, -1):
+            tail = hist[L - n:]
+            win = np.lib.stride_tricks.sliding_window_view(hist, n)
+            cands = np.flatnonzero((win == tail).all(axis=1))
+            cands = cands[cands < L - n]   # real continuation, not the tail
+            if not cands.size:
+                continue
+            i = int(cands[-1])             # most recent earlier occurrence
+            d = hist[i + n: i + n + max_d].astype(np.int32)
+            eos = self.eos_id if self.eos_id is not None else st.req.eos_id
+            if eos is not None:
+                stop = np.flatnonzero(d == eos)
+                if stop.size:
+                    d = d[:int(stop[0]) + 1]    # keep the proposed EOS
+            if d.size:
+                self.hits += 1
+                self.proposed_tokens += int(d.size)
+            return d
+        return self._EMPTY
+
+
 @dataclasses.dataclass
 class Request:
     """One serving request: a prompt and a generation budget.
@@ -158,6 +237,9 @@ class SlotState:
                                              # two-phase mode this exposes
                                              # decode stalls behind blocking
                                              # admission prefills
+    # speculative decode: drafts proposed for this step's verify row (None
+    # outside a spec step; an empty array = no draft, a width-1 row)
+    pending_drafts: Optional[np.ndarray] = None
 
     def note_emit(self, now: float) -> None:
         if self.last_emit_s is not None:

@@ -1,11 +1,11 @@
 """Engine telemetry: structured step tracing, metrics, lifecycle spans.
 
-The part of ``src/repro/serve/telemetry.py`` that the two-phase and the
-paged chunked engine call, copied near-verbatim (numpy and the standard
-library only); the device-trace capture uses ``torch.profiler`` where the
-JAX package used ``jax.profiler``. The hooks of the host tier,
-speculation and the fleet come with the slices that port those features
-(ROADMAP module items 7, 8 and 10).
+The part of ``src/repro/serve/telemetry.py`` that the two-phase, chunked
+and speculative engines call, copied near-verbatim (numpy and the
+standard library only); the device-trace capture uses ``torch.profiler``
+where the JAX package used ``jax.profiler``. The hooks of the host tier
+and the fleet come with the slices that port those features (ROADMAP
+module items 8 and 10).
 
 UKL's pitch is that linking the hot process into the kernel *keeps* Linux's
 battle-tested observability — perf, ftrace, /proc — where classic unikernels
@@ -18,12 +18,13 @@ Three cooperating pieces:
 ``TraceRecorder``
     An append-only store of typed, timestamped events — ``engine_step``
     (with a pack / dispatch / device / host-bookkeeping phase breakdown),
-    ``decode_microsteps``, ``admit`` / ``complete`` — plus per-request
-    lifecycle *spans* (``queued → prefilling → decoding → done``) keyed by
-    rid. Exports as JSONL (one raw event per line) and as Chrome-trace JSON
-    (loadable in ``chrome://tracing`` / Perfetto: engine steps are duration
-    events on an "engine" track, requests are async spans). The two
-    exports round-trip: ``load_trace`` reads either back into raw events.
+    ``decode_microsteps``, ``verify_window``, ``admit`` / ``complete`` —
+    plus per-request lifecycle *spans* (``queued → prefilling → decoding →
+    done``) keyed by rid. Exports as JSONL (one raw event per line) and
+    as Chrome-trace JSON (loadable in ``chrome://tracing`` / Perfetto:
+    engine steps are duration events on an "engine" track, requests are
+    async spans). The two exports round-trip: ``load_trace`` reads either
+    back into raw events.
 
 ``MetricsRegistry``
     Counters, gauges and monotonic-bucket histograms (TTFT, inter-token
@@ -57,7 +58,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 #: event type -> required arg keys (the trace schema; ``validate_events``)
 EVENT_SCHEMA: Dict[str, frozenset] = {
     # one engine step: phase durations in seconds; ``kind`` names the
-    # program family (decode | serve_chunk | prefill_admit)
+    # program family (decode | serve_chunk | verify | prefill_admit)
     "engine_step": frozenset({"step", "kind", "pack_s", "dispatch_s",
                               "device_s", "host_s"}),
     # child duration event of an engine_step (one per non-empty phase)
@@ -66,6 +67,8 @@ EVENT_SCHEMA: Dict[str, frozenset] = {
     "prefill_chunk": frozenset({"slot", "rid", "start", "len"}),
     # the decode half of a step: how many slots advanced by k tokens
     "decode_microsteps": frozenset({"slots", "k"}),
+    # one verify row's outcome: drafted vs model-accepted tokens
+    "verify_window": frozenset({"slot", "rid", "drafted", "accepted"}),
     # the chunk packer's decision for this step
     "pack": frozenset({"budget", "decode_tokens", "granted"}),
     "admit": frozenset({"rid", "slot", "prompt_len"}),
@@ -606,6 +609,8 @@ class Telemetry:
             self._overlap_s = m.counter(
                 "engine_overlap_seconds_total",
                 "host work hidden under device execution", labels=("kind",))
+            self._spec = m.counter("spec_tokens_total",
+                                   "speculative tokens", labels=("kind",))
             self._queue_g = m.gauge("queue_depth", "requests waiting")
             self._active_g = m.gauge("active_slots", "occupied slots")
             self._ttft_h = m.histogram("ttft_seconds",
@@ -725,6 +730,19 @@ class Telemetry:
         if self.metrics is not None:
             self._tokens.labels(phase="decode").inc(slots * k)
 
+    def verify_window(self, slot: int, rid: int, drafted: int,
+                      accepted: int, ts: float) -> None:
+        """One verify row's outcome: ``drafted`` tokens fed after the
+        committed one, ``accepted`` of them confirmed (1 + accepted
+        emitted)."""
+        if self.trace is not None:
+            self.trace.emit("verify_window", ts, slot=slot, rid=rid,
+                            drafted=drafted, accepted=accepted)
+        if self.metrics is not None:
+            self._spec.labels(kind="drafted").inc(drafted)
+            self._spec.labels(kind="accepted").inc(accepted)
+            self._tokens.labels(phase="decode").inc(1 + accepted)
+
     def pack(self, budget: int, decode_tokens: int, granted: int,
              ts: float) -> None:
         if self.trace is not None:
@@ -827,6 +845,9 @@ class _NullTelemetry(Telemetry):
         pass
 
     def decode_microsteps(self, *a, **k) -> None:
+        pass
+
+    def verify_window(self, *a, **k) -> None:
         pass
 
     def pack(self, *a, **k) -> None:

@@ -28,7 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (L3_NSS, LinkageConfig, MetricWriter,  # noqa: E402
-                              SamplingConfig, preset)
+                              preset)
 from repro_torch.models import (ModelOptions, decode_step,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.serve import (Request, ServeEngine, Telemetry,  # noqa: E402
@@ -316,14 +316,14 @@ def test_launcher_writes_trace_and_metrics(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--kv", "paged", "--kv-dtype", "int8", "--preempt", "swap"], "item 8"),
-    (["--chunked"], "item 6"),
-    (["--spec-decode", "ngram"], "item 7"),
+    (["--spec-decode", "ngram", "--preempt", "swap"], "item 8"),
+    (["--chunked", "--prefix-cache", "x.npz"], "item 8"),
     (["--preempt", "swap"], "item 8"),
     (["--prefix-cache", "x.npz"], "item 8"),
     (["--kv", "paged", "--kv-dtype", "fp8", "--prefix-cache", "x.npz"],
      "item 8"),
     (["--mesh", "1,2"], "item 13"),
-    (["--temperature", "0.7"], "item 3"),
+    (["--temperature", "0.7", "--mesh", "1,2"], "item 13"),
 ])
 def test_out_of_slice_options_raise(flags, item):
     from repro_torch.launch import serve as launch
@@ -331,10 +331,28 @@ def test_out_of_slice_options_raise(flags, item):
         launch.main(["--device", "cpu", "--requests", "1", *flags])
 
 
-def test_sampling_above_zero_temperature_raises(params):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ServeEngine(CFG, params, OPTS, preset("byp"), n_slots=1,
-                    max_len=MAX_LEN, sampling=SamplingConfig(temperature=1.0))
+def test_launcher_serves_sampled(capsys):
+    """--temperature with --top-k serves every request and reports."""
+    from repro_torch.launch import serve as launch
+    assert launch.main(["--device", "cpu", "--load", "closed", "--requests",
+                        "2", "--prompt-len", "8", "--gen-len", "6",
+                        "--temperature", "0.7", "--top-k", "5"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["requests"] == 2 and rep["total_tokens"] == 2 * 6
+    assert rep["tokens_per_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv", "jamba"])
+@pytest.mark.parametrize("mode", [dict(chunked=True),
+                                  dict(spec_decode="ngram")])
+def test_recurrent_archs_refuse_chunk_and_verify_passes(arch, mode):
+    """RWKV and Mamba layers carry a recurrent state: the chunk and verify
+    passes refuse them with JAX's ``ValueError`` (``_check_pageable``)."""
+    cfg = ARCHS[arch]
+    p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="plain-attention"):
+        ServeEngine(cfg, p, OPTS, preset("byp"), n_slots=1, max_len=MAX_LEN,
+                    **mode)
 
 
 def test_cuda_request_without_a_gpu_raises():

@@ -29,6 +29,9 @@
                                   # prefill cases, threefry, paths E, T,
                                   # S1-S3, the verify pass teacher-forced,
                                   # the new paths' profiles
+    python3 chip_smoke.py tier    # the build, the host tier's paths
+                                  # W1-W7, its transfers, W1 against
+                                  # recompute profiled
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -198,6 +201,19 @@ non-zero before the result line):
    busy, idle share of E, T against greedy, S1-S3). The kernel phase also
    checks and times paged prefill at the verify shape (labels ``verify``;
    device time by ``kernel_device_ms``).
+8. the host KV tier, tinyllama-1.1b at full width in fp32, after the
+   modes' profile: ``tier_phase`` (paths W1-W7 over 8 open-load requests
+   with path A's shared prefix: swap preemption async and ``--sync-swap``
+   over a pool of 12 blocks, int8 blocks, chunked with a victim swapped
+   mid-prefill, sampled, a warm start from a saved prefix cache, the TTFT
+   budget tuner; streams equal to the recompute runs and to paths A / C,
+   swaps resumed, bytes accounted by block, no host block left to a
+   handle, the host tier pinned, every kernel of each path launched);
+   ``tier_transfer_phase`` (swap-out + drain and swap-in of 5- and
+   128-block chains, fp32 and int8, device and host time, beside plain
+   pinned and pageable copies of the same bytes); ``tier_profile_phase``
+   (M1: W1's wall, busy and idle share against recompute under the same
+   pool).
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -245,6 +261,10 @@ NB = -(-MAX_LEN // BS)
 # core (paths S1-S3); the verify pass's kernel case (row 5v)
 TEMP, TOP_K, SAMPLE_SEED = 0.8, 40, 7
 SPEC_W, SPEC_K, SPEC_CORE = 4, 4, 8
+# the host tier's paths W1-W3 and W5: a pool of 12 blocks, so four slots
+# of four blocks must preempt; W4 (chunked) 10: the chunked engine takes
+# prompt blocks chunk by chunk, and 12 hold its schedule without a swap
+TIER_BLOCKS, TIER_CHUNK_BLOCKS = 12, 10
 VERIFY_STARTS = (33, 47, 60, 18)
 VERIFY_LABEL = "verify: paged prefill q (4,4,32,64) starts (33,47,60,18)"
 
@@ -1639,9 +1659,12 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
 def _profile_run(label, eng, reqs, also=()):
     """Wall time of ``eng`` serving ``reqs`` (host clock, unprofiled,
     ending in a synchronise) after a warm run, then the device busy time
-    of an identical run under ``torch.profiler``. Idle share = 1 - busy /
-    wall. Kernels whose names hold one of ``also`` are printed too, below
-    the top ones."""
+    of an identical run under ``torch.profiler`` (CUDA activity), summed
+    from the profiler's raw records: building its event tree, which
+    ``key_averages`` needs, takes minutes at these runs' hundreds of
+    thousands of launches. Idle share = 1 - busy / wall. Prints the top
+    kernels by device time, those whose names hold one of ``also`` below
+    them, and the host-to-device copies."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     eng.run(reqs, load="closed")                       # warm
@@ -1650,25 +1673,29 @@ def _profile_run(label, eng, reqs, also=()):
     eng.run(reqs, load="closed")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(reqs, load="closed")
         torch.cuda.synchronize()
-    events = sorted(_device_events(prof), key=_self_device_us, reverse=True)
-    busy = sum(_self_device_us(e) for e in events) / 1e6
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = by.get(e.name(), (0.0, 0))
+            by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    busy = sum(us for us, _ in by.values()) / 1e6
     tokens = sum(r.max_new_tokens for r in reqs)
     log(f"profile ({label}): wall {wall:.6f} s, device busy {busy:.6f} s, "
         f"idle share {1 - busy / wall:.4f}, tokens/s {tokens / wall:.6g}, "
-        f"programs {eng.programs_run}")
-    named = [e for e in events[12:] if any(a in e.key for a in also)]
-    for e in events[:12] + named:
-        log(f"  device {_self_device_us(e) / 1e3:10.3f} ms  x{e.count:6d}  "
-            f"{e.key[:110]}")
+        f"programs {eng.programs_run}, device records "
+        f"{sum(n for _, n in by.values())}")
+    ranked = sorted(by.items(), key=lambda kv: -kv[1][0])
+    named = [kv for kv in ranked[12:] if any(a in kv[0] for a in also)]
+    for name, (us, n) in ranked[:12] + named:
+        log(f"  device {us / 1e3:10.3f} ms  x{n:6d}  {name[:110]}")
     # host-to-device copies: the paged engine's block tables (built in
     # numpy on the host) cross once per program
-    h2d = [e for e in events if "HtoD" in e.key]
-    log(f"  host-to-device copies: {sum(e.count for e in h2d)} taking "
-        f"{sum(_self_device_us(e) for e in h2d) / 1e3:.3f} ms of device time")
+    h2d = [v for name, v in by.items() if "HtoD" in name]
+    log(f"  host-to-device copies: {sum(n for _, n in h2d)} taking "
+        f"{sum(us for us, _ in h2d) / 1e3:.3f} ms of device time")
     return wall, busy
 
 
@@ -2010,43 +2037,10 @@ def verify_teacher_forced_phase(tol: float = 2e-3):
     return out
 
 
-def _kineto_profile_run(label, eng, reqs):
-    """``_profile_run``'s wall, device busy time and idle share, with the
-    busy time summed from the profiler's raw CUDA records (CUDA activity
-    only): building its event tree, which ``key_averages`` needs, takes
-    minutes at these runs' hundreds of thousands of launches. Prints the
-    top kernels by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    eng.run(reqs, load="closed")                       # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run(reqs, load="closed")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.run(reqs, load="closed")
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            us, n = by.get(e.name(), (0.0, 0))
-            by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
-    busy = sum(us for us, _ in by.values()) / 1e6
-    tokens = sum(r.max_new_tokens for r in reqs)
-    log(f"profile ({label}): wall {wall:.6f} s, device busy {busy:.6f} s, "
-        f"idle share {1 - busy / wall:.4f}, tokens/s {tokens / wall:.6g}, "
-        f"programs {eng.programs_run}, device records "
-        f"{sum(n for _, n in by.values())}")
-    for name, (us, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"  device {us / 1e3:10.3f} ms  x{n:6d}  {name[:110]}")
-    return wall, busy
-
-
 def modes_profile_phase():
     """Where the time goes in the new modes, as ``profile_phase`` reads
     it (4 requests of prompt 32 and 33 tokens, a warm run first; the busy
-    time from the raw records, ``_kineto_profile_run``): the
+    time from the raw records, ``_profile_run``): the
     slotted two-phase run greedy and sampled (temperature 0.8, top-k 40),
     slotted chunked (path E), and speculation over programs of 4 (paths
     S1-S3, on the tiled-core prompts)."""
@@ -2087,13 +2081,484 @@ def modes_profile_phase():
                                kv_dtype="int8"))):
         eng = ServeEngine(cfg, params, opts, link, n_slots=SLOTS,
                           max_len=MAX_LEN, **kw)
-        out[label] = _kineto_profile_run(label, eng, rq)
+        out[label] = _profile_run(label, eng, rq)
         if eng.proposer is not None:
             u = eng.utilization()
             log(f"  verify steps {u['spec_steps']} of {eng.programs_run} "
                 f"programs, acceptance rate "
                 f"{u.get('spec_acceptance_rate')}, tokens per verify step "
                 f"{u.get('spec_tokens_per_step')} (the three runs)")
+    del params
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the host KV tier at full width (tinyllama-1.1b, fp32): swap preemption,
+# prefix demotion and promotion, the persistent prefix cache, the TTFT
+# budget tuner
+# ---------------------------------------------------------------------------
+
+def _tier_serve(cfg, params, lk, opts, reqs, spy=False, **kw):
+    """One engine run as ``run_engine`` makes it (a warm request through
+    the same programs, its index blocks shed, counters reset), launch
+    counts zeroed just before the timed run and read just after; every
+    request must finish with its budget. With ``spy`` the engine records,
+    for each swap preemption, whether the victim was mid-prefill. Returns
+    (report, streams, launch counts, engine, mid-prefill flags)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine, serve_report
+    from repro_torch.serve import synthetic_requests
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS,
+                      max_len=MAX_LEN, **kw)
+    eng.run(synthetic_requests(1, PROMPT, eng.tokens_per_program + 1,
+                               cfg.vocab_size, seed=1), load="closed")
+    eng.kv.drop_prefix_cache()
+    eng.reset_counters()
+    mid = []
+    if spy:
+        orig = eng._preempt
+
+        def preempt(slot):
+            mid.append(eng.sched.active[slot].prefilling)
+            orig(slot)
+        eng._preempt = preempt
+    ops.reset_launch_counts()
+    comps, wall = eng.run(reqs, load="open")
+    counts = ops.launch_counts()
+    rep = serve_report(comps, wall, eng.utilization())
+    want = sum(r.max_new_tokens for r in reqs)
+    if rep["requests"] != len(reqs) or rep["total_tokens"] != want:
+        raise AssertionError(f"{rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{len(reqs)} x {want // len(reqs)}")
+    return (rep, {c.rid: c.tokens.tolist() for c in comps}, counts, eng,
+            mid)
+
+
+TIER_KEYS = ("swap_preemptions", "swap_resumes", "preemptions",
+             "kv_swap_out_blocks", "kv_swap_in_blocks", "kv_host_bytes_moved",
+             "kv_host_bytes_moved_raw", "kv_bytes_per_block",
+             "kv_prefix_demotions", "kv_prefix_promotions",
+             "kv_stream_transfers", "kv_prefetch_issued", "kv_prefetch_hits",
+             "kv_prefetch_cancels", "kv_swap_fails", "kv_async_swap",
+             "kv_host_blocks_total", "kv_host_blocks_hwm", "kv_blocks_hwm",
+             "budget_adjustments", "chunk_budget", "prefix_cache_restored")
+
+
+def tier_phase():
+    """Paths W1-W7 at full width, fp32, ``nss_shortcut``, 4 slots, prompt
+    32, gen 32, max_len 72, 8 open-load requests sharing path A's 16-token
+    prefix (seed 0, 25 requests/s), blocks of 16; W1-W5 over a pool of
+    ``TIER_BLOCKS`` (12: four slots of four blocks must preempt; W4 over
+    ``TIER_CHUNK_BLOCKS``, 10):
+
+    W1  ``--preempt swap``, async (the side-stream copies, prefetch)
+    W2  W1 with ``--sync-swap``
+    W3  W1 over int8 blocks
+    W4  W1 chunked (budget 48, chunks of 24): a victim swapped mid-prefill
+    W5  W1 sampled (temperature 0.8, top-k 40, seed 7)
+    W6  a warm start: requests whose 32-token prompts are one shared
+        prefix; the cold run saves the prefix cache and a new engine
+        restarts from it
+    W7  chunked (budget 48, chunks of 24) with a TTFT SLO of 1 ms, which
+        no request meets, so the tuner raises the budget
+
+    Gates: the streams of W1 and W2 equal the recompute run under the
+    same pool and path A's, W5's the sampled recompute run's; W3's equal
+    path C's (against its recompute run they are printed: a recompute
+    victim re-admits through a suffix prefill over dequantized blocks);
+    W4's the chunked recompute run's and path A's; W2's W1's; W6's
+    restart its cold run's; W7's path A's. W1-W5: swap_preemptions >= 1 == swap_resumes; W1: prefetch hits
+    >= 1; every byte the tier moved accounted as whole blocks
+    (``kv_host_bytes_moved`` == (swapped out + in + demoted + promoted
+    blocks) x ``kv_bytes_per_block``); no host block left to a handle
+    after the run; the host tensors pinned. W3's blocks >= 1.9x smaller
+    than W1's. W6: restored entries and promotions > 0. W7: budget
+    adjustments >= 1. Every kernel of each path launched (and no
+    unquantized paged kernel on W3, no quantized one elsewhere). Returns
+    the launch counts by path."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SamplingConfig, preset
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import Request, synthetic_requests
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(REQUESTS, PROMPT, GEN, cfg.vocab_size, seed=0,
+                              rate=25.0, shared_prefix_len=SHARED)
+    sc = SamplingConfig(temperature=TEMP, top_k=TOP_K, seed=SAMPLE_SEED)
+    base = dict(kv="paged", block_size=BS)
+    tight = dict(base, num_blocks=TIER_BLOCKS)
+    chunk = dict(chunked=True, chunk_budget=BUDGET, chunk_width=CHUNK_W)
+    unquantized = ("paged_decode", "paged_prefill")
+    quantized = ("paged_decode_quant", "paged_prefill_quant")
+    two_phase = ("flash_attention", "paged_decode", "rmsnorm")
+    chunked = ("paged_prefill", "paged_decode", "rmsnorm")
+    runs, counts = {}, {}
+
+    def serve(name, rq=reqs, spy=False, **kw):
+        rep, streams, c, eng, mid = _tier_serve(cfg, params, lk, opts, rq,
+                                                spy=spy, **kw)
+        runs[name] = (rep, streams, eng, mid)
+        counts[name] = c
+        log(f"serve report (tier {name}):", json.dumps(rep))
+        log(f"launches (tier {name}):", c)
+        log(f"tier {name}: " + ", ".join(f"{k} {rep[k]}" for k in TIER_KEYS
+                                         if k in rep)
+            + f"; tokens/s {rep['tokens_per_s']:.6g}")
+        return rep, streams
+
+    def same(name, other, what):
+        got, want = runs[name][1], runs[other][1]
+        agree = _agreement(got, want)
+        log(f"tier {name}: streams vs {what} ({other}): {agree}")
+        if got != want:
+            raise AssertionError(f"tier {name}: streams differ from "
+                                 f"{what} ({other}): {agree}")
+
+    def launched(name, want, never):
+        for k in want:
+            if counts[name].get(k, 0) < 1:
+                raise AssertionError(f"tier {name}: kernel {k} was never "
+                                     "launched")
+        for k in never:
+            if counts[name].get(k, 0):
+                raise AssertionError(f"tier {name} launched {k} "
+                                     f"{counts[name][k]} times")
+
+    def swapped(name, prefetch_hits=0):
+        rep, _, eng, _ = runs[name]
+        if rep["swap_preemptions"] < 1:
+            raise AssertionError(f"tier {name}: no swap preemption (pool of "
+                                 f"{rep['kv_blocks_total']} blocks)")
+        if rep["swap_resumes"] != rep["swap_preemptions"]:
+            raise AssertionError(f"tier {name}: {rep['swap_resumes']} "
+                                 f"resumes of {rep['swap_preemptions']} "
+                                 "swaps")
+        if rep["kv_prefetch_hits"] < prefetch_hits:
+            raise AssertionError(f"tier {name}: {rep['kv_prefetch_hits']} "
+                                 "prefetch hits")
+        tier(name)
+
+    def tier(name):
+        rep, _, eng, _ = runs[name]
+        blocks = (rep["kv_swap_out_blocks"] + rep["kv_swap_in_blocks"]
+                  + rep["kv_prefix_demotions"] + rep["kv_prefix_promotions"])
+        if rep["kv_host_bytes_moved"] != blocks * rep["kv_bytes_per_block"]:
+            raise AssertionError(f"tier {name}: {rep['kv_host_bytes_moved']}"
+                                 f" bytes moved for {blocks} blocks of "
+                                 f"{rep['kv_bytes_per_block']}")
+        host = eng.kv.host
+        if host.n_resident != len(eng.kv.host_map):
+            raise AssertionError(f"tier {name}: {host.n_resident} host "
+                                 f"blocks held, {len(eng.kv.host_map)} "
+                                 "of them prefixes")
+        if not all(t.is_pinned() for t in host.tensors()):
+            raise AssertionError(f"tier {name}: host tier not pinned")
+        swaps = rep["kv_swap_out_blocks"] + rep["kv_swap_in_blocks"]
+        log(f"tier {name}: swap blocks moved {swaps} "
+            f"({swaps * rep['kv_bytes_per_block']} bytes), prefix blocks "
+            f"{rep['kv_prefix_demotions']} demoted, "
+            f"{rep['kv_prefix_promotions']} promoted; host blocks held "
+            f"after the run {host.n_resident} (all prefixes), pinned")
+
+    serve("A", **base)
+    serve("C", **base, kv_dtype="int8")
+    serve("W1r", **tight, preempt="recompute")
+    serve("W1", **tight, preempt="swap")
+    swapped("W1", prefetch_hits=1)
+    launched("W1", two_phase, quantized)
+    same("W1", "W1r", "recompute, same pool")
+    same("W1", "A", "path A")
+    serve("W2", **tight, preempt="swap", async_swap=False)
+    swapped("W2")
+    launched("W2", two_phase, quantized)
+    same("W2", "W1", "async swap")
+    same("W2", "W1r", "recompute, same pool")
+    serve("W3r", **tight, preempt="recompute", kv_dtype="int8")
+    serve("W3", **tight, preempt="swap", kv_dtype="int8")
+    swapped("W3")
+    launched("W3", ("flash_attention", "paged_decode_quant", "rmsnorm"),
+             unquantized)
+    same("W3", "C", "path C")
+    log(f"tier W3: streams vs recompute, same pool (W3r): "
+        f"{_agreement(runs['W3'][1], runs['W3r'][1])} (not gated: a "
+        "recompute victim re-admits through a suffix prefill over its "
+        "dequantized prompt blocks)")
+    ratio = (runs["W1"][0]["kv_bytes_per_block"]
+             / runs["W3"][0]["kv_bytes_per_block"])
+    log(f"tier W3: bytes per block {runs['W3'][0]['kv_bytes_per_block']}, "
+        f"W1's / W3's {ratio:.4f}")
+    if ratio < 1.9:
+        raise AssertionError(f"tier W3: blocks only {ratio:.3f}x smaller")
+    tight4 = dict(base, num_blocks=TIER_CHUNK_BLOCKS)
+    serve("W4r", **tight4, **chunk, preempt="recompute")
+    serve("W4", spy=True, **tight4, **chunk, preempt="swap")
+    swapped("W4")
+    launched("W4", chunked, quantized)
+    mid = runs["W4"][3]
+    log(f"tier W4: swap victims mid-prefill {sum(mid)} of {len(mid)}")
+    if not any(mid):
+        raise AssertionError("tier W4: no victim was swapped mid-prefill")
+    same("W4", "W4r", "chunked recompute, same pool")
+    same("W4", "A", "two-phase (path A)")
+    serve("W5r", **tight, preempt="recompute", sampling=sc)
+    serve("W5", **tight, preempt="swap", sampling=sc)
+    swapped("W5")
+    launched("W5", two_phase, quantized)
+    same("W5", "W5r", "sampled recompute, same pool")
+    log(f"tier W5: sampled vs greedy (W1) "
+        f"{_agreement(runs['W5'][1], runs['W1'][1])} (not gated)")
+
+    # W6: identical 32-token prompts (one shared prefix), arriving as the
+    # open-load requests do
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, cfg.vocab_size, PROMPT, dtype=np.int32)
+    w6 = [Request(rid=r.rid, prompt=prefix.copy(), max_new_tokens=GEN,
+                  arrival_s=r.arrival_s) for r in reqs]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = os.path.join(tmp, "prefix.npz")
+        serve("W6 cold", w6, **base)
+        saved = runs["W6 cold"][2].save_prefix_cache(path)
+        log(f"tier W6: the cold run saved {saved} entries "
+            f"({os.path.getsize(path)} bytes)")
+        rep, _ = serve("W6", w6, **base, warm_start=path)
+        restored = runs["W6"][2].kv.restored_entries
+    log(f"tier W6: restored {restored} entries, promotions "
+        f"{rep['kv_prefix_promotions']}, shared tokens "
+        f"{rep['kv_prefix_shared_tokens']}")
+    if saved < 1 or restored < 1 or rep["kv_prefix_promotions"] < 1:
+        raise AssertionError(f"tier W6: saved {saved}, restored {restored},"
+                             f" promoted {rep['kv_prefix_promotions']}")
+    tier("W6")
+    launched("W6", ("paged_decode", "rmsnorm"), quantized)
+    same("W6", "W6 cold", "its cold run")
+
+    serve("W7", **base, **chunk, ttft_slo_s=1e-3)
+    rep = runs["W7"][0]
+    if rep["budget_adjustments"] < 1:
+        raise AssertionError("tier W7: the tuner never moved the budget")
+    log(f"tier W7: budget {BUDGET} -> {rep['chunk_budget']} after "
+        f"{rep['budget_adjustments']} adjustments; p50 TTFT "
+        f"{rep['p50_ttft_s']:.6f} s")
+    launched("W7", chunked, quantized)
+    same("W7", "A", "two-phase (path A)")
+    del params
+    return {n: counts[n] for n in ("W1", "W2", "W3", "W4", "W5", "W6",
+                                   "W7")}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def tier_transfer_phase(reps: int = 7):
+    """The tier's transfers at full width (22 layers, HKV 4, dh 64, blocks
+    of 16; 720,896 B a block fp32, 180,928 int8): ``swap_out`` + drain and
+    ``swap_in`` (plain, and after ``prefetch_swap_in``) of a 5-block and a
+    128-block chain, through ``PagedKV`` as the engine calls it. Device
+    time (CUDA events): swap-out from before the export to the side
+    stream's completion event; swap-in from before the call to after the
+    import (the host→device copy waits for the host gather into pinned
+    staging, so this spans it), and the copy and import alone from staging
+    already gathered. Host time: how long each call blocks the engine.
+    Beside them, in the same call, a plain pinned ``copy_`` of the same
+    bytes each way (the host link's rate) and a pageable one. Medians of
+    ``reps`` rounds after one warm round."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve.paging import BlockTable, PagedKV, import_chain
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    rows = []
+    ev = lambda: torch.cuda.Event(enable_timing=True)   # noqa: E731
+    for kvd in ("bf16", "int8"):
+        kv = PagedKV(cfg, params, opts, lk, 1, 128 * BS + 8, block_size=BS,
+                     num_blocks=130, host_blocks=130, kv_dtype=kvd)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        for layer in kv.cache:                 # blocks with content
+            for name in ("kp", "vp"):
+                x = torch.randn(layer[name].shape, generator=g,
+                                device="cuda")
+                if kvd == "bf16":
+                    layer[name].copy_(x)
+                else:
+                    layer[name].copy_(x.mul(40).round().clamp(-127, 127))
+        main = torch.cuda.current_stream()
+        for n in (5, 128):
+            t = {k: [] for k in ("out_host", "drain_host", "out_dev",
+                                 "in_host", "in_dev", "h2d_import_dev",
+                                 "pf_host", "pf_in_host", "pf_dev")}
+            for r in range(reps + 1):
+                blocks = [kv.pool.alloc() for _ in range(n)]
+                kv.chains[0] = BlockTable(blocks)
+                kv.tables_host[0, :n] = blocks
+                kv.pos_host[0] = n * BS
+                torch.cuda.synchronize()
+                e0 = ev()
+                e0.record(main)
+                h0 = time.perf_counter()
+                handle = kv.swap_out(0)
+                h1 = time.perf_counter()
+                e1 = ev()                          # after the side copy
+                e1.record(kv.stream.side_stream())
+                kv.drain_swaps()
+                h2 = time.perf_counter()
+                # the copy and import alone, from staging gathered before
+                staged = kv._read_host(handle.hblks)
+                dst = [kv.pool.alloc() for _ in range(n)]
+                torch.cuda.synchronize()
+                e6, e7 = ev(), ev()
+                e6.record(main)
+                import_chain(kv.cache, kv._to_device(staged),
+                             kv._blk_tensor(dst))
+                e7.record(main)
+                e7.synchronize()
+                for b in dst:
+                    kv.pool.free(b)
+                e2, e3 = ev(), ev()
+                e2.record(main)
+                h3 = time.perf_counter()
+                kv.swap_in(0, handle)
+                h4 = time.perf_counter()
+                e3.record(main)
+                e3.synchronize()
+                kv.release(0)
+                # the engine's resume path: prefetch under a device step,
+                # then the swap-in that consumes it
+                blocks = [kv.pool.alloc() for _ in range(n)]
+                kv.chains[0] = BlockTable(blocks)
+                kv.pos_host[0] = n * BS
+                handle = kv.swap_out(0)
+                kv.drain_swaps()
+                torch.cuda.synchronize()
+                e4, e5 = ev(), ev()
+                e4.record(main)
+                h5 = time.perf_counter()
+                kv.prefetch_swap_in(handle)
+                h6 = time.perf_counter()
+                kv.swap_in(0, handle)
+                h7 = time.perf_counter()
+                e5.record(main)
+                e5.synchronize()
+                kv.release(0)
+                if r == 0:
+                    continue                   # warm round
+                t["out_host"].append((h1 - h0) * 1e3)
+                t["drain_host"].append((h2 - h1) * 1e3)
+                t["out_dev"].append(e0.elapsed_time(e1))
+                t["in_host"].append((h4 - h3) * 1e3)
+                t["in_dev"].append(e2.elapsed_time(e3))
+                t["h2d_import_dev"].append(e6.elapsed_time(e7))
+                t["pf_host"].append((h6 - h5) * 1e3)
+                t["pf_in_host"].append((h7 - h6) * 1e3)
+                t["pf_dev"].append(e4.elapsed_time(e5))
+            nbytes = n * kv._block_bytes
+            dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+            pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            pageable = torch.empty(nbytes, dtype=torch.uint8)
+            copies = {}
+            for label, dst, src in (("d2h pinned", pinned, dev),
+                                    ("h2d pinned", dev, pinned),
+                                    ("d2h pageable", pageable, dev),
+                                    ("h2d pageable", dev, pageable)):
+                ms = []
+                for r in range(reps + 1):
+                    torch.cuda.synchronize()
+                    a, b = ev(), ev()
+                    a.record(main)
+                    dst.copy_(src, non_blocking=True)
+                    b.record(main)
+                    b.synchronize()
+                    if r:
+                        ms.append(a.elapsed_time(b))
+                copies[label] = _median(ms)
+            row = {"kv_dtype": kvd, "blocks": n, "bytes": nbytes,
+                   **{k: _median(v) for k, v in t.items()},
+                   **{f"copy {k}": v for k, v in copies.items()}}
+            rows.append(row)
+            gbs = lambda ms: nbytes / ms / 1e6          # noqa: E731
+            log(f"tier transfer {kvd} {n} blocks ({nbytes} B): swap_out "
+                f"host {row['out_host']:.4f} ms + drain "
+                f"{row['drain_host']:.4f} ms, device "
+                f"{row['out_dev']:.4f} ms ({gbs(row['out_dev']):.2f} GB/s);"
+                f" swap_in host {row['in_host']:.4f} ms, device "
+                f"{row['in_dev']:.4f} ms ({gbs(row['in_dev']):.2f} GB/s), "
+                f"of which the copy and import "
+                f"{row['h2d_import_dev']:.4f} ms "
+                f"({gbs(row['h2d_import_dev']):.2f} GB/s); "
+                f"prefetch host {row['pf_host']:.4f} ms + swap_in (hit) "
+                f"{row['pf_in_host']:.4f} ms, device {row['pf_dev']:.4f} "
+                "ms; plain copy_ d2h pinned "
+                f"{copies['d2h pinned']:.4f} ms "
+                f"({gbs(copies['d2h pinned']):.2f} GB/s), h2d pinned "
+                f"{copies['h2d pinned']:.4f} ms "
+                f"({gbs(copies['h2d pinned']):.2f} GB/s), d2h pageable "
+                f"{copies['d2h pageable']:.4f} ms "
+                f"({gbs(copies['d2h pageable']):.2f} GB/s), h2d pageable "
+                f"{copies['h2d pageable']:.4f} ms "
+                f"({gbs(copies['h2d pageable']):.2f} GB/s)")
+            del dev, pinned, pageable
+        del kv
+    log("tier transfers:", json.dumps(rows))
+    del params
+    return rows
+
+
+def tier_profile_phase():
+    """M1: where W1's time goes against recompute under the same pool, in
+    one call — 8 requests of prompt 32 (a shared 16-token prefix) and 33
+    tokens, closed load, a pool of ``TIER_BLOCKS`` blocks: wall
+    (unprofiled), device busy (raw CUDA records) and idle share of each
+    (``_profile_run``: warm, timed, profiled) and the tier counters
+    of the three runs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import ServeEngine, synthetic_requests
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(REQUESTS, PROMPT, GEN + 1, cfg.vocab_size,
+                              seed=7, shared_prefix_len=SHARED)
+    out = {}
+    for mode in ("recompute", "swap"):
+        label = (f"tier W1 ({mode}): {REQUESTS} requests, pool of "
+                 f"{TIER_BLOCKS} blocks")
+        eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS,
+                          max_len=MAX_LEN, kv="paged", block_size=BS,
+                          num_blocks=TIER_BLOCKS, preempt=mode)
+        out[mode] = _profile_run(label, eng, reqs)
+        u = eng.utilization()
+        log(f"  {mode}: " + ", ".join(f"{k} {u[k]}" for k in TIER_KEYS
+                                      if k in u) + " (the three runs)")
     del params
     return out
 
@@ -2916,6 +3381,11 @@ def main() -> int:
         phase(verify_teacher_forced_phase)
         phase(modes_profile_phase)
         return 0
+    if sys.argv[1:] == ["tier"]:
+        phase(tier_phase)
+        phase(tier_transfer_phase)
+        phase(tier_profile_phase)
+        return 0
     if sys.argv[1:] == ["mamba"]:
         phase(kernel_phase, gen, "jamba")
         phase(route_phase, gen, "jamba")
@@ -2931,6 +3401,9 @@ def main() -> int:
     mode_counts = phase(modes_phase)
     phase(verify_teacher_forced_phase)
     phase(modes_profile_phase)
+    tier_counts = phase(tier_phase)
+    phase(tier_transfer_phase)
+    phase(tier_profile_phase)
     route_rows = phase(route_phase, gen)
     rwkv_rows = phase(rwkv_scan_phase, gen)
     mamba_rows = phase(mamba_scan_phase, gen)
@@ -2949,7 +3422,8 @@ def main() -> int:
                "moe slotted open": moe_counts,
                "rwkv slotted open": rwkv_counts,
                "mamba slotted open": mamba_counts,
-               **{f"modes {n}": c for n, c in mode_counts.items()}}
+               **{f"modes {n}": c for n, c in mode_counts.items()},
+               **{f"tier {n}": c for n, c in tier_counts.items()}}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",

@@ -8,9 +8,14 @@ Two paths share one model/linkage setup:
                     closed-loop load, reporting tokens/s and p50/p99 latency.
                     ``--kv paged`` swaps the dense slot rows for the paged
                     block-table subsystem (demand allocation, CoW prefix
-                    sharing, recompute preemption), and ``--kv-dtype
-                    int8|fp8`` stores its blocks quantized (per-block
-                    scales, read by the fused-dequant kernels).
+                    sharing, recompute or ``--preempt swap`` preemption
+                    against a host block tier of ``--host-blocks``, async
+                    unless ``--sync-swap``), ``--prefix-cache PATH``
+                    warm-starts from a saved prefix cache and saves it
+                    back, and ``--kv-dtype int8|fp8`` stores its blocks
+                    quantized (per-block scales, read by the fused-dequant
+                    kernels). ``--ttft-slo MS`` tunes the chunked budget
+                    to a TTFT target.
                     ``--chunked`` serves chunked prefill on either
                     backend; ``--spec-decode ngram`` drafts from each
                     slot's history and verifies the drafts in one program
@@ -26,6 +31,11 @@ Two paths share one model/linkage setup:
           --chunk-width 24
       python -m repro_torch.launch.serve --kv paged --kv-dtype int8 \\
           [--chunked]
+      python -m repro_torch.launch.serve --kv paged --num-blocks 12 \\
+          --preempt swap [--sync-swap] [--host-blocks N]
+      python -m repro_torch.launch.serve --kv paged --prefix-cache p.npz
+      python -m repro_torch.launch.serve --kv paged --chunked --budget 48 \\
+          --ttft-slo 200                       # the TTFT budget tuner
       python -m repro_torch.launch.serve --chunked --budget 48 \\
           --chunk-width 24                     # slotted chunked prefill
       python -m repro_torch.launch.serve --kv paged --spec-decode ngram \\
@@ -56,10 +66,10 @@ fp32); the CLI has no depth option, as the JAX launcher has none. RWKV and
 Mamba layers carry a recurrent state, so rwkv6-7b and jamba-v0.1-52b run
 on the slotted backend only: ``--kv paged``, ``--bucket-prompts``,
 ``--chunked`` and ``--spec-decode`` raise ``ValueError``, as in JAX.
-Swap (quantized blocks included), the prefix cache and meshes raise
-``NotImplementedError`` naming their ROADMAP item, alone or beside the
-other options; ``--kv-dtype int8|fp8`` without ``--kv paged`` raises
-``ValueError``. ``--load seq`` decodes greedily, as JAX's does.
+Meshes raise ``NotImplementedError`` naming their ROADMAP item (13);
+``--kv-dtype int8|fp8`` or ``--prefix-cache`` without ``--kv paged``
+raise ``ValueError``, as in JAX. ``--load seq`` decodes greedily, as
+JAX's does.
 """
 from __future__ import annotations
 
@@ -120,6 +130,8 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                shared_prefix_len: int = 0, chunked: bool = False,
                budget: int = 256, chunk_width: int = 0,
                preempt: str = "recompute", victim: str = "youngest",
+               host_blocks: int = 0, async_swap: bool = True,
+               prefix_cache: str = "", ttft_slo: float = 0.0,
                kv_dtype: str = "bf16", spec_decode: str = "none",
                spec_width: int = 0, trace: str = "", metrics: str = "",
                log_interval: float = 0.0, profile_dir: str = "",
@@ -129,18 +141,29 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
     depth, say); ``dtype`` ("fp32" or "bf16") is the activation and
     parameter dtype.
 
+    ``prefix_cache`` persists the host tier across runs: the engine warm
+    starts from the file when it exists and saves back to it after the
+    timed run (``prefix_cache_restored`` / ``prefix_cache_saved`` in the
+    report). ``ttft_slo`` (ms, 0 = off) tunes the chunked budget.
+
     ``trace`` writes the run's Chrome-trace JSON (``.jsonl`` suffix: raw
     JSONL), ``metrics`` the Prometheus text exposition, ``log_interval``
     prints a one-line stats log every S seconds, ``profile_dir`` captures a
     ``torch.profiler`` trace around the first post-warmup steps. All empty
     by default: the engine then runs with the zero-cost NULL_TELEMETRY.
     """
+    import os
+
     from repro_torch.core import MetricWriter, SamplingConfig
     from repro_torch.serve import (PreemptionPolicy, ServeEngine, Telemetry,
                                    serve_report, synthetic_requests)
 
     if requests < 1:
         raise ValueError("need --requests >= 1")
+    if prefix_cache and kv != "paged":
+        # fail before the (possibly long) run, not at the save afterwards
+        raise ValueError("--prefix-cache needs --kv paged (dense slot rows "
+                         "have no prompt-keyed blocks to persist)")
     sampling = SamplingConfig(temperature=temperature, top_k=top_k,
                               seed=seed)
     cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
@@ -166,12 +189,17 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
         tel = Telemetry(trace=bool(trace), log_interval=log_interval,
                         sink=sink,
                         const_labels={"backend": kv, "preset": preset_name})
+    warm_start = (prefix_cache if prefix_cache
+                  and os.path.exists(prefix_cache) else None)
     eng = ServeEngine(cfg, params, opts, lk, n_slots=n_slots, max_len=max_len,
                       kv=kv, block_size=block_size,
                       num_blocks=num_blocks or None, sampling=sampling,
                       bucket_prompts=bucket_prompts, chunked=chunked,
                       chunk_budget=budget, chunk_width=chunk_width,
                       preempt=PreemptionPolicy(mode=preempt, victim=victim),
+                      host_blocks=host_blocks, async_swap=async_swap,
+                      warm_start=warm_start,
+                      ttft_slo_s=ttft_slo / 1e3 if ttft_slo > 0 else None,
                       kv_dtype=kv_dtype, spec_decode=spec_decode,
                       spec_width=spec_width, telemetry=tel)
 
@@ -219,6 +247,10 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
     })
     if load == "open":
         rep["offered_rate_req_s"] = rate
+    if warm_start:
+        rep["prefix_cache_restored"] = eng.kv.restored_entries
+    if prefix_cache:
+        rep["prefix_cache_saved"] = eng.save_prefix_cache(prefix_cache)
     return rep
 
 
@@ -324,12 +356,27 @@ def main(argv=None) -> int:
     p.add_argument("--preempt", default="recompute",
                    choices=["recompute", "swap"],
                    help="paged pool-pressure policy: recompute replays the "
-                        "victim from scratch (swap is ROADMAP module item 8 "
-                        "and raises)")
+                        "victim from scratch; swap copies its blocks to the "
+                        "host tier and resumes without re-prefill")
     p.add_argument("--victim", default="youngest",
                    choices=["youngest", "lru"],
                    help="preemption victim: youngest admission, or the "
                         "least-recently-emitting slot")
+    p.add_argument("--host-blocks", type=int, default=0,
+                   help="paged: host-tier pool size in blocks (0 = auto: "
+                        "mirror the device pool when --preempt swap or a "
+                        "prefix cache is in play, else disabled)")
+    p.add_argument("--sync-swap", action="store_true",
+                   help="paged: blocking tier transfers instead of the "
+                        "async swap stream (side CUDA stream, resume-head "
+                        "prefetch); token streams are identical either way")
+    p.add_argument("--prefix-cache", default="",
+                   help="paged: persist the prefix cache at this path — "
+                        "warm-start from it when it exists, save back after "
+                        "the run (prompt-token-keyed, config-fingerprinted)")
+    p.add_argument("--ttft-slo", type=float, default=0.0,
+                   help="chunked: target TTFT in ms — AIMD-adjusts the "
+                        "token budget after each completion (0 = off)")
     p.add_argument("--chunked", action="store_true",
                    help="chunked prefill — one unified program per engine "
                         "step (decode tokens first, budget-packed prompt "
@@ -388,16 +435,14 @@ def main(argv=None) -> int:
                    help="paged: block storage — bf16 keeps the activation "
                         "dtype (the uncompressed control), int8/fp8 store "
                         "per-block scaled codes")
-    # the JAX launcher's options that later slices bring (each raises
+    # the JAX launcher's option that a later slice brings (it raises
     # NotImplementedError unless left at its default)
     p.add_argument("--mesh", default="")
-    p.add_argument("--prefix-cache", default="")
     args = p.parse_args(argv)
 
     from repro_torch.serve import check_slice
     check_slice(kv=args.kv, spec_decode=args.spec_decode, mesh=args.mesh,
-                kv_dtype=args.kv_dtype, preempt=args.preempt,
-                prefix_cache=args.prefix_cache)
+                kv_dtype=args.kv_dtype)
     if args.load == "seq":
         rep = run_server(args.arch, args.preset, batch=args.batch,
                          prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -420,6 +465,10 @@ def main(argv=None) -> int:
                          chunked=args.chunked, budget=args.budget,
                          chunk_width=args.chunk_width,
                          preempt=args.preempt, victim=args.victim,
+                         host_blocks=args.host_blocks,
+                         async_swap=not args.sync_swap,
+                         prefix_cache=args.prefix_cache,
+                         ttft_slo=args.ttft_slo,
                          kv_dtype=args.kv_dtype,
                          spec_decode=args.spec_decode,
                          spec_width=args.spec_width,

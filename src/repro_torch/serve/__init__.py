@@ -5,9 +5,10 @@ at any point of the linkage spectrum, with ordinary co-processes
 from repro_torch.serve.cache import (KVBackend, SlottedKV, init_slot_cache,
                                      slotify, write_slot)
 from repro_torch.serve.engine import ServeEngine, check_slice, serve_report
-from repro_torch.serve.paging import (BlockPool, BlockTable, PagedKV,
-                                      PrefixIndex, init_paged_cache)
-from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
+from repro_torch.serve.paging import (BlockPool, BlockTable, HostBlockStore,
+                                      PagedKV, PrefixIndex, SwapHandle,
+                                      SwapStream, init_paged_cache)
+from repro_torch.serve.scheduler import (MIN_BUCKET, BudgetTuner, Completion,
                                          DraftProposer, PreemptionPolicy,
                                          Request,
                                          SlotScheduler, SlotState, bucket_len,
@@ -15,11 +16,11 @@ from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
 __all__ = [
-    "BlockPool", "BlockTable", "Completion", "DraftProposer", "KVBackend",
-    "MIN_BUCKET",
+    "BlockPool", "BlockTable", "BudgetTuner", "Completion", "DraftProposer",
+    "HostBlockStore", "KVBackend", "MIN_BUCKET",
     "NULL_TELEMETRY", "PagedKV", "PreemptionPolicy", "PrefixIndex",
     "Request", "ServeEngine", "SlotScheduler", "SlotState", "SlottedKV",
-    "Telemetry", "bucket_len", "check_slice", "init_paged_cache",
-    "init_slot_cache", "pack_chunks", "serve_report", "slotify",
-    "synthetic_requests", "write_slot",
+    "SwapHandle", "SwapStream", "Telemetry", "bucket_len", "check_slice",
+    "init_paged_cache", "init_slot_cache", "pack_chunks", "serve_report",
+    "slotify", "synthetic_requests", "write_slot",
 ]

@@ -21,9 +21,13 @@ Device memory is owned by a ``KVBackend`` (``kv=``):
 
   slotted    one dense ``max_len`` row per slot (``SlottedKV``).
   paged      demand-allocated fixed-size blocks, per-slot block tables,
-             copy-on-write prefix sharing and recompute preemption under
-             pool pressure (``repro_torch.serve.paging.PagedKV``). Admission
-             is gated on free *blocks*.
+             copy-on-write prefix sharing and, under pool pressure,
+             recompute or swap-out preemption against a host block tier
+             (``PreemptionPolicy``; swapped sequences resume without
+             re-prefill, evicted shared prefixes demote to the host and
+             persist across restarts via ``save_prefix_cache`` /
+             ``warm_start``) (``repro_torch.serve.paging.PagedKV``).
+             Admission is gated on free *blocks*.
 
 Two step disciplines: two-phase (admission runs a blocking prefill, then
 the occupied slots decode together) and chunked (``chunked=True``, on
@@ -44,11 +48,15 @@ decode, whichever backend, step discipline or speculation serves it
 The paged backend stores its blocks at ``kv_dtype`` "bf16" (the
 activation dtype, the uncompressed control), "int8" or "fp8" (per-block
 scaled codes, read by the fused-dequant kernels); the slotted backend
-takes only "bf16" and raises ``ValueError`` otherwise.
+takes only "bf16" and raises ``ValueError`` otherwise. Under async swap
+(the default) the step boundary drains the swap stream and resumes
+swapped slots before any admission, and the host work of the next step —
+draining, prefetching the resume head's chain, packing chunk grants — runs
+under the dispatched device program. With ``ttft_slo_s`` a
+``BudgetTuner`` moves the chunked token budget after every completion.
 
-Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
-item: swap preemption and the prefix cache (item 8) and device meshes
-(item 13).
+Device meshes raise ``NotImplementedError`` naming their ROADMAP item
+(13); the fleet's handoff entry points are item 10.
 """
 from __future__ import annotations
 
@@ -64,9 +72,10 @@ from repro_torch.core.coprocess import AdmissionWorker
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.core.step import SamplingConfig, program_label
 from repro_torch.serve.cache import KVBackend, SlottedKV
-from repro_torch.serve.scheduler import (MIN_BUCKET, Completion,
-                                         DraftProposer, PreemptionPolicy,
-                                         Request, SlotScheduler, bucket_len,
+from repro_torch.serve.scheduler import (MIN_BUCKET, BudgetTuner,
+                                         Completion, DraftProposer,
+                                         PreemptionPolicy, Request,
+                                         SlotScheduler, bucket_len,
                                          pack_chunks)
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
@@ -80,21 +89,15 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
 
 
 def check_slice(*, kv: str = "slotted", spec_decode: str = "none", mesh=None,
-                kv_dtype: str = "bf16", preempt: str = "recompute",
-                prefix_cache=None) -> None:
+                kv_dtype: str = "bf16") -> None:
     """Raise ``NotImplementedError`` for a serving option this port does not
-    have yet, naming the ROADMAP item that brings it (alone or beside
-    chunked prefill or speculation), and ``ValueError`` for a combination
-    the reference rejects too."""
+    have yet (device meshes), naming the ROADMAP item that brings it, and
+    ``ValueError`` for a combination the reference rejects too."""
     if kv not in KV_BACKENDS:
         raise ValueError(f"unknown kv backend {kv!r}; known: {KV_BACKENDS}")
     if spec_decode not in SPEC_MODES:
         raise ValueError(f"unknown spec_decode {spec_decode!r}; known: "
                          f"{SPEC_MODES}")
-    if preempt != "recompute":
-        raise _not_in_slice(f"preempt={preempt!r} (the host tier)", "8")
-    if prefix_cache:
-        raise _not_in_slice("the persistent prefix cache", "8")
     if mesh:
         raise _not_in_slice("mesh serving", "13")
     if kv == "slotted" and kv_dtype != "bf16":
@@ -130,9 +133,12 @@ class ServeEngine:
                  sampling: Optional[SamplingConfig] = None,
                  bucket_prompts: bool = False, chunked: bool = False,
                  chunk_budget: int = 256, chunk_width: int = 0,
-                 preempt="recompute", kv_dtype: str = "bf16",
-                 spec_decode: str = "none", spec_width: int = 0,
-                 telemetry: Optional[Telemetry] = None):
+                 preempt="recompute", host_blocks: Optional[int] = 0,
+                 warm_start: Optional[str] = None,
+                 ttft_slo_s: Optional[float] = None,
+                 kv_dtype: str = "bf16", spec_decode: str = "none",
+                 spec_width: int = 0, telemetry: Optional[Telemetry] = None,
+                 async_swap: bool = True):
         check_slice(kv=kv, spec_decode=spec_decode, kv_dtype=kv_dtype)
         linkage.validate()
         if n_slots < 1:
@@ -158,6 +164,9 @@ class ServeEngine:
                 raise ValueError(f"chunk_width must be in [1, max_len] "
                                  f"(got {self.chunk_width})")
         self.preempt = PreemptionPolicy.parse(preempt)
+        if ttft_slo_s is not None and not chunked:
+            raise ValueError("ttft_slo_s tunes the chunked token budget — "
+                             "it needs chunked=True")
         # speculative decode: a scheduler-side DraftProposer feeds W-wide
         # draft-and-verify programs; "none" never builds the verify program
         self.proposer: Optional[DraftProposer] = None
@@ -172,11 +181,24 @@ class ServeEngine:
         bucket_fn = self._bucket if bucket_prompts else None
         if kv == "paged":
             from repro_torch.serve.paging import PagedKV
+            hb = host_blocks
+            if hb in (0, None) and (self.preempt.mode == "swap"
+                                    or warm_start):
+                hb = None            # auto: mirror the device pool (and grow
+                                     # to fit the warm-start file)
             self.kv: KVBackend = PagedKV(
                 cfg, params, opts, linkage, n_slots, max_len, self.sampling,
                 bucket_fn, block_size=block_size, num_blocks=num_blocks,
-                chunked=chunked, kv_dtype=kv_dtype, spec=spec)
+                chunked=chunked, kv_dtype=kv_dtype, spec=spec,
+                host_blocks=hb, warm_start=warm_start,
+                async_swap=async_swap)
         else:
+            # host_blocks=None means "auto-size the host tier" on paged —
+            # reject it here too, not just explicit sizes
+            if warm_start or host_blocks != 0:
+                raise ValueError("the host tier (host_blocks / warm_start) "
+                                 "needs kv='paged': dense slot rows have no "
+                                 "block structure to spill")
             self.kv = SlottedKV(cfg, params, opts, linkage, n_slots, max_len,
                                 self.sampling, bucket_fn, chunked=chunked,
                                 spec=spec)
@@ -187,6 +209,12 @@ class ServeEngine:
         self._labels = {k: program_label(cfg, linkage, k)
                         for k in ("decode", "serve_chunk", "verify",
                                   "prefill_admit")}
+        self.tuner: Optional[BudgetTuner] = None
+        if ttft_slo_s is not None:
+            self.tuner = BudgetTuner(
+                slo_s=ttft_slo_s, budget=self.chunk_budget,
+                floor=max(1, self.tokens_per_program),
+                cap=(self.tokens_per_program + self.chunk_width) * n_slots)
         self._next = torch.zeros((n_slots,), dtype=torch.int32,
                                  device=self.device)
         self.sched = SlotScheduler(n_slots)
@@ -197,6 +225,8 @@ class ServeEngine:
         self.programs_run = 0
         self.tokens_wasted = 0       # decoded past a request's budget/EOS
         self.preemptions = 0         # paged: recompute-preempted admissions
+        self.swap_preemptions = 0    # paged: swap-out preempted (host tier)
+        self.swap_resumes = 0        # swapped slots resumed via swap-in
         self.prefill_tokens = 0      # prompt tokens admitted (incl. shared)
         self.decode_tokens = 0       # decode tokens produced
         self.spec_steps = 0          # verify programs run
@@ -256,6 +286,7 @@ class ServeEngine:
         tel.step("prefill_admit", self.programs_run, t0, 0.0, t1 - t0,
                  t2 - t1, tel.now() - t2, queued=self.sched.n_queued,
                  active=len(self.sched.active),
+                 swapped=len(self.sched.swapped),
                  program=self._labels["prefill_admit"])
         if st.remaining == 0 or st.eos_seen:
             return [self._finalize(slot, now_fn)]
@@ -286,17 +317,104 @@ class ServeEngine:
         self._preempt(self.sched.choose_victim(self.preempt.victim))
 
     def _preempt(self, slot: int) -> None:
-        """Recompute preemption: release everything the slot holds and
-        requeue its request at the head of the line (re-admission replays
-        its stream exactly)."""
+        """Evict ``slot`` under pool pressure, per the PreemptionPolicy:
+        swap parks the slot state and its host-tier KV for an exact resume;
+        recompute (or a failed swap: no host tier, or the tier held full)
+        releases everything and requeues the request at the head of the
+        line (re-admission replays its stream exactly)."""
+        rid = self.sched.active[slot].req.rid
+        if self.preempt.mode == "swap":
+            handle = self.kv.swap_out(slot)
+            if handle is not None:
+                st = self.sched.release(slot)
+                st.pending_drafts = None     # drafts die with the victim's
+                                             # step; resume re-proposes
+                # a copy: _next is written in place by later admissions
+                self.sched.suspend_front(st, (handle,
+                                              self._next[slot].clone()))
+                self.swap_preemptions += 1
+                now = self.tel.now()
+                self.tel.preempt(rid, slot, "swap", now)
+                self.tel.state(rid, "swapped", now)
+                # stage the resume-head victim's host→device copy while
+                # the victim's device blocks are being recycled
+                self._prefetch_head()
+                return
         st = self.sched.release(slot)
         self.kv.release(slot)
         self.sched.requeue_front(st.req)
         self.preemptions += 1
-        rid, now = st.req.rid, self.tel.now()
+        now = self.tel.now()
         self.tel.preempt(rid, slot, "recompute", now)
         self.tel.state(rid, "preempted", now)
         self.tel.state(rid, "queued", now)
+
+    def _resume_swapped(self) -> None:
+        """Swap suspended slot states back in, oldest first — they are the
+        head of the FIFO line, so fresh admissions wait behind them (the
+        discipline recompute's requeue_front imposes). Stops at the first
+        one the device pool cannot hold yet."""
+        while self.sched.can_resume():
+            handle, nxt = self.sched.peek_swapped()[1]
+            if not self.kv.can_swap_in(handle):
+                break                # FIFO: wait for blocks, don't skip ahead
+            slot, st, _ = self.sched.resume_next()
+            if not self.kv.swap_in(slot, handle):
+                # can_swap_in raced nothing (single-threaded); should it
+                # fail, recompute this request and free the handle's host
+                # blocks so the tier cannot leak
+                self.kv.drop_swap(handle)
+                self.sched.release(slot)
+                self.sched.requeue_front(st.req)
+                self.preemptions += 1
+                now = self.tel.now()
+                self.tel.preempt(st.req.rid, slot, "recompute", now)
+                self.tel.state(st.req.rid, "queued", now)
+                continue
+            self._next[slot] = nxt
+            self.swap_resumes += 1
+            self.tel.state(st.req.rid,
+                           "prefilling" if st.prefilling else "decoding",
+                           self.tel.now())
+        # whatever still waits: stage the new resume head's copy so its
+        # eventual swap-in is a prefetch hit
+        self._prefetch_head()
+
+    # -- async runtime: drain / prefetch / overlapped host work -------------
+
+    def _drain_swaps(self) -> int:
+        """Complete in-flight async swap transfers (no-op for backends
+        without a stream). Called at step boundaries and in the overlap
+        window, so deferred device→host copies never pile past the step."""
+        drain = getattr(self.kv, "drain_swaps", None)
+        return drain() if drain is not None else 0
+
+    def _prefetch_head(self) -> bool:
+        """Stage the host→device copy of the resume-head swapped victim
+        (smallest original admit_seq — the one ``_resume_swapped`` pops
+        first). Pure staging on the handle: no refcount moves until the
+        swap-in, and the synchronous path (``--sync-swap``) makes it a
+        no-op."""
+        pf = getattr(self.kv, "prefetch_swap_in", None)
+        if pf is None:
+            return False
+        head = self.sched.peek_swapped()
+        if head is None:
+            return False
+        return pf(head[1][0])
+
+    def _overlap_host_work(self) -> None:
+        """Host work pipelined under the just-dispatched device step: drain
+        the swap stream and stage the resume-head prefetch. Its cost lands
+        inside the step's device phase instead of its pack/host phases."""
+        tel = self.tel
+        t = tel.now()
+        if self._drain_swaps():
+            tel.overlap("drain", tel.now() - t)
+        if self.sched.swapped:
+            t = tel.now()
+            if self._prefetch_head():
+                tel.overlap("prefetch", tel.now() - t)
 
     def step(self, now_fn: Callable[[], float]) -> List[Completion]:
         """Run one decode program; harvest tokens; evict finished slots.
@@ -325,6 +443,7 @@ class ServeEngine:
         self._next = toks[:, -1].clone()
         self.programs_run += 1
         t2 = tel.now()
+        self._overlap_host_work()      # under the dispatched device step
         return ("decode", (toks, t0, t1, t2))
 
     def _step_end(self, pending, now_fn: Callable[[], float]
@@ -349,6 +468,7 @@ class ServeEngine:
         tel.step("decode", self.programs_run, t0, t1 - t0, t2 - t1, t3 - t2,
                  tel.now() - t3, queued=self.sched.n_queued,
                  active=len(self.sched.active),
+                 swapped=len(self.sched.swapped),
                  program=self._labels["decode"])
         return finished
 
@@ -437,6 +557,7 @@ class ServeEngine:
         tel.step("verify", self.programs_run, t0, t1 - t0, t2 - t1, t3 - t2,
                  tel.now() - t3, queued=self.sched.n_queued,
                  active=len(self.sched.active),
+                 swapped=len(self.sched.swapped),
                  program=self._labels["verify"])
         return finished
 
@@ -572,6 +693,7 @@ class ServeEngine:
         self.prefill_tokens += int(clen.sum())
         w2 = tel.now()
         tel.decode_microsteps(len(dec), K, w1)
+        self._overlap_host_work()      # under the dispatched device step
         # pack the next step's grants now, under the dispatched device
         # step, keyed on the exact inputs _plan_chunks will see; a miss
         # (admission or preemption changed the picture) just recomputes
@@ -621,6 +743,7 @@ class ServeEngine:
         tel.step("serve_chunk", self.programs_run, w0, w1 - w0, w2 - w1,
                  w3 - w2, tel.now() - w3, queued=self.sched.n_queued,
                  active=len(self.sched.active),
+                 swapped=len(self.sched.swapped),
                  program=self._labels["serve_chunk"])
         return finished
 
@@ -649,11 +772,15 @@ class ServeEngine:
     # -- driving loop -------------------------------------------------------
 
     def _admit_and_step(self, now_fn) -> List[Completion]:
-        """One engine tick: FIFO admissions into free slots, then one
-        program over the occupied ones."""
+        """One engine tick: at the step boundary drain the swap stream and
+        resume swapped slots, then FIFO admissions into free slots (behind
+        any swapped slot: they are the head of the line), then one program
+        over the occupied ones; each completion feeds the TTFT tuner."""
         finished = []
         self.tel.profile_tick(self.programs_run)
-        while self.sched.can_admit():
+        self._drain_swaps()          # step boundary: complete deferred copies
+        self._resume_swapped()
+        while self.sched.can_admit() and not self.sched.swapped:
             if not self.kv.has_room(int(self.sched.peek().prompt.shape[0])):
                 break                # FIFO: wait for memory, don't skip ahead
             if self.chunked:
@@ -663,6 +790,12 @@ class ServeEngine:
         if self.sched.active:
             finished += (self._step_chunked(now_fn) if self.chunked
                          else self.step(now_fn))
+        if self.tuner is not None:
+            for c in finished:
+                old = self.chunk_budget
+                self.chunk_budget = self.tuner.observe(c.ttft_s)
+                self.tel.budget_adjust(old, self.chunk_budget,
+                                       self.tel.now())
         return finished
 
     def run(self, requests: List[Request], *, load: str = "closed",
@@ -689,7 +822,7 @@ class ServeEngine:
                     self.sched.enqueue(r)
                     self.tel.state(r.rid, "queued", r.arrival_s)
                 if (not self.sched.active and not self.sched.can_admit()
-                        and not worker.exhausted):
+                        and not self.sched.swapped and not worker.exhausted):
                     r = worker.wait(timeout=0.05)   # device idle: block
                     if r is not None:
                         self.sched.enqueue(r)
@@ -715,6 +848,15 @@ class ServeEngine:
             raise ValueError(f"unknown load mode {load!r}")
         return completions, rel()
 
+    # -- prefix-cache persistence -------------------------------------------
+
+    def save_prefix_cache(self, path: str) -> int:
+        """Persist the KV hierarchy's prefix cache (host tier and shared
+        device prefixes) so a restarted engine (``warm_start=path``) serves
+        the same prompts without prefilling them again. Paged backend
+        only."""
+        return self.kv.save(path)
+
     # -- reporting ----------------------------------------------------------
 
     def utilization(self) -> dict:
@@ -726,8 +868,8 @@ class ServeEngine:
             "tokens_wasted": self.tokens_wasted,
             "preemptions": self.preemptions,
             "preempt_policy": f"{self.preempt.mode}/{self.preempt.victim}",
-            "swap_preemptions": 0,
-            "swap_resumes": 0,
+            "swap_preemptions": self.swap_preemptions,
+            "swap_resumes": self.swap_resumes,
             "prefill_tokens": self.prefill_tokens,
             "decode_tokens": self.decode_tokens,
         }
@@ -739,6 +881,9 @@ class ServeEngine:
         if self.chunked:
             u["chunk_budget"] = self.chunk_budget
             u["chunk_width"] = self.chunk_width
+        if self.tuner is not None:
+            u["ttft_slo_s"] = self.tuner.slo_s
+            u["budget_adjustments"] = self.tuner.adjustments
         if self.proposer is not None:
             u["spec_decode"] = "ngram"
             u["spec_width"] = self.spec_width
@@ -766,6 +911,8 @@ class ServeEngine:
         self.programs_run = 0
         self.tokens_wasted = 0
         self.preemptions = 0
+        self.swap_preemptions = 0
+        self.swap_resumes = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.spec_steps = 0
@@ -777,6 +924,8 @@ class ServeEngine:
             self.proposer.proposed_tokens = 0
             self.proposer.lookups = 0
             self.proposer.hits = 0
+        if self.tuner is not None:
+            self.tuner.adjustments = 0
         self.kv.reset_counters()
         self.tel.reset()
 

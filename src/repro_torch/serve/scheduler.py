@@ -1,12 +1,12 @@
 """Request/slot scheduling for the continuous-batching engine.
 
-The part of ``src/repro/serve/scheduler.py`` that the two-phase, chunked
-and speculative engines use, copied (numpy only): the port imports nothing
-of the JAX package, and a fixed seed must give the same requests, the same
-schedule and the same drafts in both. Recompute preemption, the chunk
-packer and the n-gram drafter (``DraftProposer``) are here; swap
-preemption and the budget tuner come with the slice that ports the host
-tier (ROADMAP module item 8).
+The part of ``src/repro/serve/scheduler.py`` that the single engine uses,
+copied (numpy only): the port imports nothing of the JAX package, and a
+fixed seed must give the same requests, the same schedule and the same
+drafts in both. Recompute and swap preemption (the swap-suspended queue),
+the chunk packer, the TTFT budget tuner (``BudgetTuner``) and the n-gram
+drafter (``DraftProposer``) are here; ``SlotScheduler.adopt``, the fleet's
+handoff entry, comes with the fleet (ROADMAP module item 10).
 
 Deterministic by construction: admission is FIFO over arrival order (ties
 broken by request id) and free slots are handed out lowest-index-first, so a
@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,8 +39,10 @@ class PreemptionPolicy:
       recompute  release the victim's blocks and requeue its request at the
                  head of the line — re-admission replays the stream from
                  scratch (prefill included).
-      swap       park the victim's blocks in a host tier and resume without
-                 re-prefill: not ported yet (ROADMAP module item 8).
+      swap       park the victim's blocks in the host tier and resume without
+                 re-prefill (``PagedKV.swap_out`` / ``swap_in``); a failed
+                 swap (no host tier, or the tier pinned full) falls back to
+                 recompute.
 
     ``victim`` names the ``SlotScheduler.choose_victim`` policy — victim
     selection is the scheduler's call, not the memory subsystem's.
@@ -58,10 +60,6 @@ class PreemptionPolicy:
         if self.victim not in self.VICTIMS:
             raise ValueError(f"unknown victim policy {self.victim!r}; "
                              f"known: {self.VICTIMS}")
-        if self.mode == "swap":
-            raise NotImplementedError(
-                "swap preemption (the host tier) is not ported yet (ROADMAP "
-                "module item 8)")
         return self
 
     @classmethod
@@ -70,6 +68,38 @@ class PreemptionPolicy:
         if isinstance(spec, cls):
             return spec.validate()
         return cls(mode=str(spec)).validate()
+
+
+@dataclasses.dataclass
+class BudgetTuner:
+    """AIMD controller tying the chunked engine's token budget to a TTFT
+    SLO (``--ttft-slo``), fed one observation per completion.
+
+    A completion's TTFT over the SLO → additive-increase the budget (absorb
+    prompts in fewer, bigger steps); TTFT comfortably inside the SLO
+    (< ``margin`` · slo) → multiplicative-decrease toward the floor
+    (smaller steps bound every other slot's decode stall). In between:
+    hold. The budget is a host-side knob — no rebuild; the chunk width W
+    caps any single grant regardless.
+    """
+    slo_s: float
+    budget: int
+    floor: int = 1
+    cap: int = 1 << 16
+    add: int = 16
+    mult: float = 0.75
+    margin: float = 0.5
+    adjustments: int = 0
+
+    def observe(self, ttft_s: float) -> int:
+        prev = self.budget
+        if ttft_s > self.slo_s:
+            self.budget = min(self.cap, self.budget + self.add)
+        elif ttft_s < self.margin * self.slo_s:
+            self.budget = max(self.floor, int(self.budget * self.mult))
+        if self.budget != prev:
+            self.adjustments += 1
+        return self.budget
 
 
 def bucket_len(n: int, max_len: int) -> int:
@@ -311,6 +341,10 @@ class SlotScheduler:
         self._queue: Deque[Request] = deque()
         self.active: Dict[int, SlotState] = {}
         self._admit_seq = 0
+        #: swap-preempted slot states waiting to resume (oldest first) —
+        #: ahead of the request queue in the FIFO line, exactly like
+        #: ``requeue_front`` puts recompute victims ahead of it
+        self.swapped: Deque[Tuple[SlotState, Any]] = deque()
 
     @property
     def n_free(self) -> int:
@@ -379,6 +413,46 @@ class SlotScheduler:
             return min(self.active, key=staleness)
         raise ValueError(f"unknown victim policy {policy!r}; known: "
                          f"{PreemptionPolicy.VICTIMS}")
+
+    # -- swap-preemption (suspended slot states) ----------------------------
+
+    def suspend_front(self, st: SlotState, handle: Any) -> None:
+        """Park a swap-preempted slot state ahead of the request queue in
+        the FIFO line (the swap analogue of ``requeue_front``). The parked
+        state keeps its original ``admit_seq``; resume order is decided by
+        it (``resume_next``), not by parking order — preemption order is
+        victim-policy-dependent (youngest-first, lru, ...) and only
+        youngest-first happens to unwind back to admission order."""
+        self.swapped.appendleft((st, handle))
+
+    def _resume_index(self) -> int:
+        """Index of the suspended state with the smallest original
+        ``admit_seq`` — the one ``peek_swapped`` and ``resume_next`` agree
+        on (FIFO by admission, whatever victim policy chose the
+        preemption order)."""
+        return min(range(len(self.swapped)),
+                   key=lambda i: self.swapped[i][0].admit_seq)
+
+    def peek_swapped(self) -> Optional[Tuple[SlotState, Any]]:
+        """The suspended state the next ``resume_next`` would pop."""
+        return self.swapped[self._resume_index()] if self.swapped else None
+
+    def can_resume(self) -> bool:
+        return bool(self.swapped) and bool(self._free)
+
+    def resume_next(self) -> tuple:
+        """Pop the suspended state with the oldest *original* admission
+        into the lowest free slot. The resumed slot takes a fresh
+        ``admit_seq`` — it is the youngest again, exactly like a recompute
+        victim re-admitted from the queue head."""
+        i = self._resume_index()
+        st, handle = self.swapped[i]
+        del self.swapped[i]
+        slot = heapq.heappop(self._free)
+        self._admit_seq += 1
+        st.admit_seq = self._admit_seq
+        self.active[slot] = st
+        return slot, st, handle
 
 
 # ---------------------------------------------------------------------------

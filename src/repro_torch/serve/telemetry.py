@@ -1,11 +1,11 @@
 """Engine telemetry: structured step tracing, metrics, lifecycle spans.
 
 The part of ``src/repro/serve/telemetry.py`` that the two-phase, chunked
-and speculative engines call, copied near-verbatim (numpy and the
-standard library only); the device-trace capture uses ``torch.profiler``
-where the JAX package used ``jax.profiler``. The hooks of the host tier
-and the fleet come with the slices that port those features (ROADMAP
-module items 8 and 10).
+and speculative engines and the host KV tier call, copied near-verbatim
+(numpy and the standard library only); the device-trace capture uses
+``torch.profiler`` where the JAX package used ``jax.profiler``. The
+fleet's hooks (``handoff``, ``set_engine``) come with the slice that
+ports the fleet (ROADMAP module item 10).
 
 UKL's pitch is that linking the hot process into the kernel *keeps* Linux's
 battle-tested observability — perf, ftrace, /proc — where classic unikernels
@@ -18,20 +18,22 @@ Three cooperating pieces:
 ``TraceRecorder``
     An append-only store of typed, timestamped events — ``engine_step``
     (with a pack / dispatch / device / host-bookkeeping phase breakdown),
-    ``decode_microsteps``, ``verify_window``, ``admit`` / ``complete`` —
-    plus per-request lifecycle *spans* (``queued → prefilling → decoding →
-    done``) keyed by rid. Exports as JSONL (one raw event per line) and
-    as Chrome-trace JSON (loadable in ``chrome://tracing`` / Perfetto:
-    engine steps are duration events on an "engine" track, requests are
-    async spans). The two exports round-trip: ``load_trace`` reads either
-    back into raw events.
+    ``prefill_chunk``, ``decode_microsteps``, ``verify_window``,
+    ``swap_out`` / ``swap_in`` / ``demote`` / ``promote``, ``preempt``,
+    ``admit`` / ``complete``, ``pack``, ``budget`` — plus per-request
+    lifecycle *spans* (``queued → prefilling → decoding → {swapped |
+    preempted} → done``) keyed by rid. Exports as JSONL (one raw event
+    per line) and as Chrome-trace JSON (loadable in ``chrome://tracing``
+    / Perfetto: engine steps are duration events on an "engine" track,
+    requests are async spans). The two exports round-trip:
+    ``load_trace`` reads either back into raw events.
 
 ``MetricsRegistry``
     Counters, gauges and monotonic-bucket histograms (TTFT, inter-token
-    latency, step duration) with labeled families. Renders a
-    Prometheus-style text exposition (``render``), a flat snapshot dict
-    (``snapshot``) — the co-process ``MetricWriter`` sink's payload — and a
-    one-line stats log (``line``).
+    latency, step duration, chunk utilization) with labeled families.
+    Renders a Prometheus-style text exposition (``render``), a flat
+    snapshot dict (``snapshot``) — the co-process ``MetricWriter`` sink's
+    payload — and a one-line stats log (``line``).
 
 ``Telemetry``
     The hook bundle the engine (and the KV backend) actually call. Each
@@ -74,26 +76,46 @@ EVENT_SCHEMA: Dict[str, frozenset] = {
     "admit": frozenset({"rid", "slot", "prompt_len"}),
     "complete": frozenset({"rid", "tokens", "ttft_s"}),
     "preempt": frozenset({"rid", "slot", "mode"}),
+    # block movement across the device<->host tier boundary
+    "swap_out": frozenset({"slot", "blocks", "bytes"}),
+    "swap_in": frozenset({"slot", "blocks", "bytes"}),
+    "demote": frozenset({"blocks", "bytes"}),
+    "promote": frozenset({"blocks", "bytes"}),
+    # a tier move that could not complete (host/device alloc exhaustion):
+    # ``op`` names the failed direction; the engine falls back to recompute
+    "swap_fail": frozenset({"slot", "blocks", "op"}),
+    # one drain of the async SwapStream: deferred device->host transfers
+    # completed at a step boundary (``transfers`` chains, ``blocks`` total)
+    "swap_stream": frozenset({"transfers", "blocks", "bytes"}),
+    # speculative host->device copy for the resume-head swapped victim:
+    # ``status`` is issued | hit (consumed by swap-in) | cancel (dropped)
+    "prefetch": frozenset({"blocks", "status"}),
     # host-side work hidden under device execution (dispatch pipelining):
-    # ``kind`` is pack; ``hidden_s`` the overlapped time
+    # ``kind`` is drain | prefetch | pack; ``hidden_s`` the overlapped time
     "overlap": frozenset({"kind", "hidden_s"}),
+    # a BudgetTuner adjustment of the chunked token budget
+    "budget": frozenset({"old", "new"}),
     # per-request lifecycle span transition (rid/state at top level)
     "span": frozenset(),
 }
 
 #: request lifecycle states, in nominal order
-SPAN_STATES = ("queued", "prefilling", "decoding", "preempted", "done")
+SPAN_STATES = ("queued", "prefilling", "decoding", "swapped", "preempted",
+               "done")
 
 #: the engine's legal lifecycle transitions (None = not yet seen).
 #: queued->prefilling is admission; prefilling->decoding is the last prompt
 #: chunk absorbed (the first generated token); a request whose budget is
-#: that one token goes straight to done; recompute preemption requeues the
-#: request (preempted->queued), mid-prefill or mid-decode.
+#: that one token goes straight to done; swap preemption parks a slot
+#: mid-prefill or mid-decode and resume returns it to whichever phase it
+#: left; recompute preemption requeues the request (preempted->queued), and
+#: a failed swap-in falls back the same way (swapped->queued).
 SPAN_TRANSITIONS: Dict[Optional[str], frozenset] = {
     None: frozenset({"queued"}),
     "queued": frozenset({"prefilling"}),
-    "prefilling": frozenset({"decoding", "preempted", "done"}),
-    "decoding": frozenset({"preempted", "done"}),
+    "prefilling": frozenset({"decoding", "swapped", "preempted", "done"}),
+    "decoding": frozenset({"swapped", "preempted", "done"}),
+    "swapped": frozenset({"prefilling", "decoding", "queued"}),
     "preempted": frozenset({"queued"}),
     "done": frozenset(),
 }
@@ -606,13 +628,39 @@ class Telemetry:
             self._preempts = m.counter("engine_preemptions_total",
                                        "pool-pressure preemptions",
                                        labels=("mode",))
+            self._swap_blocks = m.counter(
+                "kv_tier_blocks_total",
+                "KV blocks across the device<->host boundary",
+                labels=("op",))
+            self._tier_bytes = m.counter(
+                "kv_tier_bytes_total",
+                "bytes across the device<->host boundary", labels=("op",))
+            self._tier_raw = m.counter(
+                "kv_tier_raw_bytes_total",
+                "uncompressed bytes the moved blocks decode to (equals "
+                "kv_tier_bytes_total unless the cache is quantized)",
+                labels=("op",))
+            self._swap_fails = m.counter(
+                "kv_swap_failures_total",
+                "tier moves that fell back to recompute", labels=("op",))
+            self._stream_drains = m.counter(
+                "kv_swap_stream_transfers_total",
+                "async swap-stream transfers completed at drains")
+            self._prefetch_c = m.counter(
+                "kv_prefetch_total",
+                "speculative swap-in copies by outcome", labels=("status",))
             self._overlap_s = m.counter(
                 "engine_overlap_seconds_total",
                 "host work hidden under device execution", labels=("kind",))
             self._spec = m.counter("spec_tokens_total",
                                    "speculative tokens", labels=("kind",))
+            self._budget_adj = m.counter("chunk_budget_adjustments_total",
+                                         "BudgetTuner AIMD moves")
+            self._budget_g = m.gauge("chunk_budget", "current token budget")
             self._queue_g = m.gauge("queue_depth", "requests waiting")
             self._active_g = m.gauge("active_slots", "occupied slots")
+            self._swapped_g = m.gauge("swapped_requests",
+                                      "swap-suspended requests")
             self._ttft_h = m.histogram("ttft_seconds",
                                        "time to first token")
             self._lat_h = m.histogram("request_latency_seconds",
@@ -647,7 +695,8 @@ class Telemetry:
 
     def step(self, kind: str, step: int, t0: float, pack_s: float,
              dispatch_s: float, device_s: float, host_s: float,
-             queued: int = 0, active: int = 0, **extra) -> None:
+             queued: int = 0, active: int = 0, swapped: int = 0,
+             **extra) -> None:
         if self.trace is not None:
             self.trace.step(kind, step, t0, pack_s, dispatch_s, device_s,
                             host_s, **extra)
@@ -659,6 +708,7 @@ class Telemetry:
             self._step_h.observe(pack_s + dispatch_s + device_s + host_s)
             self._queue_g.set(queued)
             self._active_g.set(active)
+            self._swapped_g.set(swapped)
         self._maybe_log(step)
 
     def _maybe_log(self, step: int) -> None:
@@ -752,9 +802,80 @@ class Telemetry:
             self._util_h.observe(min((decode_tokens + granted) / budget,
                                      1.0))
 
+    def budget_adjust(self, old: int, new: int, ts: float) -> None:
+        if old == new:
+            return
+        if self.trace is not None:
+            self.trace.emit("budget", ts, old=old, new=new)
+        if self.metrics is not None:
+            self._budget_adj.inc()
+            self._budget_g.set(new)
+
+    # -- KV tier movement (called from PagedKV) -----------------------------
+
+    def swap_out(self, slot: int, blocks: int, nbytes: int,
+                 raw_bytes: Optional[int] = None) -> None:
+        self._tier("swap_out", blocks, nbytes, raw_bytes, slot=slot)
+
+    def swap_in(self, slot: int, blocks: int, nbytes: int,
+                raw_bytes: Optional[int] = None) -> None:
+        self._tier("swap_in", blocks, nbytes, raw_bytes, slot=slot)
+
+    def demote(self, nbytes: int, raw_bytes: Optional[int] = None) -> None:
+        self._tier("demote", 1, nbytes, raw_bytes)
+
+    def promote(self, nbytes: int, raw_bytes: Optional[int] = None) -> None:
+        self._tier("promote", 1, nbytes, raw_bytes)
+
+    def _tier(self, op: str, blocks: int, nbytes: int,
+              raw_bytes: Optional[int] = None, **args) -> None:
+        """``raw_bytes`` is what the moved blocks decode to uncompressed —
+        given only by quantized caches, where wire bytes != logical bytes;
+        the raw counter falls back to ``nbytes`` so the compressed/raw
+        ratio is well-defined (1.0) for unquantized engines too."""
+        if self.trace is not None:
+            extra = {} if raw_bytes is None else {"raw_bytes": raw_bytes}
+            self.trace.emit(op, self._clock(), blocks=blocks, bytes=nbytes,
+                            **extra, **args)
+        if self.metrics is not None:
+            self._swap_blocks.labels(op=op).inc(blocks)
+            self._tier_bytes.labels(op=op).inc(nbytes)
+            self._tier_raw.labels(op=op).inc(
+                nbytes if raw_bytes is None else raw_bytes)
+
+    def swap_fail(self, slot: int, blocks: int, op: str) -> None:
+        """A tier move that could not complete (alloc exhaustion): ``op``
+        is the failed direction (swap_out | swap_in). Makes the engine's
+        fallback to recompute visible in traces and counters."""
+        if self.trace is not None:
+            self.trace.emit("swap_fail", self._clock(), slot=slot,
+                            blocks=blocks, op=op)
+        if self.metrics is not None:
+            self._swap_fails.labels(op=op).inc()
+
+    def swap_stream(self, transfers: int, blocks: int, nbytes: int,
+                    raw_bytes: Optional[int] = None) -> None:
+        """One non-empty drain of the async swap stream."""
+        if self.trace is not None:
+            extra = {} if raw_bytes is None else {"raw_bytes": raw_bytes}
+            self.trace.emit("swap_stream", self._clock(),
+                            transfers=transfers, blocks=blocks,
+                            bytes=nbytes, **extra)
+        if self.metrics is not None:
+            self._stream_drains.inc(transfers)
+
+    def prefetch(self, blocks: int, status: str) -> None:
+        """A speculative swap-in copy event: issued | hit | cancel."""
+        if self.trace is not None:
+            self.trace.emit("prefetch", self._clock(), blocks=blocks,
+                            status=status)
+        if self.metrics is not None:
+            self._prefetch_c.labels(status=status).inc()
+
     def overlap(self, kind: str, hidden_s: float) -> None:
-        """Host-side work run under device execution (pack) — this time
-        lands inside the step's device phase instead of its pack phase."""
+        """Host-side work run under device execution (drain | prefetch |
+        pack) — this time lands inside the step's device phase instead of
+        its host/pack phases."""
         if self.trace is not None:
             self.trace.emit("overlap", self._clock(), kind=kind,
                             hidden_s=hidden_s)
@@ -851,6 +972,30 @@ class _NullTelemetry(Telemetry):
         pass
 
     def pack(self, *a, **k) -> None:
+        pass
+
+    def budget_adjust(self, *a, **k) -> None:
+        pass
+
+    def swap_out(self, *a, **k) -> None:
+        pass
+
+    def swap_in(self, *a, **k) -> None:
+        pass
+
+    def demote(self, *a, **k) -> None:
+        pass
+
+    def promote(self, *a, **k) -> None:
+        pass
+
+    def swap_fail(self, *a, **k) -> None:
+        pass
+
+    def swap_stream(self, *a, **k) -> None:
+        pass
+
+    def prefetch(self, *a, **k) -> None:
         pass
 
     def overlap(self, *a, **k) -> None:

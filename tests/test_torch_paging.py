@@ -320,7 +320,7 @@ def test_pack_chunks_matches_jax():
 
 def test_preemption_choices_match_jax():
     """Victim choice (youngest / lru), requeue_front and the policy parser
-    against the JAX scheduler; swap preemption raises naming item 8."""
+    against the JAX scheduler; the parser takes swap, as JAX's does."""
     from repro.serve import scheduler as jsched
     picks = []
     for mod in (tsched, jsched):
@@ -341,8 +341,7 @@ def test_preemption_choices_match_jax():
         picks.append(out)
     assert picks[0] == picks[1]
     assert tsched.PreemptionPolicy.parse("recompute").victim == "youngest"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsched.PreemptionPolicy.parse("swap")
+    assert tsched.PreemptionPolicy.parse("swap").mode == "swap"
     with pytest.raises(ValueError, match="victim"):
         tsched.PreemptionPolicy(victim="oldest").validate()
 

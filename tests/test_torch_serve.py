@@ -314,14 +314,59 @@ def test_launcher_writes_trace_and_metrics(tmp_path, capsys):
     assert "engine_completions_total" in metrics.read_text()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--kv", "paged", "--kv-dtype", "int8", "--preempt", "swap"], "item 8"),
-    (["--spec-decode", "ngram", "--preempt", "swap"], "item 8"),
-    (["--chunked", "--prefix-cache", "x.npz"], "item 8"),
-    (["--preempt", "swap"], "item 8"),
-    (["--prefix-cache", "x.npz"], "item 8"),
+@pytest.mark.parametrize("flags,want", [
+    (["--kv", "paged", "--kv-dtype", "int8", "--preempt", "swap"],
+     dict(kv_backend="paged", kv_dtype="int8")),
+    (["--spec-decode", "ngram", "--preempt", "swap"],
+     dict(kv_backend="slotted", spec_decode="ngram")),
+    (["--preempt", "swap"], dict(kv_backend="slotted")),
     (["--kv", "paged", "--kv-dtype", "fp8", "--prefix-cache", "x.npz"],
-     "item 8"),
+     dict(kv_backend="paged", kv_dtype="fp8")),
+])
+def test_launcher_tier_flags_serve(flags, want, tmp_path, capsys):
+    """The host tier's flags serve as JAX's launcher does: ``--preempt
+    swap`` on paged builds the host tier (its keys in the report; nothing
+    preempts at the default pool), on slotted it has nothing to swap;
+    ``--prefix-cache`` saves the cache after the run and a second run
+    warm-starts from it and promotes what it restored."""
+    from repro_torch.launch import serve as launch
+    flags = [str(tmp_path / f) if f.endswith(".npz") else f for f in flags]
+    argv = ["--device", "cpu", "--load", "closed", "--requests", "2",
+            "--prompt-len", "16", "--gen-len", "4", *flags]
+    assert launch.main(argv) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["total_tokens"] == 2 * 4
+    assert {k: rep[k] for k in want} == want
+    assert rep["preempt_policy"].startswith(
+        "swap" if "swap" in flags else "recompute")
+    assert rep["swap_preemptions"] == rep["swap_resumes"] == 0
+    # the host tier exists on paged under swap or a warm start
+    assert ("kv_host_blocks_total" in rep) == (want["kv_backend"] == "paged"
+                                               and "swap" in flags)
+    if "--prefix-cache" in flags:
+        assert rep["prefix_cache_saved"] > 0
+        assert "prefix_cache_restored" not in rep
+        assert launch.main(argv) == 0
+        rep = json.loads(capsys.readouterr().out)
+        assert rep["prefix_cache_restored"] > 0
+        assert rep["kv_prefix_promotions"] > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--chunked", "--prefix-cache", "x.npz"],
+    ["--prefix-cache", "x.npz"],
+])
+def test_launcher_prefix_cache_needs_paged(flags, tmp_path):
+    """``--prefix-cache`` without ``--kv paged`` raises JAX's
+    ``ValueError`` before serving, and writes no file."""
+    from repro_torch.launch import serve as launch
+    flags = [str(tmp_path / f) if f.endswith(".npz") else f for f in flags]
+    with pytest.raises(ValueError, match="--kv paged"):
+        launch.main(["--device", "cpu", "--requests", "1", *flags])
+    assert not (tmp_path / "x.npz").exists()
+
+
+@pytest.mark.parametrize("flags,item", [
     (["--mesh", "1,2"], "item 13"),
     (["--temperature", "0.7", "--mesh", "1,2"], "item 13"),
 ])

@@ -32,6 +32,9 @@
     python3 chip_smoke.py tier    # the build, the host tier's paths
                                   # W1-W7, its transfers, W1 against
                                   # recompute profiled
+    python3 chip_smoke.py fleet   # the build, paths A and C, the fleet's
+                                  # paths FL1-FL5, the handoff cost, the
+                                  # fleet profiled
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -214,6 +217,19 @@ non-zero before the result line):
    pinned and pageable copies of the same bytes); ``tier_profile_phase``
    (M1: W1's wall, busy and idle share against recompute under the same
    pool).
+9. the fleet, tinyllama-1.1b at full width and depth in fp32, after the
+   tier phases (``fleet_phase``): FL1 one replica == path A (and its
+   utilization == the bare engine's); FL2 one prefill and one decode cell
+   == path A, 8 handoffs, the prefill cell decoding nothing; FL3 FL2 over
+   int8 blocks == the colocated chunked int8 engine, blocks 3.98x
+   smaller; FL4 two colocated replicas over the shared store == path A,
+   publishes and cross-replica hits; FL5 ``run_fleet_engine`` at 4
+   replicas (2 prefill cells): 8 handoffs, a Chrome trace with tracks
+   engine/0-3 and 8 handoff events, one weight copy, the peak memory
+   beside FL1's; each path's kernels launched; the handoff cost, the bare
+   engine, 2 colocated replicas and FL2 profiled, and one replica's sync
+   against the next replica's program on the one stream. Paths A and C
+   come from the path phase.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -295,15 +311,17 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_events(prof):
+def _device_events(prof) -> dict:
+    """The profiler's raw CUDA records by name: {name: (records, device
+    us)}, what ``key_averages`` gives for device events without building
+    its event tree (minutes at an engine run's records)."""
     import torch
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def _self_device_us(e) -> float:
-    return float(getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0.0))
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, us = by.get(e.name(), (0, 0.0))
+            by[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return by
 
 
 def _profiled(fn, iters: int, between=None):
@@ -317,8 +335,7 @@ def _profiled(fn, iters: int, between=None):
     fn()
     torch.cuda.synchronize()
     before = dict(_build.launches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             if between is not None:
                 between()
@@ -338,7 +355,7 @@ def device_ms(fn, iters: int = 50, between=None, only: str = ""):
     drops lowers it (ROADMAP M2): ``kernel_device_ms`` reads a
     hand-written kernel both ways."""
     events, _ = _profiled(fn, iters, between)
-    total = sum(_self_device_us(e) for e in events if only in e.key)
+    total = sum(us for name, (_, us) in events.items() if only in name)
     return total / iters / 1e3 if total > 0 else None
 
 
@@ -357,13 +374,13 @@ def kernel_device_ms(fn, kernel: str, iters: int = 50, between=None,
     records outnumber the launches."""
     events, made = _profiled(fn, iters, between)
     per_call, rest = divmod(made.get(kernel, 0), iters)
-    records = [e for e in events if (symbol or kernel) in e.key]
-    kept = sum(e.count for e in records)
+    records = [v for name, v in events.items() if (symbol or kernel) in name]
+    kept = sum(n for n, _ in records)
     if per_call < 1 or rest or kept > per_call * iters:
         raise AssertionError(f"{kernel}: {made.get(kernel, 0)} counted "
                              f"launches and {kept} records over {iters} "
                              f"calls")
-    total = sum(_self_device_us(e) for e in records)
+    total = sum(us for _, us in records)
     if not kept or total <= 0:
         return None, None
     return total / iters / 1e3, total / kept * per_call / 1e3
@@ -1381,6 +1398,24 @@ def _tile_row(kernel, shape, name, chosen, want, call):
 # the main path and the teacher-forced check
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def last_streams(out: dict):
+    """While open, ``out["streams"]`` holds the token streams of the last
+    ``ServeEngine.run`` (a launcher's timed run follows its warm one)."""
+    from repro_torch.serve import ServeEngine
+    run = ServeEngine.run
+
+    def spy(self, requests, **kw):
+        comps, wall = run(self, requests, **kw)
+        out["streams"] = {c.rid: c.tokens.tolist() for c in comps}
+        return comps, wall
+    ServeEngine.run = spy
+    try:
+        yield out
+    finally:
+        ServeEngine.run = run
+
+
 def path_phase():
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import run_engine, run_server
@@ -1434,10 +1469,12 @@ def path_phase():
              ("paged_prefill_quant", "paged_decode_quant", "rmsnorm"),
              unquantized)):
         ops.reset_launch_counts()
-        rep_p = run_engine(ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
-                           gen_len=GEN, requests=REQUESTS, load="open",
-                           smoke=False, device="cuda", kv="paged",
-                           block_size=BS, **kw)
+        with last_streams({}) as out:
+            rep_p = run_engine(ARCH, PRESET, n_slots=SLOTS,
+                               prompt_len=PROMPT, gen_len=GEN,
+                               requests=REQUESTS, load="open", smoke=False,
+                               device="cuda", kv="paged", block_size=BS,
+                               **kw)
         counts = ops.launch_counts()
         log(f"serve report (paged path {name}):", json.dumps(rep_p))
         log(f"launches (paged path {name}):", counts)
@@ -1466,7 +1503,7 @@ def path_phase():
         if name in ("C", "D") and ratio < 1.9:
             raise AssertionError(f"paged path {name}: blocks only "
                                  f"{ratio:.3f}x smaller than path A's")
-        paged[name] = (rep_p, counts)
+        paged[name] = (rep_p, counts, out["streams"])
     return rep, seq, open_counts, paged
 
 
@@ -1664,7 +1701,8 @@ def _profile_run(label, eng, reqs, also=()):
     ``key_averages`` needs, takes minutes at these runs' hundreds of
     thousands of launches. Idle share = 1 - busy / wall. Prints the top
     kernels by device time, those whose names hold one of ``also`` below
-    them, and the host-to-device copies."""
+    them, and the host-to-device copies. ``eng`` is a ``ServeEngine`` or a
+    ``FleetEngine`` (its replicas' programs summed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     eng.run(reqs, load="closed")                       # warm
@@ -1676,16 +1714,13 @@ def _profile_run(label, eng, reqs, also=()):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(reqs, load="closed")
         torch.cuda.synchronize()
-    by = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            us, n = by.get(e.name(), (0.0, 0))
-            by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    by = {name: (us, n) for name, (n, us) in _device_events(prof).items()}
     busy = sum(us for us, _ in by.values()) / 1e6
     tokens = sum(r.max_new_tokens for r in reqs)
+    programs = sum(e.programs_run for e in getattr(eng, "engines", [eng]))
     log(f"profile ({label}): wall {wall:.6f} s, device busy {busy:.6f} s, "
         f"idle share {1 - busy / wall:.4f}, tokens/s {tokens / wall:.6g}, "
-        f"programs {eng.programs_run}, device records "
+        f"programs {programs}, device records "
         f"{sum(n for _, n in by.values())}")
     ranked = sorted(by.items(), key=lambda kv: -kv[1][0])
     named = [kv for kv in ranked[12:] if any(a in kv[0] for a in also)]
@@ -2098,13 +2133,14 @@ def modes_profile_phase():
 # budget tuner
 # ---------------------------------------------------------------------------
 
-def _tier_serve(cfg, params, lk, opts, reqs, spy=False, **kw):
+def _tier_serve(cfg, params, lk, opts, reqs, spy=False, load="open", **kw):
     """One engine run as ``run_engine`` makes it (a warm request through
     the same programs, its index blocks shed, counters reset), launch
-    counts zeroed just before the timed run and read just after; every
-    request must finish with its budget. With ``spy`` the engine records,
-    for each swap preemption, whether the victim was mid-prefill. Returns
-    (report, streams, launch counts, engine, mid-prefill flags)."""
+    counts zeroed just before the timed run (under ``load``) and read just
+    after; every request must finish with its budget. With ``spy`` the
+    engine records, for each swap preemption, whether the victim was
+    mid-prefill. Returns (report, streams, launch counts, engine,
+    mid-prefill flags)."""
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine, serve_report
     from repro_torch.serve import synthetic_requests
@@ -2123,7 +2159,7 @@ def _tier_serve(cfg, params, lk, opts, reqs, spy=False, **kw):
             orig(slot)
         eng._preempt = preempt
     ops.reset_launch_counts()
-    comps, wall = eng.run(reqs, load="open")
+    comps, wall = eng.run(reqs, load=load)
     counts = ops.launch_counts()
     rep = serve_report(comps, wall, eng.utilization())
     want = sum(r.max_new_tokens for r in reqs)
@@ -2561,6 +2597,445 @@ def tier_profile_phase():
                                       if k in u) + " (the three runs)")
     del params
     return out
+
+
+# ---------------------------------------------------------------------------
+# the engine fleet (tinyllama-1.1b at full width, fp32): the replica router,
+# prefill/decode disaggregation over the host tier, the shared prefix store
+# ---------------------------------------------------------------------------
+
+FLEET_KEYS = ("fleet_handoffs", "handoffs_out", "handoffs_in",
+              "fleet_pending_handoffs", "kv_prefix_publishes",
+              "kv_prefix_promotions", "shared_store_entries",
+              "shared_store_cross_hits", "shared_store_blocks",
+              "kv_host_bytes_moved", "kv_bytes_per_block", "prefill_tokens",
+              "decode_tokens", "programs_run")
+
+
+def _fleet_serve(cfg, params, lk, opts, reqs, load="open", probe=None, **kw):
+    """One fleet run as ``run_fleet_engine`` makes it (a warm request a
+    replica through the same programs, the prefix residue shed on every
+    replica and in the shared store, counters reset), ``probe(fleet)``
+    installed, launch counts zeroed just before the timed run (under
+    ``load``) and read just after; every request must finish with its
+    budget. Returns (report, streams, launch counts, fleet)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (FleetEngine, fleet_report,
+                                   synthetic_requests)
+    fleet = FleetEngine(cfg, params, opts, lk, n_slots=SLOTS,
+                        max_len=MAX_LEN, kv="paged", block_size=BS, **kw)
+    fleet.run(synthetic_requests(fleet.replicas, PROMPT,
+                                 fleet.engines[0].tokens_per_program + 1,
+                                 cfg.vocab_size, seed=1), load="closed")
+    fleet.drop_prefix_cache()
+    fleet.reset_counters()
+    if probe is not None:
+        probe(fleet)
+    ops.reset_launch_counts()
+    comps, wall = fleet.run(reqs, load=load)
+    counts = ops.launch_counts()
+    rep = fleet_report(comps, wall, fleet)
+    want = sum(r.max_new_tokens for r in reqs)
+    if rep["requests"] != len(reqs) or rep["total_tokens"] != want:
+        raise AssertionError(f"{rep['requests']} requests, "
+                             f"{rep['total_tokens']} tokens; want "
+                             f"{len(reqs)} x {want // len(reqs)}")
+    return rep, {c.rid: c.tokens.tolist() for c in comps}, counts, fleet
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the tensors in a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
+
+
+def _handoff_probe(rows):
+    """Instrument a disaggregated fleet of two: per handoff its blocks and
+    bytes, the host ms of the prefill cell's ``extract_handoffs`` (the
+    call's time over the handoffs it returned) and of the decode cell's
+    ``inject_handoff``, and the swap-in's time on CUDA events on the
+    current stream, from before the call to after the import (the copy
+    waits for the host gather into pinned staging, so this spans it, as
+    ``tier_transfer_phase``'s swap-in device time does)."""
+    import torch
+
+    def probe(fleet):
+        pre, dec = fleet.engines
+        extract, inject = pre.extract_handoffs, dec.inject_handoff
+        swap_in = dec.kv.swap_in
+        per = []                          # extract ms per handoff, FIFO
+
+        def timed_extract():
+            h0 = time.perf_counter()
+            out = extract()
+            ms = (time.perf_counter() - h0) * 1e3
+            per.extend([ms / max(1, len(out))] * len(out))
+            return out
+
+        def timed_swap_in(slot, handle):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ok = swap_in(slot, handle)
+            e1.record()
+            rows[-1]["events"] = (e0, e1)
+            return ok
+
+        def timed_inject(st, handle, nxt):
+            n = len(handle.hblks)
+            rows.append({"rid": st.req.rid, "blocks": n,
+                         "bytes": n * pre.kv._block_bytes,
+                         "extract_ms": per[len(rows)]})
+            h0 = time.perf_counter()
+            ok = inject(st, handle, nxt)
+            rows[-1]["inject_ms"] = (time.perf_counter() - h0) * 1e3
+            return ok
+        pre.extract_handoffs = timed_extract
+        dec.inject_handoff = timed_inject
+        dec.kv.swap_in = timed_swap_in
+    return probe
+
+
+def _stream_wait_probe(fleet, rec):
+    """Replace a colocated fleet's tick by one that records, for each
+    commit of a replica but the last while the last has a program in
+    flight: whether the commit finished a request (under ``ret_async`` its
+    only sync, the device→host copy of the finished tokens, queued on the
+    one stream behind the last replica's program), whether that program
+    had already ended when the commit began, and the commit's host ms."""
+    import torch
+
+    def tick(now_fn):
+        tickets, ends = [], []
+        for eng in fleet.engines:
+            tickets.append(eng.tick_dispatch(now_fn))
+            ends.append(torch.cuda.Event())
+            ends[-1].record()
+        finished = []
+        for i, eng in enumerate(fleet.engines):
+            ended = ends[-1].query()
+            h0 = time.perf_counter()
+            done = eng.tick_commit(tickets[i], now_fn)
+            ms = (time.perf_counter() - h0) * 1e3
+            if i + 1 < len(ends) and tickets[-1][1] is not None:
+                rec.append((bool(done), ended, ms))
+            finished += done
+        return finished
+    fleet._tick_all = tick
+
+
+def fleet_phase(base=None):
+    """The fleet (``FleetEngine``) at full width, fp32, ``nss_shortcut``, 4
+    slots a replica, prompt 32, gen 32, max_len 72, blocks of 16, 8
+    requests sharing path A's 16-token prefix (open load at 25 requests/s
+    unless said): every replica over ONE copy of the weights and one
+    shared host tier (``replicas`` x 21 blocks, pinned), all on the
+    current CUDA stream.
+
+    FL1  1 replica, paged two-phase, closed load: the streams of path A
+         and every utilization key shared with the bare engine's own
+         closed-load run equal.
+    FL2  2 replicas, 1 prefill cell (chunked) and 1 decode cell: the
+         streams of path A; 8 handoffs == handoffs_out == handoffs_in;
+         the prefill cell decodes nothing (no decode program, decode
+         tokens 0) and the decode cell prefills nothing; paged_prefill
+         and paged_decode launch, flash never.
+    FL3  FL2 over int8 blocks: the streams of the colocated int8 engine
+         that prefills as the prefill cell does (chunked, budget 256); its
+         agreement with path C (two-phase int8) printed; 8 handoffs;
+         blocks >= 3.9x smaller than FL2's; only the fused-dequant paged
+         kernels launch.
+    FL4  2 colocated replicas over the shared store, closed load (every
+         request routed at once, so both replicas admit): the streams of
+         path A; publishes > 0, cross-replica hits > 0; after
+         ``drop_prefix_cache`` the shared map is empty.
+    FL5  the launcher: ``run_fleet_engine(replicas=4, disaggregate=2,
+         load="open", smoke=False)`` with a Chrome trace: every request
+         finishes, handoffs == requests, the trace validates with process
+         tracks engine/0-engine/3 and 8 ``handoff`` events, every replica
+         holds the same weight tensors, and the peak device memory above
+         its start exceeds FL1's by less than 1 GB (three more pools, not a
+         copy of the 4.4 GB of weights).
+
+    Then FL2's handoff cost (``_handoff_probe``, medians), the profile of
+    the bare engine, 2 colocated replicas and FL2 in one call (M1;
+    closed load, 4 requests of 33 tokens, ``_profile_run``), and whether one
+    replica's sync waits for the next replica's program on the shared
+    stream (``_stream_wait_probe``, 2 colocated replicas over programs of
+    8 steps). ``base`` is {"A": streams, "C": streams} of ``path_phase``;
+    without it (``chip_smoke.py fleet``) paths A and C are served here.
+    Returns the launch counts by path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import repro_torch.serve as rs
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.launch.fleet import run_fleet_engine
+    from repro_torch.models import ModelOptions, init_params
+    from repro_torch.serve import ServeEngine, synthetic_requests
+    from repro_torch.serve.telemetry import load_trace, validate_events
+
+    t_start = time.time()
+    cfg = get_config(ARCH)
+    lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=torch.float32))
+    reqs = synthetic_requests(REQUESTS, PROMPT, GEN, cfg.vocab_size, seed=0,
+                              rate=25.0, shared_prefix_len=SHARED)
+    unquantized = ("paged_decode", "paged_prefill")
+    quantized = ("paged_decode_quant", "paged_prefill_quant")
+    counts = {}
+
+    def launched(name, want, never):
+        for k in want:
+            if counts[name].get(k, 0) < 1:
+                raise AssertionError(f"fleet {name}: kernel {k} was never "
+                                     "launched")
+        for k in never:
+            if counts[name].get(k, 0):
+                raise AssertionError(f"fleet {name} launched {k} "
+                                     f"{counts[name][k]} times")
+
+    def same(name, got, want, what):
+        agree = _agreement(got, want)
+        log(f"fleet {name}: streams vs {what}: {agree}")
+        if got != want:
+            raise AssertionError(f"fleet {name}: streams differ from "
+                                 f"{what}: {agree}")
+
+    def report(name, rep):
+        log(f"serve report (fleet {name}):", json.dumps(
+            {k: v for k, v in rep.items() if k != "per_replica"}))
+        log(f"launches (fleet {name}):", counts[name])
+        log(f"fleet {name}: " + ", ".join(f"{k} {rep[k]}" for k in
+                                          FLEET_KEYS if k in rep)
+            + f"; tokens/s {rep['tokens_per_s']:.6g}")
+
+    def handed(name, rep):
+        if not (rep["fleet_handoffs"] == rep["handoffs_out"]
+                == rep["handoffs_in"] == REQUESTS):
+            raise AssertionError(
+                f"fleet {name}: handoffs {rep['fleet_handoffs']}, out "
+                f"{rep['handoffs_out']}, in {rep['handoffs_in']}; want "
+                f"{REQUESTS}")
+
+    # FL5 first, on its own weights (the launcher makes them), so that its
+    # peak memory and FL1's each count one copy of the weights
+    _release()
+    made = []
+
+    class Spy(rs.FleetEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    orig_fleet = rs.FleetEngine
+    rs.FleetEngine = Spy
+    from repro_torch.kernels import ops
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            path = str(Path(tmp) / "fleet.json")
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            rep5 = run_fleet_engine(ARCH, PRESET, replicas=4, disaggregate=2,
+                                    n_slots=SLOTS, prompt_len=PROMPT,
+                                    gen_len=GEN, requests=REQUESTS,
+                                    load="open", smoke=False, device="cuda",
+                                    block_size=BS, shared_prefix_len=SHARED,
+                                    trace=path)
+            counts["FL5"] = ops.launch_counts()
+            peak5 = torch.cuda.max_memory_allocated() - m0
+            events = load_trace(path)
+            with open(path) as f:
+                lanes = sorted(e["args"]["name"] for e in
+                               json.load(f)["traceEvents"] if e["ph"] == "M")
+    finally:
+        rs.FleetEngine = orig_fleet
+    report("FL5", rep5)
+    if rep5["requests"] != REQUESTS or rep5["total_tokens"] != REQUESTS * GEN:
+        raise AssertionError(f"fleet FL5: {rep5['requests']} requests, "
+                             f"{rep5['total_tokens']} tokens")
+    handed("FL5", rep5)
+    validate_events(events)
+    n_hand = sum(e["type"] == "handoff" for e in events)
+    log(f"fleet FL5: trace of {len(events)} events, process tracks {lanes},"
+        f" {n_hand} handoff events")
+    if lanes != [f"engine/{i}" for i in range(4)] + ["requests"]:
+        raise AssertionError(f"fleet FL5: trace tracks {lanes}")
+    if n_hand != REQUESTS:
+        raise AssertionError(f"fleet FL5: {n_hand} handoff events")
+    fleet5 = made[0]
+    ptrs = {p for e in fleet5.engines
+            for p in (e.params["embed"].data_ptr(),
+                      e.kv.params["embed"].data_ptr())}
+    weights = _tree_bytes(fleet5.engines[0].params)
+    store = fleet5.shared.store.tensors()
+    log(f"fleet FL5: {len(fleet5.engines)} replicas over {len(ptrs)} "
+        f"embedding tensor(s), {weights} B of weights; shared store "
+        f"{fleet5.shared.store.num_blocks} blocks ({_tree_bytes(store)} B),"
+        f" pinned {all(t.is_pinned() for t in store)}")
+    if len(ptrs) != 1:
+        raise AssertionError("fleet FL5: the replicas hold different "
+                             "weight tensors")
+    launched("FL5", ("paged_prefill", "paged_decode", "rmsnorm"),
+             ("flash_attention",) + quantized)
+    del made, fleet5, Spy
+    _release()
+    log(f"fleet FL1-FL5 timing: FL5 done at {time.time() - t_start:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if base is None:
+        base = {name: _tier_serve(cfg, params, lk, opts, reqs, kv="paged",
+                                  block_size=BS, **kw)[1]
+                for name, kw in (("A", {}), ("C", dict(kv_dtype="int8")))}
+    a_streams, c_streams = base["A"], base["C"]
+
+    rep1, s1, counts["FL1"], f1 = _fleet_serve(cfg, params, lk, opts, reqs,
+                                               load="closed", replicas=1)
+    peak1 = torch.cuda.max_memory_allocated() - m0
+    report("FL1", rep1)
+    same("FL1", s1, a_streams, "path A")
+    bare_rep, bare_s, _, _, _ = _tier_serve(cfg, params, lk, opts, reqs,
+                                            load="closed", kv="paged",
+                                            block_size=BS)
+    same("FL1", s1, bare_s, "the bare engine, closed load")
+    u1 = f1.engines[0].utilization()
+    keys = sorted(set(u1) & set(bare_rep))
+    diff = {k: (u1[k], bare_rep[k]) for k in keys if u1[k] != bare_rep[k]}
+    log(f"fleet FL1: {len(keys)} utilization keys shared with the bare "
+        f"engine, differing {diff}")
+    if diff:
+        raise AssertionError(f"fleet FL1: utilization differs {diff}")
+    launched("FL1", ("flash_attention", "paged_decode", "rmsnorm"),
+             quantized)
+    log(f"fleet FL5 vs FL1 peak device memory above the start: "
+        f"{peak5} vs {peak1} B (difference {peak5 - peak1} B; one pool "
+        f"{f1.engines[0].utilization()['kv_bytes_per_shard']} B, the "
+        f"weights {weights} B)")
+    if peak5 - peak1 > 1e9:
+        raise AssertionError(f"fleet FL5: {peak5 - peak1} B more device "
+                             "memory than FL1")
+    del f1
+
+    hand_rows = []
+    decodes = []
+
+    def fl2_probe(fleet):
+        _handoff_probe(hand_rows)(fleet)
+        kv = fleet.engines[0].kv
+        dec = kv.decode
+        kv.decode = lambda nxt: decodes.append(1) or dec(nxt)
+    rep2, s2, counts["FL2"], f2 = _fleet_serve(
+        cfg, params, lk, opts, reqs, probe=fl2_probe, replicas=2,
+        prefill_replicas=1)
+    report("FL2", rep2)
+    same("FL2", s2, a_streams, "path A")
+    handed("FL2", rep2)
+    pre, dec = rep2["per_replica"]
+    log(f"fleet FL2: prefill cell decode tokens {pre['decode_tokens']}, "
+        f"decode programs {len(decodes)}, programs {pre['programs_run']}; "
+        f"decode cell prefill tokens {dec['prefill_tokens']}, programs "
+        f"{dec['programs_run']}")
+    if pre["decode_tokens"] or decodes or dec["prefill_tokens"]:
+        raise AssertionError("fleet FL2: the prefill cell decoded or the "
+                             "decode cell prefilled")
+    launched("FL2", ("paged_prefill", "paged_decode", "rmsnorm"),
+             ("flash_attention",) + quantized)
+    torch.cuda.synchronize()
+    for r in hand_rows:
+        e0, e1 = r.pop("events")
+        r["swap_in_ms"] = e0.elapsed_time(e1)
+    cost = {k: _median([r[k] for r in hand_rows])
+            for k in ("blocks", "bytes", "extract_ms", "inject_ms",
+                      "swap_in_ms")}
+    log(f"fleet FL2 handoffs ({len(hand_rows)}):", json.dumps(hand_rows))
+    log("fleet FL2 handoff cost (medians):", json.dumps(cost))
+    del f2
+
+    rep3, s3, counts["FL3"], f3 = _fleet_serve(
+        cfg, params, lk, opts, reqs, replicas=2, prefill_replicas=1,
+        kv_dtype="int8")
+    report("FL3", rep3)
+    handed("FL3", rep3)
+    _, c_chunked, _, _, _ = _tier_serve(cfg, params, lk, opts, reqs,
+                                        kv="paged", block_size=BS,
+                                        kv_dtype="int8", chunked=True)
+    same("FL3", s3, c_chunked, "the colocated chunked int8 engine")
+    log(f"fleet FL3: streams vs path C (two-phase int8): "
+        f"{_agreement(s3, c_streams)} (not gated: a chunk attends its own "
+        "freshly written codes)")
+    ratio = rep2["kv_bytes_per_block"] / rep3["kv_bytes_per_block"]
+    log(f"fleet FL3: bytes per block {rep3['kv_bytes_per_block']}, FL2's / "
+        f"FL3's {ratio:.4f}; tier bytes moved {rep3['kv_host_bytes_moved']}"
+        f" vs FL2's {rep2['kv_host_bytes_moved']}")
+    if ratio < 3.9:
+        raise AssertionError(f"fleet FL3: blocks only {ratio:.3f}x smaller")
+    launched("FL3", ("paged_prefill_quant", "paged_decode_quant", "rmsnorm"),
+             ("flash_attention",) + unquantized)
+    del f3
+
+    rep4, s4, counts["FL4"], f4 = _fleet_serve(cfg, params, lk, opts, reqs,
+                                               load="closed", replicas=2)
+    report("FL4", rep4)
+    same("FL4", s4, a_streams, "path A")
+    if rep4["kv_prefix_publishes"] < 1 or rep4["shared_store_cross_hits"] < 1:
+        raise AssertionError(f"fleet FL4: publishes "
+                             f"{rep4['kv_prefix_publishes']}, cross hits "
+                             f"{rep4['shared_store_cross_hits']}")
+    f4.drop_prefix_cache()
+    left = f4.utilization()["shared_store_entries"]
+    log(f"fleet FL4: shared store entries after drop_prefix_cache {left}")
+    if left:
+        raise AssertionError(f"fleet FL4: {left} shared entries left")
+    launched("FL4", ("flash_attention", "paged_decode", "rmsnorm"),
+             quantized)
+    del f4
+    log(f"fleet FL1-FL5 timing: FL1-FL4 done at {time.time() - t_start:.1f}"
+        " s")
+
+    # M1: the bare engine, 2 colocated replicas and FL2, in one call, on
+    # one wave of requests (a slot each on the bare engine)
+    preqs = synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size,
+                               seed=7, shared_prefix_len=SHARED)
+    kw = dict(n_slots=SLOTS, max_len=MAX_LEN, kv="paged", block_size=BS)
+    prof = {}
+    for label, eng in (
+            ("bare engine", ServeEngine(cfg, params, opts, lk, **kw)),
+            ("2 colocated replicas",
+             rs.FleetEngine(cfg, params, opts, lk, replicas=2, **kw)),
+            ("FL2: 1 prefill + 1 decode cell",
+             rs.FleetEngine(cfg, params, opts, lk, replicas=2,
+                            prefill_replicas=1, **kw))):
+        prof[label] = _profile_run(f"fleet, {label}", eng, preqs,
+                                   also=("paged_prefill_kernel",
+                                         "decode_split"))
+        del eng
+    # one stream: programs of 8 steps, so a request spans 4 of them and
+    # only the last commit of each syncs
+    colocated = rs.FleetEngine(cfg, params, opts,
+                               dataclasses.replace(lk, decode_steps=8),
+                               replicas=2, **kw)
+    rec = []
+    _stream_wait_probe(colocated, rec)
+    colocated.run(preqs, load="closed")
+    for synced in (True, False):
+        rows = [r for r in rec if r[0] == synced]
+        log(f"fleet stream wait (2 colocated, K 8, closed): replica 0's "
+            f"commits {'with' if synced else 'without'} a sync "
+            f"{len(rows)}; replica 1's program already ended as the commit "
+            f"began in {sum(r[1] for r in rows)}; commit host ms "
+            f"{[round(r[2], 3) for r in rows]}")
+    del colocated, params
+    log(f"fleet FL1-FL5 timing: phase done at {time.time() - t_start:.1f} s")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3386,6 +3861,9 @@ def main() -> int:
         phase(tier_transfer_phase)
         phase(tier_profile_phase)
         return 0
+    if sys.argv[1:] == ["fleet"]:
+        phase(fleet_phase)
+        return 0
     if sys.argv[1:] == ["mamba"]:
         phase(kernel_phase, gen, "jamba")
         phase(route_phase, gen, "jamba")
@@ -3404,6 +3882,7 @@ def main() -> int:
     tier_counts = phase(tier_phase)
     phase(tier_transfer_phase)
     phase(tier_profile_phase)
+    fleet_counts = phase(fleet_phase, {n: paged[n][2] for n in "AC"})
     route_rows = phase(route_phase, gen)
     rwkv_rows = phase(rwkv_scan_phase, gen)
     mamba_rows = phase(mamba_scan_phase, gen)
@@ -3423,7 +3902,8 @@ def main() -> int:
                "rwkv slotted open": rwkv_counts,
                "mamba slotted open": mamba_counts,
                **{f"modes {n}": c for n, c in mode_counts.items()},
-               **{f"tier {n}": c for n, c in tier_counts.items()}}
+               **{f"tier {n}": c for n, c in tier_counts.items()},
+               **{f"fleet {n}": c for n, c in fleet_counts.items()}}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",

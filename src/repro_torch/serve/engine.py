@@ -55,8 +55,14 @@ draining, prefetching the resume head's chain, packing chunk grants — runs
 under the dispatched device program. With ``ttft_slo_s`` a
 ``BudgetTuner`` moves the chunked token budget after every completion.
 
+An engine fleet (``repro_torch.serve.fleet``) drives replicas through the
+split tick (``tick_dispatch`` / ``tick_commit``: every replica's program is
+dispatched before any replica blocks on its result) and moves finished
+prompts from prefill replicas to decode replicas (``extract_handoffs`` /
+``inject_handoff``) over a host tier they share (``shared_host``).
+
 Device meshes raise ``NotImplementedError`` naming their ROADMAP item
-(13); the fleet's handoff entry points are item 10.
+(13).
 """
 from __future__ import annotations
 
@@ -138,7 +144,7 @@ class ServeEngine:
                  ttft_slo_s: Optional[float] = None,
                  kv_dtype: str = "bf16", spec_decode: str = "none",
                  spec_width: int = 0, telemetry: Optional[Telemetry] = None,
-                 async_swap: bool = True):
+                 async_swap: bool = True, shared_host=None):
         check_slice(kv=kv, spec_decode=spec_decode, kv_dtype=kv_dtype)
         linkage.validate()
         if n_slots < 1:
@@ -191,7 +197,7 @@ class ServeEngine:
                 bucket_fn, block_size=block_size, num_blocks=num_blocks,
                 chunked=chunked, kv_dtype=kv_dtype, spec=spec,
                 host_blocks=hb, warm_start=warm_start,
-                async_swap=async_swap)
+                async_swap=async_swap, shared_host=shared_host)
         else:
             # host_blocks=None means "auto-size the host tier" on paged —
             # reject it here too, not just explicit sizes
@@ -199,6 +205,10 @@ class ServeEngine:
                 raise ValueError("the host tier (host_blocks / warm_start) "
                                  "needs kv='paged': dense slot rows have no "
                                  "block structure to spill")
+            if shared_host is not None:
+                raise ValueError("a shared host tier (shared_host) needs "
+                                 "kv='paged': dense slot rows have no block "
+                                 "structure to publish")
             self.kv = SlottedKV(cfg, params, opts, linkage, n_slots, max_len,
                                 self.sampling, bucket_fn, chunked=chunked,
                                 spec=spec)
@@ -234,6 +244,9 @@ class ServeEngine:
         self.spec_accepted_tokens = 0   # ...that the model confirmed
         self.spec_wasted_tokens = 0  # ...that it rejected
         self.spec_emitted_tokens = 0    # tokens emitted by verify programs
+        self.handoffs_out = 0        # fleet: chains handed to a decode cell
+        self.handoffs_in = 0         # fleet: chains adopted from a prefill
+                                     # cell (swap-in landed in this pool)
 
     def _bucket(self, n: int) -> int:
         """Power-of-two admission bucket (``scheduler.bucket_len``)."""
@@ -644,18 +657,15 @@ class ServeEngine:
                 return dec, pre, grants
             self._preempt_one()
 
-    def _step_chunked(self, now_fn: Callable[[], float]) -> List[Completion]:
-        """One unified serve program: decode tokens for occupied slots plus
-        budget-packed prompt chunks; harvest both halves; evict finished.
-        Pure-decode steps (no slot mid-prefill) dispatch the two-phase
-        decode program instead. The unified program runs whenever ANY slot
-        is mid-prefill, even on a step that grants it no chunk tokens: the
-        plain decode program would decode it as a decode row and write its
-        garbage through its real block table."""
-        return self._step_end(self._chunk_begin(now_fn), now_fn)
-
     def _chunk_begin(self, now_fn: Callable[[], float]):
-        """Dispatch half of the chunked serve step (see ``_step_begin``)."""
+        """Dispatch half of the chunked serve step (see ``_step_begin``): one
+        unified serve program, decode tokens for occupied slots plus
+        budget-packed prompt chunks (``_chunk_end`` harvests both halves
+        and evicts finished slots). Pure-decode steps (no slot mid-prefill)
+        dispatch the two-phase decode program instead. The unified program
+        runs whenever ANY slot is mid-prefill, even on a step that grants
+        it no chunk tokens: the plain decode program would decode it as a
+        decode row and write its garbage through its real block table."""
         if not any(self.sched.active[s].prefilling for s in self.sched.active):
             return self._step_begin(now_fn)
         tel = self.tel
@@ -776,6 +786,16 @@ class ServeEngine:
         resume swapped slots, then FIFO admissions into free slots (behind
         any swapped slot: they are the head of the line), then one program
         over the occupied ones; each completion feeds the TTFT tuner."""
+        return self.tick_commit(self.tick_dispatch(now_fn), now_fn)
+
+    def tick_dispatch(self, now_fn) -> Tuple[List[Completion],
+                                             Optional[tuple]]:
+        """Dispatch half of one engine tick: the drain, the resumes, the
+        admissions and the step's dispatch half. Returns (completions so
+        far, pending ticket) for ``tick_commit``. A fleet calls every
+        replica's dispatch before any replica's commit, so every device
+        program is queued before the first blocking sync; back to back the
+        two halves are exactly the single-engine tick."""
         finished = []
         self.tel.profile_tick(self.programs_run)
         self._drain_swaps()          # step boundary: complete deferred copies
@@ -787,9 +807,19 @@ class ServeEngine:
                 self._admit_chunked(now_fn)   # bookkeeping only, no program
             else:
                 finished += self._admit(now_fn)
+        pend = None
         if self.sched.active:
-            finished += (self._step_chunked(now_fn) if self.chunked
-                         else self.step(now_fn))
+            pend = (self._chunk_begin(now_fn) if self.chunked
+                    else self._step_begin(now_fn))
+        return finished, pend
+
+    def tick_commit(self, ticket, now_fn) -> List[Completion]:
+        """Commit half of one engine tick: block on the dispatched program,
+        harvest, and feed the TTFT tuner."""
+        finished, pend = ticket
+        finished = list(finished)
+        if pend is not None:
+            finished += self._step_end(pend, now_fn)
         if self.tuner is not None:
             for c in finished:
                 old = self.chunk_budget
@@ -797,6 +827,61 @@ class ServeEngine:
                 self.tel.budget_adjust(old, self.chunk_budget,
                                        self.tel.now())
         return finished
+
+    # -- fleet: prefill/decode disaggregation handoff -----------------------
+
+    def extract_handoffs(self) -> List[tuple]:
+        """Take every decode-ready slot out for a fleet prefill→decode
+        handoff: its prompt is resident and generated token #1 committed,
+        so a decode cell continues the stream where this cell left off.
+        The chain rides the swap lane: ``swap_out`` exports it into the
+        shared host tier and the decode cell's ``swap_in`` imports it into
+        its own pool, so the handed-off stream equals the colocated one.
+
+        A slot whose chain cannot reach the tier (none, or held full)
+        stays and decodes here, values unchanged. Returns [(SlotState,
+        SwapHandle, next token), ...] in slot order; the next token is a
+        copy, since later admissions write ``_next`` in place while the
+        handoff may wait in the fleet's queue."""
+        out = []
+        for slot in sorted(self.sched.active):
+            st = self.sched.active[slot]
+            if st.prefilling or st.produced < 1:
+                continue
+            nxt = self._next[slot].clone()
+            handle = self.kv.swap_out(slot)
+            if handle is None:
+                continue             # no host room: decode locally instead
+            st = self.sched.release(slot)
+            st.pending_drafts = None     # drafts die with the handoff; the
+                                         # decode cell proposes anew
+            self.handoffs_out += 1
+            out.append((st, handle, nxt))
+        return out
+
+    def inject_handoff(self, st, handle, next_token) -> bool:
+        """Adopt a prefill cell's finished chain: claim a slot, swap the
+        chain into this pool and resume decoding from the carried next
+        token. False (nothing consumed) when no slot is free or the pool
+        cannot hold the chain yet: the fleet retries later."""
+        if self.sched.n_free == 0 or not self.kv.can_swap_in(handle):
+            return False
+        slot = self.sched.adopt(st)
+        if not self.kv.swap_in(slot, handle):
+            # can_swap_in raced nothing (single-threaded); should it fail,
+            # recompute the request here (its sampling chain replays from
+            # the request key, so the stream is the same)
+            self.kv.drop_swap(handle)
+            self.sched.release(slot)
+            self.sched.requeue_front(st.req)
+            self.preemptions += 1
+            now = self.tel.now()
+            self.tel.preempt(st.req.rid, slot, "recompute", now)
+            self.tel.state(st.req.rid, "queued", now)
+            return True                  # consumed (as a requeue)
+        self._next[slot] = next_token
+        self.handoffs_in += 1
+        return True
 
     def run(self, requests: List[Request], *, load: str = "closed",
             concurrency: Optional[int] = None,
@@ -884,6 +969,9 @@ class ServeEngine:
         if self.tuner is not None:
             u["ttft_slo_s"] = self.tuner.slo_s
             u["budget_adjustments"] = self.tuner.adjustments
+        if self.handoffs_out or self.handoffs_in:
+            u["handoffs_out"] = self.handoffs_out
+            u["handoffs_in"] = self.handoffs_in
         if self.proposer is not None:
             u["spec_decode"] = "ngram"
             u["spec_width"] = self.spec_width
@@ -920,6 +1008,8 @@ class ServeEngine:
         self.spec_accepted_tokens = 0
         self.spec_wasted_tokens = 0
         self.spec_emitted_tokens = 0
+        self.handoffs_out = 0
+        self.handoffs_in = 0
         if self.proposer is not None:
             self.proposer.proposed_tokens = 0
             self.proposer.lookups = 0

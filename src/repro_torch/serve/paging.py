@@ -42,8 +42,11 @@ the current device step. Evicted shared prefixes demote device→host and
 promote back on a radix hit; ``save``/``restore`` persist the host tier
 plus the device radix index, keyed by prompt tokens and fingerprinted by
 config, in the JAX package's npz layout (a file passes between the two).
-A tier shared by engine replicas (``SharedHostTier``, ``_publish``) and
-meshes are ROADMAP module items 10 and 13.
+A fleet of engine replicas shares one host tier (``SharedHostTier``): every
+replica demotes into it, publishes freshly indexed prompt blocks through
+it (``_publish``) and promotes from it by copy, and a prefill replica hands
+finished chains to a decode replica over it. Meshes are ROADMAP module
+item 13.
 
 Quantized pools (``kv_dtype`` int8 / fp8, ``repro_torch.kernels.kv_quant``)
 store per-(block, KV head) scales beside the pools; every write re-encodes
@@ -495,6 +498,57 @@ class SwapStream:
         return t, b, n
 
 
+def _host_store(cfg: ArchConfig, opts, block_size: int, host_blocks: int,
+                kv_dtype: str, pin: bool) -> HostBlockStore:
+    """A host tier with the block geometry of ``PagedKV``'s pools: one
+    (L, bs, HKV, dh) group a pattern position in the pools' storage dtype,
+    plus (L, HKV) f32 scales when quantized."""
+    L, groups = cfg.num_blocks, len(cfg.block_pattern)
+    return HostBlockStore(
+        host_blocks, block_size,
+        group_shapes=[(L, block_size, cfg.n_kv_heads, cfg.head_dim)] * groups,
+        dtype=kv_quant.storage_dtype(kv_dtype, opts.dtype),
+        scale_shapes=(None if kv_dtype == "bf16"
+                      else [(L, cfg.n_kv_heads)] * groups),
+        pin=pin)
+
+
+@dataclasses.dataclass
+class SharedHostTier:
+    """One host tier shared by every replica of an engine fleet: the
+    ``HostBlockStore`` plus the prompt-keyed prefix map all replicas demote
+    into, publish through and promote from — a system prompt prefilled by
+    any replica warms the whole fleet. Also the transfer lane of prefill→
+    decode handoffs (a ``SwapHandle``'s host blocks are held here between
+    the source replica's swap-out and the destination's swap-in).
+
+    Coherence: the fleet's ticks are single-threaded, so map mutations are
+    serialized; the async hazard is one replica's ``SwapStream`` writes
+    still in flight when *another* replica reads or frees a host block —
+    every replica registers its drain on ``store.drains`` and drains them
+    all first (``PagedKV._drain_tier``)."""
+    store: HostBlockStore
+    prefix_map: Dict[bytes, int] = dataclasses.field(default_factory=dict)
+    prefix_keys: Dict[int, Tuple[bytes, np.ndarray]] = \
+        dataclasses.field(default_factory=dict)
+    #: prefix key -> replica that wrote it (write-through publish / demote)
+    writer: Dict[bytes, Any] = dataclasses.field(default_factory=dict)
+    #: promotions of a prefix some *other* replica wrote: the cross-replica
+    #: warm hits the shared store exists for
+    cross_hits: int = 0
+
+    @classmethod
+    def build(cls, cfg: ArchConfig, opts, block_size: int, host_blocks: int,
+              kv_dtype: str = "bf16", *, device) -> "SharedHostTier":
+        """A store with the geometry ``PagedKV`` would build for itself, so
+        replicas made from the same (cfg, opts, block_size, kv_dtype)
+        attach to it interchangeably; pinned when ``device`` is a GPU (the
+        replicas' tier copies run only through page-locked memory)."""
+        pin = torch.device(device).type == "cuda"
+        return cls(store=_host_store(cfg, opts, block_size, host_blocks,
+                                     kv_dtype, pin))
+
+
 def _pinned_copy(t: torch.Tensor, non_blocking: bool) -> torch.Tensor:
     """A device tensor's copy in fresh pinned host memory (raw bytes, so
     fp8 codes move exactly)."""
@@ -657,7 +711,8 @@ class PagedKV:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  chunked: bool = False, kv_dtype: str = "bf16",
                  spec: bool = False, host_blocks: Optional[int] = 0,
-                 warm_start: Optional[str] = None, async_swap: bool = True):
+                 warm_start: Optional[str] = None, async_swap: bool = True,
+                 shared_host: Optional[SharedHostTier] = None):
         _check_pageable(cfg, "PagedKV")
         self.cfg, self.params, self.opts = cfg, params, opts
         self.kv_dtype = kv_dtype
@@ -693,7 +748,13 @@ class PagedKV:
         self.prefetch_issued = 0
         self.prefetch_hits = 0
         self.prefetch_cancels = 0
-        self.prefix_publishes = 0     # a shared tier's write-through (none)
+        self.prefix_publishes = 0     # write-through copies to a shared tier
+        # chunked: nodes whose blocks the next serve program writes, to be
+        # published once it is dispatched
+        self._pending_publish: List[_Node] = []
+        #: fleet replica id (the fleet stamps it); feeds the shared tier's
+        #: writer map so cross-replica warm hits are countable
+        self.owner: Any = None
         # one block across all layers: K and V codes plus, when quantized,
         # their (HKV,) f32 scales (``paging.py:783-793``); the raw bytes are
         # what it decodes to in the activation dtype
@@ -709,26 +770,39 @@ class PagedKV:
         # -- the host tier ---------------------------------------------------
         # host_blocks: 0 disables it; None sizes it like the device pool
         # (the swap-preemption default); warm_start grows it to fit the
-        # file. On a GPU its tensors are pinned.
+        # file. On a GPU its tensors are pinned. A SharedHostTier overrides
+        # all of that: the store and the prefix maps are the fleet's.
         self.groups = len(cfg.block_pattern)
-        if host_blocks is None:
-            host_blocks = num_blocks
-        if warm_start:
-            with np.load(warm_start) as data:
-                host_blocks = max(host_blocks, int(data["n"]))
-        self.host: Optional[HostBlockStore] = None
-        if host_blocks > 0:
-            L = cfg.num_blocks
-            self.host = HostBlockStore(
-                host_blocks, block_size,
-                group_shapes=[(L, block_size, cfg.n_kv_heads, cfg.head_dim)
-                              ] * self.groups,
-                dtype=self.cache[0]["kp"].dtype,
-                scale_shapes=(None if kv_dtype == "bf16"
-                              else [(L, cfg.n_kv_heads)] * self.groups),
-                pin=self.device.type == "cuda")
-        self.host_map: Dict[bytes, int] = {}    # token-prefix key -> hblk
-        self.host_keys: Dict[int, Tuple[bytes, np.ndarray]] = {}
+        self.shared = shared_host
+        if shared_host is not None:
+            st = shared_host.store
+            group = (cfg.num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+            if (st.block_size != block_size or st.k is None
+                    or len(st.k) != self.groups
+                    or tuple(st.k[0].shape[:1] + st.k[0].shape[2:]) != group
+                    or st.k[0].dtype != self.cache[0]["kp"].dtype
+                    or (st.ks is None) != (kv_dtype == "bf16")):
+                raise ValueError(
+                    "shared host tier geometry does not match this replica "
+                    "(build it via SharedHostTier.build from the same cfg/"
+                    "opts/block_size/kv_dtype)")
+            self.host: Optional[HostBlockStore] = st
+            self.host_map: Dict[bytes, int] = shared_host.prefix_map
+            self.host_keys: Dict[int, Tuple[bytes, np.ndarray]] = \
+                shared_host.prefix_keys
+        else:
+            if host_blocks is None:
+                host_blocks = num_blocks
+            if warm_start:
+                with np.load(warm_start) as data:
+                    host_blocks = max(host_blocks, int(data["n"]))
+            self.host = None
+            if host_blocks > 0:
+                self.host = _host_store(cfg, opts, block_size, host_blocks,
+                                        kv_dtype,
+                                        pin=self.device.type == "cuda")
+            self.host_map = {}        # token-prefix key -> hblk
+            self.host_keys = {}
         # the async swap stream: device→host chain transfers issued at
         # swap-out/demote time, completed at the engine's step boundaries
         # (``drain_swaps``); None = fully synchronous tier moves
@@ -870,6 +944,8 @@ class PagedKV:
         _, h = min(cands)
         key, _ = self.host_keys.pop(h)
         del self.host_map[key]
+        if self.shared is not None:
+            self.shared.writer.pop(key, None)
         self.host.free(h)
         return True
 
@@ -916,29 +992,71 @@ class PagedKV:
         self.host_map[key] = h
         self.host_keys[h] = (key, tokens)
         self.host.touch(h)
+        if self.shared is not None:
+            self.shared.writer[key] = self.owner
         self.prefix_demotions += 1
         self.bytes_moved += self._block_bytes
         self.tel.demote(self._block_bytes, self._raw_bytes_of(1))
 
-    def _publish(self, nodes) -> None:
-        """Write-through of freshly indexed prompt blocks to a tier shared
-        by engine replicas, so a prefix one replica prefilled warms the
-        others. A private tier (the only kind here; the shared one is the
-        fleet's, ROADMAP module item 10) publishes nothing, as in JAX."""
+    def _publish(self, nodes: List[_Node]) -> None:
+        """Write-through to a fleet-shared tier: copy freshly indexed prompt
+        blocks host-side now (not only at eviction), so a prefix THIS
+        replica prefilled warms every other replica's next admission. A
+        prompt block's content is final once the index adopts it (decode
+        writes land past the prompt; CoW forks shared blocks before any
+        write), so the copy never goes stale. One chain export for all new
+        blocks, issued on the swap stream (or copied now, synchronously).
+        Keys another replica already published are skipped, and a tier
+        held full publishes what fits. A private tier publishes nothing."""
+        if self.shared is None or not nodes:
+            return
+        hblks: List[int] = []
+        todo: List[Tuple[bytes, np.ndarray, _Node]] = []
+        for node in nodes:
+            tokens = self.index.node_tokens(node)
+            key = tokens.tobytes()
+            if key in self.host_map:  # another replica already published it
+                continue
+            h = self._host_alloc()
+            if h is None:
+                break                 # tier held full: publish what fits
+            hblks.append(h)
+            todo.append((key, tokens, node))
+        if not hblks:
+            return
+        nbytes = len(hblks) * self._block_bytes
+        self._write_host(hblks, self._export([n.block for _, _, n in todo]),
+                         nbytes)
+        for h, (key, tokens, _) in zip(hblks, todo):
+            self.host_map[key] = h
+            self.host_keys[h] = (key, tokens)
+            self.host.touch(h)
+            self.shared.writer[key] = self.owner
+        self.prefix_publishes += len(hblks)
+        self.bytes_moved += nbytes
+        for _ in hblks:
+            self.tel.demote(self._block_bytes, self._raw_bytes_of(1))
 
     def _promote(self, prompt: np.ndarray, matched: List[int]) -> List[int]:
-        """Extend a device radix match with host-tier hits: pop each
+        """Extend a device radix match with host-tier hits: take each
         matching host entry, copy the chain back into fresh device blocks
         in one import, and adopt it into the device index (so later
         admissions share on-device). Returns the promoted blocks,
-        index-owned like ``PrefixIndex.match`` results."""
+        index-owned like ``PrefixIndex.match`` results.
+
+        On a private tier the hits MOVE (the host entry is consumed); on a
+        fleet-shared tier they COPY: the entry stays in the shared map for
+        every other replica, held (``retain``) against LRU eviction by the
+        allocations below, and a hit on a prefix another replica wrote
+        counts as a cross hit."""
         if self.host is None or not self.host_map:
             return []
         for b in matched:             # pin against demote-eviction below
             self.pool.retain(b)
         P = int(prompt.shape[0])
-        # pop every consecutive host hit first, then allocate device blocks
-        # in chain order, then move the whole chain in ONE import
+        move = self.shared is None
+        # take every consecutive host hit first, then allocate device
+        # blocks in chain order, then move the whole chain in ONE import
         hits: List[Tuple[bytes, int]] = []     # (key, hblk), chain order
         i = len(matched)
         while (i + 1) * self.bs <= P:
@@ -946,8 +1064,11 @@ class PagedKV:
             h = self.host_map.get(key)
             if h is None:
                 break
-            del self.host_map[key]
-            del self.host_keys[h]
+            if move:
+                del self.host_map[key]
+                del self.host_keys[h]
+            else:
+                self.host.retain(h)   # a second ref: LRU eviction skips it
             hits.append((key, h))
             i += 1
         out: List[int] = []
@@ -955,18 +1076,27 @@ class PagedKV:
             b = self._alloc(zero=False)       # the import overwrites it
             if b is None:             # device dry: put unplaced entries back
                 for key2, h2 in hits[j:]:
-                    ntok = len(key2) // prompt.itemsize
-                    self.host_map[key2] = h2
-                    self.host_keys[h2] = (key2, prompt[:ntok].copy())
+                    if move:
+                        ntok = len(key2) // prompt.itemsize
+                        self.host_map[key2] = h2
+                        self.host_keys[h2] = (key2, prompt[:ntok].copy())
+                    else:
+                        self.host.free(h2)       # just drop the hold
                 del hits[j:]
                 break
             out.append(b)
         if out:
-            self._drain_tier()        # pending demote writes may target hits
+            # pending demote / publish writes may target hits — on a shared
+            # tier, on another replica's stream
+            self._drain_tier()
             kvs = self._to_device(self._read_host([h for _, h in hits]))
             import_chain(self.cache, kvs, self._blk_tensor(out))
-            for _, h in hits:
-                self.host.free(h)
+            for key, h in hits:
+                self.host.free(h)     # move: releases; copy: drops the hold
+                if not move:
+                    self.host.touch(h)
+                    if self.shared.writer.get(key, self.owner) != self.owner:
+                        self.shared.cross_hits += 1
             self.prefix_promotions += len(out)
             self.bytes_moved += len(out) * self._block_bytes
             for _ in out:
@@ -1367,9 +1497,10 @@ class PagedKV:
         prompt = self.prompts[slot]
         n_full = min(start + n, int(prompt.shape[0])) // self.bs
         if n_full:
-            # a shared tier would publish these after the serve program
-            # that writes them (JAX defers to the end of serve_step)
-            self.index.insert(prompt, chain.blocks, n_full, self.pool)
+            # publish deferred until serve_step has dispatched the program
+            # that writes these blocks: the insert runs at plan time
+            self._pending_publish.extend(
+                self.index.insert(prompt, chain.blocks, n_full, self.pool))
         return True
 
     def serve_step(self, chunk_tokens, clen, start, reset, emit0, dec_mask,
@@ -1391,6 +1522,12 @@ class PagedKV:
         self.pos_host[:] = (np.asarray(start, np.int64)
                             + np.asarray(clen, np.int64)
                             + self.K * dec_mask.astype(np.int64))
+        if self._pending_publish:
+            # enqueued after the program, the export reads what it wrote;
+            # skip nodes a preemption or eviction replan removed meanwhile
+            nodes, self._pending_publish = self._pending_publish, []
+            self._publish([nd for nd in nodes
+                           if self.index._by_block.get(nd.block) is nd])
         return t0, seq
 
     # -- speculative decode -------------------------------------------------
@@ -1472,7 +1609,7 @@ class PagedKV:
                 "kv_prefix_demotions": self.prefix_demotions,
                 "kv_prefix_promotions": self.prefix_promotions,
                 "kv_prefix_publishes": self.prefix_publishes,
-                "kv_host_shared": 0,
+                "kv_host_shared": int(self.shared is not None),
                 "kv_swap_fails": self.swap_fails,
                 "kv_async_swap": int(self.stream is not None),
                 "kv_stream_transfers": self.stream_transfers,
@@ -1502,7 +1639,9 @@ class PagedKV:
 
     def drop_prefix_cache(self) -> int:
         """Evict every index-only block (e.g. to shed warmup residue before
-        a timed run). Returns how many blocks were freed."""
+        a timed run). Returns how many blocks were freed. A shared tier's
+        prefix map is the fleet's to drop
+        (``FleetEngine.drop_prefix_cache``)."""
         freed = self.index.evict(self.pool, self.pool.num_blocks)
         self.pool.hwm = self.pool.n_resident
         return freed

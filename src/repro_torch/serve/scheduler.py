@@ -1,12 +1,11 @@
 """Request/slot scheduling for the continuous-batching engine.
 
-The part of ``src/repro/serve/scheduler.py`` that the single engine uses,
-copied (numpy only): the port imports nothing of the JAX package, and a
-fixed seed must give the same requests, the same schedule and the same
-drafts in both. Recompute and swap preemption (the swap-suspended queue),
-the chunk packer, the TTFT budget tuner (``BudgetTuner``) and the n-gram
-drafter (``DraftProposer``) are here; ``SlotScheduler.adopt``, the fleet's
-handoff entry, comes with the fleet (ROADMAP module item 10).
+``src/repro/serve/scheduler.py``, copied (numpy only): the port imports
+nothing of the JAX package, and a fixed seed must give the same requests,
+the same schedule and the same drafts in both. Recompute and swap
+preemption (the swap-suspended queue), the chunk packer, the TTFT budget
+tuner (``BudgetTuner``), the n-gram drafter (``DraftProposer``) and the
+fleet's handoff entry (``SlotScheduler.adopt``) are here.
 
 Deterministic by construction: admission is FIFO over arrival order (ties
 broken by request id) and free slots are handed out lowest-index-first, so a
@@ -453,6 +452,18 @@ class SlotScheduler:
         st.admit_seq = self._admit_seq
         self.active[slot] = st
         return slot, st, handle
+
+    def adopt(self, st: SlotState) -> int:
+        """Install a slot state arriving from *outside* this scheduler — a
+        fleet prefill→decode handoff: the state (its produced tokens,
+        chunks and timing marks) continues here in the lowest free slot
+        under a fresh ``admit_seq``, exactly like a resumed swap victim.
+        The caller guarantees ``n_free > 0``."""
+        slot = heapq.heappop(self._free)
+        self._admit_seq += 1
+        st.admit_seq = self._admit_seq
+        self.active[slot] = st
+        return slot
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Engine telemetry: structured step tracing, metrics, lifecycle spans.
 
 The part of ``src/repro/serve/telemetry.py`` that the two-phase, chunked
-and speculative engines and the host KV tier call, copied near-verbatim
-(numpy and the standard library only); the device-trace capture uses
-``torch.profiler`` where the JAX package used ``jax.profiler``. The
-fleet's hooks (``handoff``, ``set_engine``) come with the slice that
-ports the fleet (ROADMAP module item 10).
+and speculative engines, the host KV tier and the engine fleet call,
+copied near-verbatim (numpy and the standard library only); the
+device-trace capture uses ``torch.profiler`` where the JAX package used
+``jax.profiler``. A fleet stamps each replica's events with its index
+(``set_engine``), and the Chrome export gives each replica a process
+track of its own.
 
 UKL's pitch is that linking the hot process into the kernel *keeps* Linux's
 battle-tested observability — perf, ftrace, /proc — where classic unikernels
@@ -95,6 +96,10 @@ EVENT_SCHEMA: Dict[str, frozenset] = {
     "overlap": frozenset({"kind", "hidden_s"}),
     # a BudgetTuner adjustment of the chunked token budget
     "budget": frozenset({"old", "new"}),
+    # a prefill->decode disaggregation handoff: the finished KV chain of
+    # ``rid`` left replica ``src`` (swap-out) and landed in replica
+    # ``dst``'s pool (swap-in) via the shared host tier
+    "handoff": frozenset({"rid", "src", "dst", "blocks", "bytes"}),
     # per-request lifecycle span transition (rid/state at top level)
     "span": frozenset(),
 }
@@ -179,6 +184,10 @@ class TraceRecorder:
 
     def __init__(self):
         self.events: List[dict] = []
+        #: fleet replica id stamped onto every event while set (the fleet
+        #: runtime points this at the replica it is ticking); None = the
+        #: single-engine default, which emits exactly the pre-fleet format
+        self.eng: Optional[int] = None
 
     def __len__(self) -> int:
         return len(self.events)
@@ -190,11 +199,15 @@ class TraceRecorder:
         ev = {"type": etype, "ts": ts, "args": args}
         if dur:
             ev["dur"] = dur
+        if self.eng is not None:
+            ev["eng"] = self.eng
         self.events.append(ev)
 
     def span(self, rid: int, state: str, ts: float) -> None:
-        self.events.append({"type": "span", "rid": int(rid), "state": state,
-                            "ts": ts})
+        ev = {"type": "span", "rid": int(rid), "state": state, "ts": ts}
+        if self.eng is not None:
+            ev["eng"] = self.eng
+        self.events.append(ev)
 
     def step(self, kind: str, step: int, t0: float, pack_s: float,
              dispatch_s: float, device_s: float, host_s: float,
@@ -236,18 +249,29 @@ class TraceRecorder:
         return len(self.events)
 
 
-_ENGINE_PID, _REQUEST_PID = 1, 2
+_ENGINE_PID = 1
 
 
 def chrome_trace(events: Iterable[dict]) -> dict:
     """Raw recorder events -> Chrome-trace JSON dict (see
     ``TraceRecorder.chrome_trace``). Every exported event carries its raw
     type as ``args.etype`` so ``load_trace`` can reconstruct the raw
-    stream from either export format."""
+    stream from either export format.
+
+    Fleet traces (events stamped with a replica id ``eng``) put each
+    replica on its own process track named ``engine/<i>``, with the
+    request spans on a ``requests`` process after the last engine pid.
+    Single-engine traces keep the engine=1, requests=2 pids."""
+    events = list(events)
+    engs = sorted({ev.get("eng", 0) for ev in events} | {0})
+    multi = any("eng" in ev for ev in events)
+    req_pid = _ENGINE_PID + engs[-1] + 1
     out: List[dict] = [
-        {"ph": "M", "pid": _ENGINE_PID, "name": "process_name",
-         "args": {"name": "engine"}},
-        {"ph": "M", "pid": _REQUEST_PID, "name": "process_name",
+        {"ph": "M", "pid": _ENGINE_PID + e, "name": "process_name",
+         "args": {"name": f"engine/{e}" if multi else "engine"}}
+        for e in engs
+    ] + [
+        {"ph": "M", "pid": req_pid, "name": "process_name",
          "args": {"name": "requests"}},
     ]
     open_spans: Dict[int, Tuple[str, float]] = {}
@@ -256,33 +280,35 @@ def chrome_trace(events: Iterable[dict]) -> dict:
         et, ts = ev["type"], ev["ts"]
         us = ts * 1e6
         last_ts = max(last_ts, ts)
+        eng = {} if "eng" not in ev else {"eng": ev["eng"]}
+        pid = _ENGINE_PID + ev.get("eng", 0)
         if et == "span":
             rid, state = ev["rid"], ev["state"]
             prev = open_spans.pop(rid, None)
             if prev is not None:
                 out.append({"ph": "e", "cat": "request", "id": rid,
-                            "name": prev[0], "pid": _REQUEST_PID, "ts": us,
+                            "name": prev[0], "pid": req_pid, "ts": us,
                             "args": {}})
             out.append({"ph": "b", "cat": "request", "id": rid,
-                        "name": state, "pid": _REQUEST_PID, "ts": us,
-                        "args": {"etype": "span", "rid": rid,
-                                 "state": state}})
+                        "name": state, "pid": req_pid, "ts": us,
+                        "args": dict({"etype": "span", "rid": rid,
+                                      "state": state}, **eng)})
             open_spans[rid] = (state, ts)
         elif et in ("engine_step", "step_phase"):
             name = (et if et == "engine_step"
                     else f"phase:{ev['args']['phase']}")
             out.append({"ph": "X", "cat": "engine", "name": name,
-                        "pid": _ENGINE_PID, "tid": 0, "ts": us,
+                        "pid": pid, "tid": 0, "ts": us,
                         "dur": ev.get("dur", 0.0) * 1e6,
-                        "args": dict(ev["args"], etype=et)})
+                        "args": dict(ev["args"], etype=et, **eng)})
         else:
             out.append({"ph": "i", "s": "t", "cat": "engine", "name": et,
-                        "pid": _ENGINE_PID, "tid": 0, "ts": us,
-                        "args": dict(ev["args"], etype=et)})
+                        "pid": pid, "tid": 0, "ts": us,
+                        "args": dict(ev["args"], etype=et, **eng)})
     # close dangling spans (e.g. a request still in flight at export time)
     for rid, (state, _) in sorted(open_spans.items()):
         out.append({"ph": "e", "cat": "request", "id": rid, "name": state,
-                    "pid": _REQUEST_PID, "ts": last_ts * 1e6, "args": {}})
+                    "pid": req_pid, "ts": last_ts * 1e6, "args": {}})
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 
 
@@ -305,14 +331,21 @@ def load_trace(path: str) -> List[dict]:
         if ev.get("ph") == "M" or et is None or ev.get("ph") == "e":
             continue
         ts = ev["ts"] / 1e6
+        eng = (ev.get("args") or {}).get("eng")
         if et == "span":
-            events.append({"type": "span", "rid": ev["args"]["rid"],
-                           "state": ev["args"]["state"], "ts": ts})
+            raw = {"type": "span", "rid": ev["args"]["rid"],
+                   "state": ev["args"]["state"], "ts": ts}
+            if eng is not None:
+                raw["eng"] = eng
+            events.append(raw)
             continue
-        args = {k: v for k, v in ev["args"].items() if k != "etype"}
+        args = {k: v for k, v in ev["args"].items()
+                if k not in ("etype", "eng")}
         raw = {"type": et, "ts": ts, "args": args}
         if ev.get("dur"):
             raw["dur"] = ev["dur"] / 1e6
+        if eng is not None:
+            raw["eng"] = eng
         events.append(raw)
     events.sort(key=lambda e: e["ts"])
     return events
@@ -652,6 +685,9 @@ class Telemetry:
             self._overlap_s = m.counter(
                 "engine_overlap_seconds_total",
                 "host work hidden under device execution", labels=("kind",))
+            self._handoffs = m.counter(
+                "fleet_handoffs_total",
+                "prefill->decode chains moved between fleet replicas")
             self._spec = m.counter("spec_tokens_total",
                                    "speculative tokens", labels=("kind",))
             self._budget_adj = m.counter("chunk_budget_adjustments_total",
@@ -683,6 +719,14 @@ class Telemetry:
         TTFT matches ``serve_report`` exactly)."""
         self._clock = clock
         self._last_log = None
+
+    def set_engine(self, eng: Optional[int]) -> None:
+        """Stamp subsequent trace events with a fleet replica id (None =
+        the single-engine default). The fleet runtime brackets each
+        replica's tick with this, so one shared recorder yields a process
+        track a replica in the Chrome export."""
+        if self.trace is not None:
+            self.trace.eng = eng
 
     def reset(self) -> None:
         """Drop recorded events and zero metrics (after compile warmup)."""
@@ -843,6 +887,18 @@ class Telemetry:
             self._tier_raw.labels(op=op).inc(
                 nbytes if raw_bytes is None else raw_bytes)
 
+    def handoff(self, rid: int, src: int, dst: int, blocks: int,
+                nbytes: int) -> None:
+        """A prefill->decode disaggregation handoff: ``rid``'s finished KV
+        chain left replica ``src`` and landed in replica ``dst``'s pool
+        (the swap_out / swap_in pair it rode is traced on each replica's
+        track; this event is the edge between them)."""
+        if self.trace is not None:
+            self.trace.emit("handoff", self._clock(), rid=rid, src=src,
+                            dst=dst, blocks=blocks, bytes=nbytes)
+        if self.metrics is not None:
+            self._handoffs.inc()
+
     def swap_fail(self, slot: int, blocks: int, op: str) -> None:
         """A tier move that could not complete (alloc exhaustion): ``op``
         is the failed direction (swap_out | swap_in). Makes the engine's
@@ -938,6 +994,9 @@ class _NullTelemetry(Telemetry):
     def set_clock(self, clock) -> None:
         pass
 
+    def set_engine(self, *a, **k) -> None:
+        pass
+
     def reset(self) -> None:
         pass
 
@@ -987,6 +1046,9 @@ class _NullTelemetry(Telemetry):
         pass
 
     def promote(self, *a, **k) -> None:
+        pass
+
+    def handoff(self, *a, **k) -> None:
         pass
 
     def swap_fail(self, *a, **k) -> None:

@@ -35,6 +35,9 @@
     python3 chip_smoke.py fleet   # the build, paths A and C, the fleet's
                                   # paths FL1-FL5, the handoff cost, the
                                   # fleet profiled
+    python3 chip_smoke.py zoo     # the build, the kernels at the zoo's
+                                  # head shapes, mixtral's router rows,
+                                  # the zoo's paths Z1-Z7
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -230,6 +233,28 @@ non-zero before the result line):
    engine, 2 colocated replicas and FL2 profiled, and one replica's sync
    against the next replica's program on the one stream. Paths A and C
    come from the path phase.
+10. the model zoo's remainder, the last phase (``zoo_phase``): each
+   config at its published widths, one at a time, seeded init, depth cut
+   only where 80 GB forces it: Z1 qwen2-7b (28 layers, fp32, QKV biases
+   drawn nonzero) and Z6 mistral-large-123b (8 of 88 layers, bf16)
+   through the paged engine as path A; Z2 h2o-danube-1.8b (24 layers,
+   fp32) slotted, 2 requests of 4,128 + 32 and 2 of 32 + 32 (the
+   4,096-token window rolls at admission and binds at decode); Z5
+   mixtral-8x7b (16 of 32 layers, bf16) and Z7 kimi-k2-1t-a32b (1 of 61
+   layers, bf16) slotted; Z3 llama-3.2-vision-11b (40 layers, fp32, every
+   cross-attention gate 1.0) and Z4 musicgen-medium (48 layers, fp32,
+   frame embeddings) at model level, as the engine refuses both. Gated:
+   every request finished, every kernel of the path launched (flash,
+   rmsnorm, slot or paged decode, ``moe_route`` once a layer of every
+   forward on Z5 and Z7), the kernel path against the plain path
+   teacher-forced (f32 activations, MoE routing replayed) within 2e-3,
+   and on Z2 the last decode step past the window against a plain
+   4,160-position prefill within 2e-3. Printed: tokens/s, peak memory,
+   each engine path's profile. The kernel phase holds flash, slot decode,
+   paged decode and paged prefill at the zoo's head shapes (labels
+   ``zoo``: HQ/HKV/dh 28/4/128, 96/8/128, 32/8/80, 64/8/112), flash with
+   danube's 4,096-token window at S 4,128 and slot decode over its
+   4,096-key buffer, and the router at mixtral's rows (E 8, k 2).
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -917,6 +942,39 @@ def make_cases(gen, dtype):
         paged_prefill_quant_case("large paged prefill dh=128 q (4,256,32,128) "
                                  "HKV=8 T=2048 bs=16", kvd, 4, 256, 128, 16,
                                  32, 8, 128, (0, 512, 1024, 1792))
+    # rmsnorm at the zoo's decode rows: qwen2-7b, h2o-danube-1.8b and
+    # musicgen-medium (fp32 scales), mixtral-8x7b, mistral-large-123b and
+    # kimi-k2-1t-a32b (bf16 scales, as their bf16 parameters)
+    for name, D, sdt in (("qwen2", 3584, torch.float32),
+                         ("danube", 2560, torch.float32),
+                         ("musicgen", 1536, torch.float32),
+                         ("mixtral", 4096, torch.bfloat16),
+                         ("mistral", 12288, torch.bfloat16),
+                         ("kimi", 7168, torch.bfloat16)):
+        rms_case(f"zoo {name}: decode rows (4,1,{D}) {str(sdt)[6:]} scale",
+                 (SLOTS, 1, D), sdt)
+    # the zoo's head shapes (paths Z1-Z7) at the main paths' slots, prompt,
+    # cache and pools: qwen2-7b (G 7), mistral-large-123b (G 12),
+    # h2o-danube-1.8b (dh 80) and kimi-k2-1t-a32b (dh 112), each kernel;
+    # danube's window binding a 4,128-token prefill, and its decode over
+    # the 4,096-key circular buffer (two slots full, two short)
+    for name, HQ, HKV, dh in (("qwen2", 28, 4, 128), ("mistral", 96, 8, 128),
+                              ("danube", 32, 8, 80), ("kimi", 64, 8, 112)):
+        flash_case(f"zoo {name}: prefill q (1,32,{HQ},{dh}) HKV={HKV}", 1,
+                   PROMPT, HQ, HKV, dh)
+        slot_case(f"zoo {name}: decode q (4,{HQ},{dh}) kv (4,72,{HKV},{dh})",
+                  SLOTS, MAX_LEN, HQ, HKV, dh,
+                  (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
+        paged_decode_case(f"zoo {name}: paged decode q (4,{HQ},{dh}) pools "
+                          f"(22,16,{HKV},{dh})", SLOTS, NB, BS, HQ, HKV, dh,
+                          (32, 48, 71, 0))
+        paged_prefill_case(f"zoo {name}: paged prefill q (4,24,{HQ},{dh}) "
+                           "starts (0,8,24,40)", SLOTS, CHUNK_W, NB, BS, HQ,
+                           HKV, dh, (0, 8, 24, 40))
+    flash_case("zoo danube: prefill window=4096 q (1,4128,32,80) HKV=8", 1,
+               4128, 32, 8, 80, window=4096)
+    slot_case("zoo danube: decode q (4,32,80) kv (4,4096,8,80)", SLOTS, 4096,
+              32, 8, 80, (4096, 4096, PROMPT + 1, PROMPT + 17))
     return cases
 
 
@@ -969,8 +1027,16 @@ def kernel_phase(gen, only: str = "", names=None):
             torch.cuda.synchronize()
             err = check_close(f"{name} [{label}] {dtype}", got, want, dtype)
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err}
-            if label.startswith(("main", "large", "moe", "jamba", "wide",
-                                 "verify")):
+            if label.startswith("zoo"):
+                # the zoo's head shapes: fewer calls a time (20; the window
+                # case's plain version takes ~0.1 s a call in fp32), no
+                # device time of the plain version or the library call
+                b_ms, b_by = bound(nb, ops, dtype)
+                row.update(ms=cuda_ms(call, 20), plain_ms=cuda_ms(plain, 20),
+                           library_ms=cuda_ms(lib, 20), bound_ms=b_ms,
+                           bound_by=b_by, device_ms=device_ms(call, 20))
+            elif label.startswith(("main", "large", "moe", "jamba", "wide",
+                                   "verify")):
                 b_ms, b_by = bound(nb, ops, dtype)
                 row.update(ms=cuda_ms(call), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(lib), bound_ms=b_ms,
@@ -1043,6 +1109,11 @@ def route_cases(gen, dtype):
              SLOTS, 7168, 384, 8),
             ("kimi: admission x (32,7168) router (7168,384) k=8", PROMPT,
              7168, 384, 8),
+            # mixtral-8x7b's router (path Z5): D 4096, E 8, top-2
+            ("mixtral: decode microstep x (4,4096) router (4096,8) k=2",
+             SLOTS, 4096, 8, 2),
+            ("mixtral: admission x (32,4096) router (4096,8) k=2", PROMPT,
+             4096, 8, 2),
             ("large N=4096 D=2048 E=64 k=6", 4096, 2048, 64, 6)):
         cases.append((label, rn(N, D), rn(D, E, scale=0.02), k, False))
     for label, N, D, E, k in (
@@ -1121,7 +1192,8 @@ def route_phase(gen, only=""):
             row = {"label": label, "dtype": str(dtype), "max_abs_err": err,
                    "near_tie_rows_reordered": reordered,
                    "near_tie_rows_kth_swapped": swapped}
-            if label.startswith(("main", "large", "jamba", "kimi")):
+            if label.startswith(("main", "large", "jamba", "kimi",
+                                 "mixtral")):
                 N, D = x.shape
                 lib = lambda: torch.topk(torch.softmax(  # noqa: E731
                     x.float() @ w.float(), -1), k)
@@ -3677,6 +3749,364 @@ def mamba_phases(check: bool = True):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the model zoo's remainder at full width (paths Z1-Z7)
+# ---------------------------------------------------------------------------
+
+#: (path, arch, blocks kept or None for all, dtype, what runs): every path
+#: at its config's published widths; depth cut only where 80 GB forces it
+ZOO = (("Z1", "qwen2-7b", None, "fp32", "paged"),
+       ("Z2", "h2o-danube-1.8b", None, "fp32", "window"),
+       ("Z3", "llama-3.2-vision-11b", None, "fp32", "xattn"),
+       ("Z4", "musicgen-medium", None, "fp32", "embeds"),
+       ("Z5", "mixtral-8x7b", 16, "bf16", "slotted"),
+       ("Z6", "mistral-large-123b", 8, "bf16", "paged"),
+       ("Z7", "kimi-k2-1t-a32b", 1, "bf16", "slotted"))
+#: Z2: requests of 4,128 prompt tokens (past danube's 4,096-token window)
+#: and of 32, each with 32 new tokens; max_len 4,224
+ZOO_LONG, ZOO_LONG_MAX_LEN = 4128, 4224
+#: the zoo's bound on teacher-forced |dlogit| (PERF.md section 2)
+ZOO_TOL = 2e-3
+
+
+def _zoo_dtype(name):
+    import torch
+    return {"fp32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+def zoo_model(arch, blocks, dtype):
+    """The config (cut to ``blocks`` blocks when given) and its seeded
+    parameters on the card in ``dtype``; the QKV biases of a config that
+    has them drawn nonzero (N(0, 0.1²); the init's are zero, which would
+    hide them)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_blocks=blocks) if blocks else full
+    size = cfg.param_count() * _zoo_dtype(dtype).itemsize
+    log(f"zoo {arch}: full width, {cfg.num_layers} of {full.num_layers} "
+        f"layers ({'depth cut: 80 GB' if blocks else 'full depth'}), "
+        f"{cfg.param_count() / 1e9:.4f} B of {full.param_count() / 1e9:.4f} "
+        f"B parameters, {size / 1e9:.2f} GB in {dtype}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, "cuda", param_dtype=_zoo_dtype(dtype))
+    if cfg.attn_bias:
+        for layer in params["layers"]:
+            for name in ("bq", "bk", "bv"):
+                b = layer["mixer"][name]
+                b.copy_(torch.randn(b.shape, generator=gen, device="cuda")
+                        * 0.1)
+    return cfg, params
+
+
+def zoo_serve(path, cfg, params, dtype, kind, want, never):
+    """One engine path as ``run_engine`` makes it (a warm run through the
+    same programs, counters reset), ``nss_shortcut``, 4 slots, open load:
+    paged ("paged": path A's 8 requests of 32 + 32 sharing a 16-token
+    prefix, blocks of 16), or slotted (8 requests of 32 + 32; Z2: 2 of
+    4,128 + 32 and 2 of 32 + 32, max_len 4,224). Launch counts zeroed
+    just before the timed run and read just after: every kernel of
+    ``want`` must launch, none of ``never``; every request must finish
+    with its budget. Prints the report, tokens/s and peak memory; then
+    profiles the engine (``_profile_run``: one wave of 4 requests, 32 + 33
+    tokens, or Z2's two long and two short prompts, then decode); returns
+    the counts."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions
+    from repro_torch.serve import ServeEngine, serve_report
+    from repro_torch.serve import synthetic_requests
+
+    lk = preset(PRESET)
+    lk = dataclasses.replace(lk, decode_steps=min(lk.decode_steps, GEN))
+    opts = lk.model_options(ModelOptions(attn_impl="ref",
+                                         dtype=_zoo_dtype(dtype)))
+    paged = kind == "paged"
+    shared = SHARED if paged else 0
+    max_len = ZOO_LONG_MAX_LEN if kind == "window" else MAX_LEN
+    kw = dict(kv="paged", block_size=BS) if paged else {}
+    eng = ServeEngine(cfg, params, opts, lk, n_slots=SLOTS, max_len=max_len,
+                      **kw)
+    eng.run(synthetic_requests(2 if shared else 1, PROMPT,
+                               eng.tokens_per_program + 1, cfg.vocab_size,
+                               seed=1, shared_prefix_len=shared),
+            load="closed")
+    if paged:
+        eng.kv.drop_prefix_cache()
+    eng.reset_counters()
+    if kind == "window":
+        reqs = synthetic_requests(4, PROMPT, GEN, cfg.vocab_size, seed=0,
+                                  rate=25.0, prompt_lens=(ZOO_LONG, PROMPT))
+    else:
+        reqs = synthetic_requests(REQUESTS, PROMPT, GEN, cfg.vocab_size,
+                                  seed=0, rate=25.0, shared_prefix_len=shared)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    comps, wall = eng.run(reqs, load="open")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rep = serve_report(comps, wall, eng.utilization())
+    log(f"zoo {path} serve report:", json.dumps(rep))
+    log(f"zoo {path} launches:", counts)
+    log(f"zoo {path}: {cfg.name}, {rep['tokens_per_s']:.6g} tokens/s, peak "
+        f"device memory {peak / 1e9:.3f} GB (max_memory_allocated)")
+    got = {c.rid: len(c.tokens) for c in comps}
+    short = [r.rid for r in reqs if got.get(r.rid) != r.max_new_tokens]
+    if short:
+        raise AssertionError(f"zoo {path}: requests {short} did not finish "
+                             "with their budget")
+    for k in want:
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"zoo {path}: kernel {k} was never launched")
+    launched = [k for k in never if counts.get(k)]
+    if launched:
+        raise AssertionError(f"zoo {path} launched {launched}")
+    wave = (synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7,
+                               prompt_lens=(ZOO_LONG, PROMPT))
+            if kind == "window" else
+            synthetic_requests(SLOTS, PROMPT, GEN + 1, cfg.vocab_size, seed=7))
+    _profile_run(f"zoo {path} {cfg.name}, {kind}, {dtype}", eng, wave,
+                 also=("flash", "decode_split", "route", "rmsnorm"))
+    if cfg.moe is not None:
+        per_forward = cfg.num_layers
+        forwards = (counts["flash_attention"]
+                    + counts.get("slot_decode", 0)) / cfg.num_layers
+        if counts["moe_route"] != per_forward * forwards:
+            raise AssertionError(f"zoo {path}: moe_route launched "
+                                 f"{counts['moe_route']} times, want "
+                                 f"{per_forward * forwards:g} (one a layer "
+                                 "of every forward)")
+    return counts
+
+
+def _zoo_inputs(cfg, B, S):
+    """Seeded inputs of S positions on the card: token ids (B, S), or frame
+    embeddings (B, S, D) x 0.1 for an ``embeds_in`` model; and a
+    cross-attention context (B, ctx_len, ctx_dim) x 0.1, or None."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    if cfg.embeds_in:
+        x = torch.from_numpy((rng.standard_normal((B, S, cfg.d_model))
+                              * 0.1).astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S),
+                                          dtype=np.int32))
+    xctx = None
+    if cfg.xattn_ctx_len:
+        xctx = torch.from_numpy((rng.standard_normal(
+            (B, cfg.xattn_ctx_len, cfg.xattn_ctx_dim)) * 0.1).astype(
+                np.float32)).cuda()
+    return x.cuda(), xctx
+
+
+def zoo_teacher_forced(path, cfg, params, kind, steps: int = 8,
+                       tol: float = ZOO_TOL):
+    """Teacher-forced logits, kernel path against plain path on the same
+    weights, float32 activations (over bf16 parameters where the path's
+    are bf16, each weight cast on use, as the MoE path's check): a prefill
+    of B 2 x 32 positions, then ``steps`` decode steps fed the plain
+    path's greedy tokens (musicgen: the next seeded frames) through the
+    slotted step (musicgen: the uniform one), and on the paged paths also
+    through the paged step over a pool filled by the prefill through a
+    permuted table. The kernel path replays the plain path's MoE routing
+    (``routes``: a near-tied expert flips on an ulp). max |dlogit| <=
+    ``tol``. Launch counts are zeroed before the kernel path's first run and
+    read after it: the model-level paths' (Z3, Z4) counts."""
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.models import (ModelOptions, decode_step,
+                                    decode_step_paged, decode_step_slots,
+                                    prefill)
+    from repro_torch.models.transformer import clone_cache
+    from repro_torch.serve import slotify
+    from repro_torch.serve.paging import init_paged_cache, scatter_kv
+
+    B = 2
+    x, xctx = _zoo_inputs(cfg, B, PROMPT + steps)
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+    P = 3 * NB * B
+    table = torch.randperm(P, generator=torch.Generator().manual_seed(1))[
+        :NB * B].to(torch.int32).reshape(B, NB).cuda()
+
+    def paged_from(c):
+        pc = init_paged_cache(cfg, P, BS, B, torch.float32, "cuda")
+        p = torch.arange(PROMPT, device="cuda")
+        for b in range(B):
+            scatter_kv(pc, [{"k": g["k"][b:b + 1, :PROMPT],
+                             "v": g["v"][b:b + 1, :PROMPT]} for g in c],
+                       table[b, p // BS].long(), p % BS, b, PROMPT)
+        return pc
+
+    modes = {"slotted": (decode_step_slots, slotify)}
+    if kind == "embeds":
+        modes = {"uniform": (decode_step, lambda c: c)}
+    if kind == "paged":
+        modes["paged"] = (lambda p, c, t, cf, o: decode_step_paged(
+            p, c, t, table, cf, o, MAX_LEN), paged_from)
+
+    def run(opts, route_log, replay, feed=None):
+        with routes(route_log, replay):
+            lg, cache = prefill(params, x[:, :PROMPT], cfg, opts, MAX_LEN,
+                                xctx=xctx)
+        out = {}
+        for mode, (step, layout) in modes.items():
+            c, lgs, fed, lm = layout(clone_cache(cache)), [lg], [], lg
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                if kind == "embeds":
+                    nxt = x[:, PROMPT + i]
+                else:
+                    nxt = (feed[mode][i] if feed is not None
+                           else torch.argmax(lm, -1).to(torch.int32))
+                fed.append(nxt)
+                with routes(route_log, replay):
+                    lm, c = step(params, c, nxt, cfg, opts)
+                lgs.append(lm)
+            torch.cuda.synchronize()
+            out[mode] = (lgs, fed, B * steps / (time.perf_counter() - t0))
+        return out
+
+    plain_log = []
+    lp = run(plain, plain_log, replay=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lk = run(kern, iter(plain_log), replay=True,
+             feed={m: fed for m, (_, fed, _) in lp.items()})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for mode in modes:
+        w = max((a - b).abs().max().item()
+                for a, b in zip(lp[mode][0], lk[mode][0]))
+        log(f"zoo {path} teacher-forced ({cfg.name}, f32 activations, "
+            f"prefill B {B} x {PROMPT} + {steps} {mode} decode steps"
+            f"{', routing replayed' if cfg.moe else ''}) max |dlogit|: "
+            f"{w:.3e} (tolerance {tol}; logit scale "
+            f"{lp[mode][0][-1].abs().max().item():.3g}); the kernel path's "
+            f"decode {lk[mode][2]:.6g} tokens/s (B {B}, one token a step "
+            "and a sync, not an engine's rate)")
+        if not math.isfinite(w) or w > tol:
+            raise AssertionError(f"zoo {path} teacher-forced ({mode}) logits "
+                                 f"differ by {w}")
+    return counts
+
+
+def zoo_window_phase(path, cfg, params, tol: float = ZOO_TOL):
+    """The window binds (JAX's ``test_swa_decode_past_window`` at full
+    width): one seeded sequence of 4,160 tokens; the kernel path prefills
+    its first 4,128 (the 4,096-key circular buffer rolls) and decodes the
+    last 32 through the slotted step, fed the sequence's own tokens
+    (decode runs past the window); the plain path does the same, and a
+    plain full-sequence prefill of all 4,160 positions masks the keys past
+    the window. Gated, each max |dlogit| <= ``tol``: the kernel path's
+    logits against the plain path's at the prefill and every decode step,
+    and the kernel path's last step (position 4,159) against the full
+    prefill's last position, which agree only if the window is right."""
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import ModelOptions, decode_step_slots, prefill
+    from repro_torch.serve import slotify
+
+    n = ZOO_LONG + GEN
+    toks, _ = _zoo_inputs(cfg, 1, n)
+    plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
+    kern = preset(PRESET).model_options(plain)
+
+    def run(opts):
+        lg, cache = prefill(params, toks[:, :ZOO_LONG], cfg, opts,
+                            ZOO_LONG_MAX_LEN)
+        cache, out = slotify(cache), [lg]
+        for i in range(ZOO_LONG, n):
+            lg, cache = decode_step_slots(params, cache, toks[:, i], cfg,
+                                          opts)
+            out.append(lg)
+        return out
+
+    lp, lk = run(plain), run(kern)
+    full, _ = prefill(params, toks, cfg, plain, ZOO_LONG_MAX_LEN)
+    torch.cuda.synchronize()
+    w = max((a - b).abs().max().item() for a, b in zip(lp, lk))
+    wf = (lk[-1] - full).abs().max().item()
+    log(f"zoo {path} teacher-forced ({cfg.name}, fp32, prefill {ZOO_LONG} + "
+        f"{GEN} slotted decode steps past the {cfg.sliding_window}-token "
+        f"window) max |dlogit|: {w:.3e}; the kernel path's last step vs a "
+        f"plain full prefill of {n} positions: {wf:.3e} (tolerance {tol}; "
+        f"logit scale {full.abs().max().item():.3g}); the plain path's: "
+        f"{(lp[-1] - full).abs().max().item():.3e}")
+    for what, e in (("kernel vs plain", w), ("decode past the window vs "
+                                             "full prefill", wf)):
+        if not math.isfinite(e) or e > tol:
+            raise AssertionError(f"zoo {path} ({what}) logits differ by {e}")
+
+
+def zoo_phase():
+    """Paths Z1-Z7: each config of the zoo's remainder at its published
+    widths on the card, one at a time (the last one's tensors released
+    first): Z1 qwen2-7b (28 layers, fp32, nonzero QKV biases, G 7) and Z6
+    mistral-large-123b (8 of 88 layers, bf16, G 12, D 12288) through the
+    paged engine as path A; Z2 h2o-danube-1.8b (24 layers, fp32, dh 80)
+    through the slotted engine with prompts past its 4,096-token window,
+    and the window check (``zoo_window_phase``); Z5 mixtral-8x7b (16 of
+    32 layers, bf16, E 8, k 2) and Z7 kimi-k2-1t-a32b (1 of 61 layers,
+    bf16, E 384, k 8, dh 112) through the slotted engine; Z3
+    llama-3.2-vision-11b (40 layers, fp32, every ``xgate`` set to 1.0:
+    the init's zero hides the cross-attention) and Z4 musicgen-medium (48
+    layers, fp32, frame embeddings) at model level, which is all the
+    engine takes of them, as in JAX. Each path's kernels against its plain
+    path teacher-forced (``zoo_teacher_forced``); every kernel of the path
+    launched. Returns each path's launch counts."""
+    import torch
+    counts_by = {}
+    for path, arch, blocks, dtype, kind in ZOO:
+        t0 = time.time()
+        _release()
+        cfg, params = zoo_model(arch, blocks, dtype)
+        want = ("rmsnorm", "flash_attention",
+                "paged_decode" if kind == "paged" else "slot_decode")
+        if cfg.moe is not None:
+            want += ("moe_route",)
+        if kind in ("paged", "window", "slotted"):
+            never = (("slot_decode", "paged_decode_quant",
+                      "paged_prefill_quant") if kind == "paged"
+                     else PAGED_KERNELS)
+            counts = zoo_serve(path, cfg, params, dtype, kind, want, never)
+            _release()
+        if kind == "window":
+            zoo_window_phase(path, cfg, params)
+        else:
+            if kind == "xattn":
+                for layer in params["layers"]:
+                    if "xgate" in layer["mixer"]:
+                        layer["mixer"]["xgate"].fill_(1.0)
+            torch.cuda.reset_peak_memory_stats()
+            tf_counts = zoo_teacher_forced(path, cfg, params, kind)
+            if kind in ("xattn", "embeds"):
+                counts = tf_counts
+                log(f"zoo {path} launches (the kernel path's runs):", counts)
+                log(f"zoo {path}: {cfg.name}, peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+                    "(max_memory_allocated)")
+                for k in want:
+                    if counts.get(k, 0) < 1:
+                        raise AssertionError(f"zoo {path}: kernel {k} was "
+                                             "never launched")
+        counts_by[path] = counts
+        del params
+        log(f"zoo {path} ({arch}) done in {time.time() - t0:.1f} s")
+    _release()
+    return counts_by
+
+
 def launch_log():
     """The instantiations of the kernels with dynamic shared memory beside
     ptxas's lines: for paged prefill each (query type, pool type, padded
@@ -3864,6 +4294,11 @@ def main() -> int:
     if sys.argv[1:] == ["fleet"]:
         phase(fleet_phase)
         return 0
+    if sys.argv[1:] == ["zoo"]:
+        phase(kernel_phase, gen, "zoo")
+        phase(route_phase, gen, "mixtral")
+        phase(zoo_phase)
+        return 0
     if sys.argv[1:] == ["mamba"]:
         phase(kernel_phase, gen, "jamba")
         phase(route_phase, gen, "jamba")
@@ -3889,6 +4324,7 @@ def main() -> int:
     moe_counts = phase(moe_phases)
     rwkv_counts = phase(rwkv_phases)
     mamba_counts = phase(mamba_phases)
+    zoo_counts = phase(zoo_phase)
     records["moe_route"] = route_rows
     records["rwkv_scan"] = rwkv_rows
     records["mamba_scan"] = mamba_rows
@@ -3903,7 +4339,8 @@ def main() -> int:
                "mamba slotted open": mamba_counts,
                **{f"modes {n}": c for n, c in mode_counts.items()},
                **{f"tier {n}": c for n, c in tier_counts.items()},
-               **{f"fleet {n}": c for n, c in fleet_counts.items()}}
+               **{f"fleet {n}": c for n, c in fleet_counts.items()},
+               **{f"zoo {n}": c for n, c in zoo_counts.items()}}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",
@@ -3978,6 +4415,10 @@ def main() -> int:
         if moe:       # at the MoE path's shapes, in its dtype (bf16)
             out[-1]["moe"] = {k: v for k, v in moe[0].items()
                               if k != "dtype"}
+        zoo = [r for r in records[name]
+               if r["label"].startswith(("zoo", "mixtral"))]
+        if zoo:       # at the zoo's head shapes (Z1-Z7), both dtypes
+            out[-1]["zoo"] = zoo
         jamba = [r for r in records[name] if r["label"].startswith("jamba")
                  and r["dtype"] == "torch.float32"]
         if jamba:     # at the Mamba path's shapes, in its dtype (fp32)

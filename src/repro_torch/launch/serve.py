@@ -46,6 +46,8 @@ Two paths share one model/linkage setup:
           --dtype bf16                   # the MoE model, bf16 parameters
       python -m repro_torch.launch.serve --arch rwkv6-7b  # RWKV, slotted
       python -m repro_torch.launch.serve --arch jamba-v0.1-52b  # Mamba
+      python -m repro_torch.launch.serve --arch qwen2-7b --kv paged
+      python -m repro_torch.launch.serve --arch h2o-danube-1.8b  # SWA
 
   sequential        one request batch at a time (``--load seq``, also
                     ``run_server``): the baseline the engine's continuous
@@ -66,6 +68,11 @@ fp32); the CLI has no depth option, as the JAX launcher has none. RWKV and
 Mamba layers carry a recurrent state, so rwkv6-7b and jamba-v0.1-52b run
 on the slotted backend only: ``--kv paged``, ``--bucket-prompts``,
 ``--chunked`` and ``--spec-decode`` raise ``ValueError``, as in JAX.
+So does h2o-danube-1.8b: a sliding-window layer's circular buffer has no
+block chain. musicgen-medium (embedding inputs) and llama-3.2-vision-11b
+(cross-attention over a context no request carries) run at model level
+only: both ``run_engine`` and ``run_server`` raise ``ValueError`` for
+them, as JAX's engine does.
 Meshes raise ``NotImplementedError`` naming their ROADMAP item (13);
 ``--kv-dtype int8|fp8`` or ``--prefix-cache`` without ``--kv paged``
 raise ``ValueError``, as in JAX. ``--load seq`` decodes greedily, as
@@ -271,10 +278,12 @@ def run_server(arch: str, preset_name: str, *, batch: int = 8,
     at a time (no admission between programs), in ``dtype``."""
     from repro_torch.core import L3_NSS, build_decode_step
     from repro_torch.models import prefill
+    from repro_torch.serve.engine import check_servable
 
     cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
                                    gen_len=gen_len, decode_steps=gen_len,
                                    device=device, dtype=dtype)
+    check_servable(cfg)
     dev = params["embed"].device
     dec = build_decode_step(cfg, opts, lk)
     rng = np.random.default_rng(seed)
@@ -329,10 +338,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--arch", default="tinyllama-1.1b",
-                   help="tinyllama-1.1b, moonshot-v1-16b-a3b (the MoE "
-                        "model), rwkv6-7b (the RWKV model, slotted only) or "
-                        "jamba-v0.1-52b (Mamba, attention and MoE layers, "
-                        "slotted only)")
+                   help="a registered config: tinyllama-1.1b, qwen2-7b, "
+                        "mistral-large-123b and the MoE models "
+                        "moonshot-v1-16b-a3b, kimi-k2-1t-a32b and "
+                        "mixtral-8x7b on either backend; h2o-danube-1.8b "
+                        "(sliding window), rwkv6-7b and jamba-v0.1-52b "
+                        "slotted only; musicgen-medium (embedding inputs) "
+                        "and llama-3.2-vision-11b (cross-attention) run at "
+                        "model level only and raise ValueError here")
     p.add_argument("--dtype", default="fp32", choices=list(DTYPES),
                    help="activation and parameter dtype")
     p.add_argument("--preset", default="nss_shortcut")

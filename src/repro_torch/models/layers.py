@@ -1,7 +1,8 @@
-"""Layer library of the port, the ATTN/SWA + DENSE/MOE, MAMBA and RWKV +
-RWKVMIX subsets of ``src/repro/models/layers.py``: init + apply for
+"""Layer library of the port, the ATTN/SWA/XATTN + DENSE/MOE, MAMBA and
+RWKV + RWKVMIX layers of ``src/repro/models/layers.py``: init + apply for
 RMSNorm, RoPE, GQA attention (full sequence, blockwise, uniform / slotted /
-paged decode, the paged serve chunk pass), the SwiGLU MLP, the top-k MoE
+paged decode, the paged serve chunk pass; the gated cross-attention of an
+XATTN layer, plain PyTorch as in JAX), the SwiGLU MLP, the top-k MoE
 with capacity dispatch, the Mamba-1 selective SSM and the RWKV-6 time mix
 (each full sequence and one-token decode), and the RWKV channel mix.
 
@@ -26,7 +27,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import SWA, ArchConfig, LayerSpec
+from repro_torch.configs.base import SWA, XATTN, ArchConfig, LayerSpec
 from repro_torch.kernels.kv_quant import quant_insert
 from repro_torch.kernels.ref import (gather_pool, mamba_scan_ref,
                                      rwkv_scan_ref)
@@ -76,8 +77,12 @@ def init_rmsnorm(cfg: ArchConfig, device, dtype=torch.float32) -> Params:
     return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
 
 
-def init_attention(gen, cfg: ArchConfig, device,
+def init_attention(gen, cfg: ArchConfig, spec: LayerSpec, device,
                    dtype=torch.float32) -> Params:
+    """``layers.py:158-178``: a cross-attention layer (``XATTN``) adds its
+    own projections ``xq`` (D, HQ*dh), ``xk``/``xv`` (ctx_dim, HKV*dh) and
+    ``xo`` at the self-attention's scales, and the gate ``xgate`` (1,) at
+    zero (the cross-attention starts closed)."""
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": _dense_init(gen, (d, hq * dh), device, dtype=dtype),
@@ -89,6 +94,14 @@ def init_attention(gen, cfg: ArchConfig, device,
     if cfg.attn_bias:
         for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
             p[name] = torch.zeros((n,), dtype=dtype, device=device)
+    if spec.mixer == XATTN:
+        dc = cfg.xattn_ctx_dim
+        p["xq"] = _dense_init(gen, (d, hq * dh), device, dtype=dtype)
+        p["xk"] = _dense_init(gen, (dc, hkv * dh), device, dtype=dtype)
+        p["xv"] = _dense_init(gen, (dc, hkv * dh), device, dtype=dtype)
+        p["xo"] = _dense_init(gen, (hq * dh, d), device,
+                              scale=1.0 / math.sqrt(hq * dh), dtype=dtype)
+        p["xgate"] = torch.zeros((1,), dtype=dtype, device=device)
     return p
 
 
@@ -317,12 +330,45 @@ def _sdpa_chunked(q, k, v, *, causal: bool, window: int, q_pos, k_pos,
     return out.reshape(B, nq * qc, HQ, dh)[:, :Sq]
 
 
+def xattn_kv(params: Params, xctx: torch.Tensor, cfg: ArchConfig,
+             dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's K and V over the context embeddings ``xctx``
+    (B, n_ctx, ctx_dim): (B, n_ctx, HKV, dh) each, unrotated
+    (``layers.py:338-339``, ``transformer.py:736-737``)."""
+    B = xctx.shape[0]
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    x = xctx.to(dtype)
+    return ((x @ params["xk"].to(dtype)).reshape(B, -1, hkv, dh),
+            (x @ params["xv"].to(dtype)).reshape(B, -1, hkv, dh))
+
+
+def _xattn(params: Params, x: torch.Tensor, xk: torch.Tensor,
+           xv: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The gated cross-attention term, ``tanh(xgate) * (attn(x xq, xk, xv)
+    @ xo)``: every query attends every context position, with no mask and
+    no rope (``layers.py:333-350``: q_pos and k_pos are zero). Plain
+    PyTorch under either ``attn_impl``, as JAX leaves it outside its Pallas
+    kernels; one-token decode reads ``xk``/``xv`` from the cache
+    (``_xattn_cached``, ``layers.py:681-690``), the same function."""
+    B, S, _ = x.shape
+    xq = (x @ params["xq"].to(x.dtype)).reshape(B, S, cfg.n_heads,
+                                                 cfg.head_dim)
+    zq = torch.zeros((S,), dtype=torch.int32, device=x.device)
+    zk = torch.zeros((xk.shape[1],), dtype=torch.int32, device=x.device)
+    out = _sdpa_ref(xq, xk.to(x.dtype), xv.to(x.dtype), causal=False,
+                    window=0, q_pos=zq, k_pos=zk)
+    gate = torch.tanh(params["xgate"]).to(x.dtype)
+    return gate * (out.reshape(B, S, -1) @ params["xo"].to(x.dtype))
+
+
 def attention_kv(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                 spec: LayerSpec, opts: ModelOptions, positions: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 spec: LayerSpec, opts: ModelOptions, positions: torch.Tensor,
+                 xkv=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence (prefill) attention; also returns the rotated K and V
     so prefill writes the cache without recomputing the projections (the
-    JAX prefill recomputes them and leaves XLA to merge the two)."""
+    JAX prefill recomputes them and leaves XLA to merge the two). A
+    cross-attention layer adds its gated term over ``xkv``, the context's
+    (K, V) from ``xattn_kv``."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
@@ -335,14 +381,21 @@ def attention_kv(params: Params, x: torch.Tensor, cfg: ArchConfig,
         out = _sdpa_ref(q, k, v, causal=True, window=window, q_pos=positions,
                         k_pos=positions)
     y = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    if spec.mixer == XATTN:
+        if xkv is None:
+            raise ValueError("a cross-attention layer needs the context "
+                             "embeddings (xctx)")
+        y = y + _xattn(params, x, *xkv, cfg)
     return y, k, v
 
 
 def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
-              spec: LayerSpec, opts: ModelOptions,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence (train / prefill) attention."""
-    return attention_kv(params, x, cfg, spec, opts, positions)[0]
+              spec: LayerSpec, opts: ModelOptions, positions: torch.Tensor,
+              xctx=None) -> torch.Tensor:
+    """Full-sequence (train / prefill) attention; ``xctx`` (B, n_ctx,
+    ctx_dim) is a cross-attention layer's context."""
+    xkv = None if xctx is None else xattn_kv(params, xctx, cfg, x.dtype)
+    return attention_kv(params, x, cfg, spec, opts, positions, xkv)[0]
 
 
 def _attend_ref(q, ck, cv, valid, dtype):
@@ -363,6 +416,16 @@ def _decode_ref(q, ck, cv, valid, dtype):
     return _attend_ref(q, ck, cv, valid[:, None], dtype)
 
 
+def _decode_out(params, x, out, cache, cfg, spec):
+    """The one-token mixer output: the attention through ``wo``, plus a
+    cross-attention layer's gated term over the cache's ``xk``/``xv``
+    (``layers.py:401-404, 455-458``)."""
+    y = out.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
+    if spec.mixer == XATTN:
+        y = y + _xattn(params, x, cache["xk"], cache["xv"], cfg)
+    return y
+
+
 def attention_decode(params: Params, x: torch.Tensor, cache: Params,
                      cfg: ArchConfig, spec: LayerSpec,
                      opts: ModelOptions) -> torch.Tensor:
@@ -370,7 +433,8 @@ def attention_decode(params: Params, x: torch.Tensor, cache: Params,
     cache, every row at one shared position.
 
     cache: {"k": (B,T,HKV,dh), "v": (B,T,HKV,dh), "slot_pos": (T,), "pos": ()},
-    updated in place (the new K/V row, its position mark, pos + 1).
+    updated in place (the new K/V row, its position mark, pos + 1); a
+    cross-attention layer's also holds the context's "xk"/"xv".
     """
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg)  # S == 1
@@ -394,7 +458,7 @@ def attention_decode(params: Params, x: torch.Tensor, cache: Params,
             valid &= pos - slot_pos < window
         out = _decode_ref(q, ck, cv, valid[None].expand(B, -1), x.dtype)
     cache["pos"] += 1
-    return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+    return _decode_out(params, x, out, cache, cfg, spec)
 
 
 def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
@@ -429,7 +493,7 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
             valid &= pos[:, None] - slot_pos < window
         out = _decode_ref(q, ck, cv, valid, x.dtype)
     cache["pos"] += 1
-    return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+    return _decode_out(params, x, out, cache, cfg, spec)
 
 
 def attention_serve_chunk(params: Params, x: torch.Tensor, cache: Params,

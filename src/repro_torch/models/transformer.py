@@ -2,8 +2,12 @@
 one-token decode (uniform, slotted and paged), the serve chunk and verify
 passes (slotted and paged) and the shared-prefix suffix prefill, for the
 ATTN/SWA and Mamba mixers with a dense SwiGLU or a top-k MoE in the MLP
-position, and for the RWKV-6 time mix with its channel mix
-(``src/repro/models/transformer.py``). Every layer function reaches its
+position, the cross-attention layer (XATTN: self-attention plus a gated
+attention over context embeddings ``xctx``, whose K/V prefill caches) with
+a dense MLP, and the RWKV-6 time mix with its channel mix
+(``src/repro/models/transformer.py``). An ``embeds_in`` model takes
+(B, S, D) embeddings where the others take token ids, and has no embedding
+table. Every layer function reaches its
 MLP through one dispatch (``mlp_block``), so the slotted, paged, chunked
 and speculative engines all serve the MoE layer. Mamba and RWKV layers
 carry a recurrent state, not K/V: models with them run on the slotted
@@ -23,7 +27,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, RWKV,
-                                      RWKVMIX, SWA, ArchConfig, LayerSpec)
+                                      RWKVMIX, SWA, XATTN, ArchConfig,
+                                      LayerSpec)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions, Params
 
@@ -35,21 +40,20 @@ SUFFIX_Q_CHUNK, SUFFIX_KV_CHUNK = 512, 1024
 
 
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
-    """The spec of every layer in execution order. The port serves
-    attention (full or sliding-window) and Mamba mixers with a dense SwiGLU
-    or a MoE MLP, and the RWKV-6 time mix with its channel mix; the
-    cross-attention layers are ROADMAP module item 12."""
+    """The spec of every layer in execution order. The model runs attention
+    (full or sliding-window) and Mamba mixers with a dense SwiGLU or a MoE
+    MLP, the cross-attention layer with a dense MLP, and the RWKV-6 time
+    mix with its channel mix: every layer of the registered configs. Any
+    other layer raises ``ValueError``."""
     for spec in cfg.block_pattern:
-        in_subset = (spec.mixer in (ATTN, SWA, MAMBA)
-                     and spec.mlp in (DENSE, MOE))
-        if not in_subset and (spec.mixer, spec.mlp) != (RWKV, RWKVMIX):
-            raise NotImplementedError(
-                f"layer {spec} is outside the port's ATTN/SWA/MAMBA + "
-                "DENSE/MOE and RWKV + RWKVMIX subsets (ROADMAP module item "
-                "12: the model zoo)")
-    if cfg.embeds_in:
-        raise NotImplementedError("embedding-input configs are ROADMAP module "
-                                  "item 12")
+        known = ((spec.mixer in (ATTN, SWA, MAMBA)
+                  and spec.mlp in (DENSE, MOE))
+                 or (spec.mixer, spec.mlp) in ((XATTN, DENSE),
+                                               (RWKV, RWKVMIX)))
+        if not known:
+            raise ValueError(
+                f"layer {spec} is not one the model runs: ATTN/SWA/MAMBA + "
+                "DENSE/MOE, XATTN + DENSE or RWKV + RWKVMIX")
     return [spec for _ in range(cfg.num_blocks) for spec in cfg.block_pattern]
 
 
@@ -62,13 +66,16 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, spec: LayerSpec,
     """One layer's parameters, each tensor drawn in float32 and cast to
     ``param_dtype`` at once: the float32 transient is one tensor (a 738 MB
     expert stack at moonshot-v1-16b-a3b's widths)."""
-    init_mixer = {RWKV: L.init_rwkv, MAMBA: L.init_mamba}.get(
-        spec.mixer, L.init_attention)
+    if spec.mixer in (RWKV, MAMBA):
+        init_mixer = {RWKV: L.init_rwkv, MAMBA: L.init_mamba}[spec.mixer]
+        mixer = init_mixer(gen, cfg, device, param_dtype)
+    else:
+        mixer = L.init_attention(gen, cfg, spec, device, param_dtype)
     init_mlp = {MOE: L.init_moe, RWKVMIX: L.init_rwkv_mix}.get(spec.mlp,
                                                             L.init_mlp)
     return {"norm1": L.init_rmsnorm(cfg, device, param_dtype),
             "norm2": L.init_rmsnorm(cfg, device, param_dtype),
-            "mixer": init_mixer(gen, cfg, device, param_dtype),
+            "mixer": mixer,
             "mlp": init_mlp(gen, cfg, device, param_dtype)}
 
 
@@ -78,7 +85,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device,
     (``transformer.py:50-68``: embed and lm_head N(0, 0.02²), dense weights
     N(0, 1/fan_in), the (E, D, F) expert weights N(0, 1/E) as JAX's
     ``fan_in = shape[0]`` gives them, norms at 1, the RWKV constants as
-    ``init_rwkv`` lists them), drawn in float32 from
+    ``init_rwkv`` lists them; no embed table for an ``embeds_in`` model,
+    ``transformer.py:54``), drawn in float32 from
     ``generator`` directly on ``device`` (the Mamba constants as
     ``init_mamba`` lists them) and cast to ``param_dtype`` as
     JAX casts them (``transformer.py:67``), one tensor at a time. The
@@ -91,7 +99,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device,
         return torch.randn(shape, generator=generator, device=device,
                            dtype=torch.float32).mul_(0.02).to(param_dtype)
 
-    params: Params = {"embed": normal((cfg.vocab_size, cfg.d_model))}
+    params: Params = {}
+    if not cfg.embeds_in:
+        params["embed"] = normal((cfg.vocab_size, cfg.d_model))
     params["layers"] = [init_layer(generator, cfg, spec, device, param_dtype)
                         for spec in specs]
     params["final_norm"] = L.init_rmsnorm(cfg, device, param_dtype)
@@ -104,9 +114,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device,
 # Embed / unembed / backbone
 # ---------------------------------------------------------------------------
 
-def embed(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+def embed(params: Params, tokens_or_embeds: torch.Tensor, cfg: ArchConfig,
           opts: ModelOptions) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(opts.dtype)
+    """Token ids (B, S) -> (B, S, D) from the table; an ``embeds_in``
+    model's (B, S, D) embeddings pass through in the activation dtype
+    (``transformer.py:145-150``), made contiguous: a caller's strided view
+    (a slice of a longer sequence) would otherwise reach the kernels,
+    which take contiguous rows."""
+    if cfg.embeds_in:
+        return tokens_or_embeds.to(opts.dtype).contiguous()
+    return params["embed"][tokens_or_embeds.long()].to(opts.dtype)
 
 
 def unembed_logits(params: Params, h: torch.Tensor,
@@ -147,23 +164,27 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
 
 
 def apply_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
-                opts: ModelOptions, positions: torch.Tensor) -> torch.Tensor:
-    """Pre-norm residual layer (full sequence)."""
+                opts: ModelOptions, positions: torch.Tensor,
+                xctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pre-norm residual layer (full sequence); ``xctx`` is the context of
+    a cross-attention layer."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     if spec.mixer == RWKV:
         x = x + L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)[0]
     elif spec.mixer == MAMBA:
         x = x + L.mamba(p["mixer"], h, cfg, opts)[0]
     else:
-        x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions)
+        x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions, xctx)
     return mlp_block(p, x, cfg, spec, opts)
 
 
 def backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
-             opts: ModelOptions, positions: torch.Tensor) -> torch.Tensor:
-    """h: (B,S,D) embedded input -> final (normed) hidden state."""
+             opts: ModelOptions, positions: torch.Tensor,
+             xctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h: (B,S,D) embedded input -> final (normed) hidden state; ``xctx``
+    (B, n_ctx, ctx_dim) feeds the cross-attention layers."""
     for p, spec in zip(params["layers"], layer_specs(cfg)):
-        h = apply_layer(p, h, cfg, spec, opts, positions)
+        h = apply_layer(p, h, cfg, spec, opts, positions, xctx)
     return L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
 
 
@@ -185,7 +206,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     (B,d_conv-1,di) in ``dtype`` and its scan state (B,di,ds) f32 at zero,
     and pos (``transformer.py:220-224``); an RWKV layer its state
     (B,nh,hd,hd) f32 and the two token shifts (B,1,D) at zero, and pos
-    (``transformer.py:227-234``). On ``cuda`` unless the caller asks for
+    (``transformer.py:227-234``); a cross-attention layer also the
+    context's xk/xv (B,ctx_len,HKV,dh) zeros (``:216-218``), which prefill
+    fills. On ``cuda`` unless the caller asks for
     the CPU; ``cuda`` without a GPU raises."""
     device = resolve_device(device)
     out = []
@@ -215,12 +238,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             continue
         T = cache_len(cfg, spec, max_len)
         kv = (batch, T, cfg.n_kv_heads, cfg.head_dim)
-        out.append({
+        g = {
             "k": torch.zeros(kv, dtype=dtype, device=device),
             "v": torch.zeros(kv, dtype=dtype, device=device),
             "slot_pos": torch.full((T,), -1, dtype=torch.int32, device=device),
             "pos": pos,
-        })
+        }
+        if spec.mixer == XATTN:
+            xkv = (batch, cfg.xattn_ctx_len, cfg.n_kv_heads, cfg.head_dim)
+            g["xk"] = torch.zeros(xkv, dtype=dtype, device=device)
+            g["xv"] = torch.zeros(xkv, dtype=dtype, device=device)
+        out.append(g)
     return out
 
 
@@ -253,7 +281,8 @@ def apply_layer_decode(p: Params, x: torch.Tensor, cache_l: Params,
 def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
                 cfg: ArchConfig, opts: ModelOptions, slots: bool = False,
                 inplace: bool = True) -> Tuple[torch.Tensor, Cache]:
-    """tokens: (B,) int -> (logits (B,V), cache).
+    """tokens: (B,) int, or (B, D) embeddings for an ``embeds_in`` model
+    (``transformer.py:308-311``) -> (logits (B,V), cache).
 
     With ``slots=True`` the cache is in slot layout (``slot_pos``: (B,T),
     ``pos``: (B,) per layer) and every batch row decodes at its own position
@@ -440,7 +469,7 @@ def serve_verify_step_paged(params: Params, cache: Cache,
 # Prefill: full forward that also fills the cache
 # ---------------------------------------------------------------------------
 
-def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
+def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions, xctx=None):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     S = x.shape[1]
     if spec.mixer == RWKV:
@@ -460,7 +489,14 @@ def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
         cache_l["conv"].copy_(conv)
         cache_l["pos"].fill_(S)
         return mlp_block(p, x + mix, cfg, spec, opts, cache_l)
-    mix, k, v = L.attention_kv(p["mixer"], h, cfg, spec, opts, positions)
+    xkv = None
+    if spec.mixer == XATTN and xctx is not None:
+        # the context's K/V, written for decode (``transformer.py:735-740``)
+        xkv = L.xattn_kv(p["mixer"], xctx, cfg, x.dtype)
+        cache_l["xk"].copy_(xkv[0])
+        cache_l["xv"].copy_(xkv[1])
+    mix, k, v = L.attention_kv(p["mixer"], h, cfg, spec, opts, positions,
+                               xkv)
     T = cache_l["k"].shape[1]
     if S >= T:
         # decode assumes a circular layout (position p lives at slot p % T)
@@ -478,8 +514,12 @@ def _prefill_layer(p, x, cache_l, cfg, spec, opts, positions):
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             opts: ModelOptions, max_len: int,
+            xctx: Optional[torch.Tensor] = None,
             true_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Run the full sequence, return (last-position logits, filled cache).
+    ``tokens`` are ids (B, S), or (B, S, D) embeddings for an ``embeds_in``
+    model; ``xctx`` (B, ctx_len, ctx_dim) is the cross-attention layers'
+    context, whose K/V the cache keeps for decode.
 
     ``true_len`` enables *bucketed* prefill: ``tokens`` is a right-padded
     bucket and only the first ``true_len`` positions are real. Causality
@@ -493,7 +533,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     """
     B, S = tokens.shape[:2]
     specs = layer_specs(cfg)
-    bad = [s for s in cfg.block_pattern if s.mixer != ATTN]
+    bad = [s for s in cfg.block_pattern if s.mixer not in (ATTN, XATTN)]
     if true_len is not None and bad:
         raise ValueError("bucketed prefill (true_len) needs full-window "
                          f"attention layers; got mixer={bad[0].mixer!r}, "
@@ -502,7 +542,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     cache = init_cache(cfg, B, max_len, opts.dtype, h.device)
     for p, spec, cl in zip(params["layers"], specs, cache):
-        h = _prefill_layer(p, h, cl, cfg, spec, opts, positions)
+        h = _prefill_layer(p, h, cl, cfg, spec, opts, positions, xctx)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
     if true_len is None:
         return unembed_logits(params, h[:, -1:], cfg)[:, 0], cache
@@ -538,8 +578,8 @@ def prefill_suffix(params: Params, tokens: torch.Tensor, prefix_kv: Cache,
     _check_pageable(cfg, "prefill_suffix")
     B, S = tokens.shape
     Tpre = prefix_kv[0]["k"].shape[1]
-    dev = params["embed"].device
     h = embed(params, tokens, cfg, opts)
+    dev = h.device
     q_pos = prefix_len + torch.arange(S, dtype=torch.int32, device=dev)
     k_pos = torch.arange(Tpre, dtype=torch.int32, device=dev)
     suffix_kv = []

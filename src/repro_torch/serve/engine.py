@@ -62,7 +62,9 @@ prompts from prefill replicas to decode replicas (``extract_handoffs`` /
 ``inject_handoff``) over a host tier they share (``shared_host``).
 
 Device meshes raise ``NotImplementedError`` naming their ROADMAP item
-(13).
+(13). An ``embeds_in`` model (musicgen-medium) and a cross-attention
+model (llama-3.2-vision-11b) raise ``ValueError``: requests are token
+ids, and no request carries a context, as in JAX.
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import XATTN, ArchConfig
 from repro_torch.core.coprocess import AdmissionWorker
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.core.step import SamplingConfig, program_label
@@ -109,6 +111,20 @@ def check_slice(*, kv: str = "slotted", spec_decode: str = "none", mesh=None,
     if kv == "slotted" and kv_dtype != "bf16":
         raise ValueError("kv_dtype quantization needs kv='paged': dense "
                          "slot rows have no per-block scale tables")
+
+
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for a model whose requests are not token ids
+    alone: embedding inputs (JAX ``engine.py:108-109``) or cross-attention
+    layers, whose context no request carries (JAX's engine cannot serve
+    them either: its admission prefill passes no ``xctx``, and its
+    attention asserts on one)."""
+    if cfg.embeds_in:
+        raise ValueError("serving engine takes token ids, not embeddings")
+    if any(spec.mixer == XATTN for spec in cfg.block_pattern):
+        raise ValueError("serving engine passes no cross-attention context "
+                         "(xctx): run a cross-attention model at model "
+                         "level (prefill / decode_step)")
 
 
 def _host(t) -> np.ndarray:
@@ -147,6 +163,7 @@ class ServeEngine:
                  async_swap: bool = True, shared_host=None):
         check_slice(kv=kv, spec_decode=spec_decode, kv_dtype=kv_dtype)
         linkage.validate()
+        check_servable(cfg)
         if n_slots < 1:
             raise ValueError("serving engine needs n_slots >= 1")
         self.cfg = cfg

@@ -41,7 +41,8 @@ import numpy as np
 
 from repro_torch.core.coprocess import AdmissionWorker
 from repro_torch.core.linkage import LinkageConfig
-from repro_torch.serve.engine import ServeEngine, serve_report
+from repro_torch.serve.engine import (ServeEngine, check_servable,
+                                      serve_report)
 from repro_torch.serve.paging import SharedHostTier
 from repro_torch.serve.scheduler import Completion, Request
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
@@ -127,6 +128,7 @@ class FleetEngine:
                  shared_host_blocks: Optional[int] = None,
                  telemetry: Optional[Telemetry] = None,
                  **engine_kwargs):
+        check_servable(cfg)
         if replicas < 1:
             raise ValueError("fleet needs replicas >= 1")
         if not 0 <= prefill_replicas < replicas:

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.configs.base import DENSE, SWA, XATTN, LayerSpec  # noqa: E402
+from repro_torch.configs.base import DENSE, SWA, LayerSpec  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import preset as tpreset  # noqa: E402
 from repro_torch.models import ModelOptions as TOpts  # noqa: E402
@@ -295,10 +295,29 @@ def test_functional_decode_leaves_the_callers_cache():
     assert int(cache[0]["pos"]) == 7
 
 
-def test_outside_the_subset_raises():
+def test_registry_matches_jax():
+    """The port registers the JAX package's configs under the same names,
+    in the same order, and each (and its ``-smoke``) equals JAX's field for
+    field; ``all_cells`` gives JAX's dry-run cells."""
+    from repro import configs as J
+    from repro_torch import configs as T
+    assert T.list_archs() == J.list_archs()
+    assert T.list_archs(include_extras=True) == J.list_archs(True)
+    assert len(T.list_archs(True)) == 11
+    for name in T.list_archs(True):
+        for n in (name, name + "-smoke"):
+            assert (dataclasses.asdict(T.get_config(n))
+                    == dataclasses.asdict(J.get_config(n))), n
+    assert T.all_cells() == J.all_cells()
+
+
+def test_unknown_arch_and_layer_raise():
+    """An unknown name raises ``KeyError``, and a layer the JAX model
+    cannot run (an unknown mixer) ``ValueError``, as JAX's ``apply_layer``
+    does."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget("llama-9-1t")
     cfg = dataclasses.replace(tget("tinyllama-1.1b").smoke(),
-                              block_pattern=(LayerSpec(XATTN, DENSE),))
-    with pytest.raises(NotImplementedError, match="item 12"):
+                              block_pattern=(LayerSpec("conv", DENSE),))
+    with pytest.raises(ValueError, match="not one the model runs"):
         TT.layer_specs(cfg)
-    with pytest.raises(KeyError):
-        tget("qwen2-7b")

@@ -38,6 +38,9 @@
     python3 chip_smoke.py zoo     # the build, the kernels at the zoo's
                                   # head shapes, mixtral's router rows,
                                   # the zoo's paths Z1-Z7
+    python3 chip_smoke.py train   # the build and the training phase: the
+                                  # flash backward's cases, the grad
+                                  # guard, TR1-TR3
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -255,6 +258,26 @@ non-zero before the result line):
    ``zoo``: HQ/HKV/dh 28/4/128, 96/8/128, 32/8/80, 64/8/112), flash with
    danube's 4,096-token window at S 4,128 and slot decode over its
    4,096-key buffer, and the router at mixtral's rows (E 8, k 2).
+11. training, after the zoo (``train_phases``): ``flash_attention_bwd``
+   against the plain backward (autograd through the plain attention; a
+   bf16 case against the same values widened to fp32) at the train
+   path's q (4,1024,32,64), qwen2's G 7, kimi's dh 112, danube's 4,096
+   window at S 4,128 and ragged S 1, 7 and 129, fp32 and bf16, max |d|
+   over the largest |grad| within 1e-4 / 2e-2, two runs bit-identical,
+   timed beside the plain backward, SDPA forward + backward and the
+   bound; every serving wrapper raising on a grad-requiring CUDA input
+   (``grad_guard_phase``); TR1 (``train_path_phase``): ``python -m
+   repro_torch.launch.train --arch tinyllama-1.1b --preset nss_shortcut``
+   through its ``main`` at full width, fp32, 8 steps of 4 x 1,024 tokens
+   at lr 1e-3, every step's loss finite and the last below the first,
+   flash and its backward 22 launches a step; TR2
+   (``train_compare_phase``): the kernel path against the plain path
+   over 22 layers (step 1's loss, gradient norm and every parameter's
+   gradient; 4 steps' losses within 10 x lr), one step and one AdamW
+   update profiled; TR3 (``train_recovery_phase``): the driver cut to 2
+   layers, a failure injected at step 6, the losses bit-identical to the
+   clean run's. TR1-TR3 each run whatever an earlier one's gate says;
+   the phase raises at its end if any failed.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -4107,6 +4130,473 @@ def zoo_phase():
     return counts_by
 
 
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel and the train path (TR1-TR3)
+# ---------------------------------------------------------------------------
+
+#: TR1: full-width, full-depth tinyllama-1.1b in fp32 through the training
+#: launcher at nss_shortcut (4 steps a call): 8 steps of 4 x 1,024 tokens
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = (
+    "tinyllama-1.1b", 8, 4, 1024, 1e-3)
+#: TR2: the kernel path against the plain path at full width, TR2_LAYERS
+#: layers, from one init and one batch stream, TR2_STEPS steps gated and
+#: TR2_RUN run (the rest printed: they follow TR1's steps 5-8).
+#: Tolerances (fixed before the first run on the card): the step-1 loss
+#: (absolute), the step-1 gradient norm (relative), every parameter's max
+#: |dgrad| over its max |grad|, and the losses of steps 2 on within 10 x
+#: lr: AdamW's first steps move a parameter by about lr x sign(g), and a
+#: gradient of rounding-noise size may take the other sign on the other
+#: path
+TR2_LAYERS, TR2_STEPS, TR2_RUN = 22, 4, 8
+TR2_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad": 1e-3,
+           "losses": 10 * TRAIN_LR}
+#: TR3: full width cut to 2 layers (a checkpoint of 2.6 GB: params and
+#: two moments), L2 with the shortcut, 12 steps, a checkpoint every 4, a
+#: failure injected at step 6
+TR3_LAYERS, TR3_STEPS, TR3_CKPT, TR3_FAIL = 2, 12, 4, 6
+#: the backward kernel's cases: label, B, S, HQ, HKV, dh, window (all
+#: causal); the train path's shape first
+FLASH_BWD_CASES = (
+    ("main", 4, 1024, 32, 4, 64, 0),
+    ("qwen2 G 7", 1, 1024, 28, 4, 128, 0),
+    ("kimi dh 112", 1, 1024, 64, 8, 112, 0),
+    ("danube window 4096", 1, 4128, 32, 8, 80, 4096),
+    ("ragged S 1", 2, 1, 32, 4, 64, 0),
+    ("ragged S 7", 2, 7, 32, 4, 64, 0),
+    ("ragged S 129", 2, 129, 28, 4, 128, 0),
+)
+#: max |kernel - plain| of dq, dk, dv over the largest |grad| of the three
+#: (at least 1): fp32 sums in another order; a bf16 kernel rounds its
+#: outputs once (2^-9 relative), held against the plain backward of the
+#: same values in fp32
+BWD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+
+
+def flash_bwd_phase(gen):
+    """``flash_attention_bwd`` against the plain backward
+    (``flash_attention_bwd_ref``: autograd through the plain attention),
+    on every case of FLASH_BWD_CASES in fp32 and bf16, the output ``o``
+    from the forward kernel; a bf16 case's plain backward runs on the
+    same values widened to fp32. Two runs of the kernel must be bit
+    identical. Timed but for the ragged cases: the kernel (``ms``,
+    ``device_ms`` over both of its launches), the plain backward in the
+    working dtype, the forward and backward kernels through the autograd
+    ``Function``, SDPA's forward and backward through autograd (the
+    library yardstick; the port never calls it) and the bound (bytes: q,
+    k, v, o, do read and dq, dk, dv written once; operations: 10 dh a
+    live (query, key) pair and head -- the scores, dP and the three
+    gradient products)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, S, HQ, HKV, dh, window in FLASH_BWD_CASES:
+            def rn(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device="cuda").to(dtype)
+            q, k, v = rn(B, S, HQ, dh), rn(B, S, HKV, dh), rn(B, S, HKV, dh)
+            do = rn(B, S, HQ, dh)
+            with torch.no_grad():
+                o = kfa.flash_attention(q, k, v, causal=True, window=window)
+
+            def call():
+                return kfa.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                               window=window)
+            got, again = call(), call()
+            want = ref.flash_attention_bwd_ref(
+                q.float(), k.float(), v.float(), do.float(), causal=True,
+                window=window)
+            torch.cuda.synchronize()
+            name = f"flash_attention_bwd [{label}] {dtype}"
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two runs differ")
+            errs = [(g.float() - w).abs().max().item()
+                    for g, w in zip(got, want)]
+            top = max(max(w.abs().max().item() for w in want), 1.0)
+            tol = BWD_TOL[str(dtype)]
+            if (not all(torch.isfinite(g).all().item() for g in got)
+                    or max(errs) > tol * top):
+                raise AssertionError(f"{name}: kernel disagrees with the "
+                                     f"plain backward (max |d| dq, dk, dv "
+                                     f"{errs}, largest |grad| {top:.3e}, "
+                                     f"tolerance {tol} of it)")
+            i = torch.arange(S, device="cuda")
+            live = i[:, None] >= i[None, :]
+            if window:
+                live &= i[:, None] - i[None, :] < window
+            pairs = int(live.sum().item()) * B * HQ
+            row = {"label": label, "dtype": str(dtype),
+                   "max_abs_err": max(errs), "dq_dk_dv_err": errs,
+                   "max_abs_grad": top, "deterministic": True,
+                   "shape": f"q ({B},{S},{HQ},{dh}), kv ({B},{S},{HKV},"
+                            f"{dh}), window {window}"}
+            if not label.startswith("ragged"):
+                b_ms, b_by = bound(nbytes(q, k, v, o, do, q, k, v),
+                                   10.0 * dh * pairs, dtype)
+                qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+                qT, kT, vT = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                doT = do.transpose(1, 2)
+                mask = live if window else None
+
+                def fwd_bwd():
+                    out = kfa.flash_attention(qg, kg, vg, causal=True,
+                                              window=window)
+                    return torch.autograd.grad(out, (qg, kg, vg), do)
+
+                def lib():
+                    out = F.scaled_dot_product_attention(
+                        qT, kT, vT, attn_mask=mask, is_causal=mask is None,
+                        enable_gqa=True)
+                    return torch.autograd.grad(out, (qT, kT, vT), doT)
+
+                def plain():
+                    return ref.flash_attention_bwd_ref(
+                        q, k, v, do, causal=True, window=window)
+                row.update(ms=cuda_ms(call, 10, 2),
+                           device_ms=device_ms(call, 10, only="flash_bwd"),
+                           fwd_bwd_ms=cuda_ms(fwd_bwd, 10, 2),
+                           plain_ms=cuda_ms(plain, 5, 1),
+                           library_ms=cuda_ms(lib, 10, 2),
+                           library_device_ms=device_ms(lib, 10),
+                           bound_ms=b_ms, bound_by=b_by)
+                del qg, kg, vg, qT, kT, vT
+            log(f"kernel flash_attention_bwd {str(dtype):15s} {label:20s} "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()
+                           if k not in ("label", "dtype")))
+            rows.append(row)
+            del q, k, v, o, do, got, again, want
+    _release()
+    return rows
+
+
+def grad_guard_phase():
+    """Every serving kernel wrapper, given a CUDA input that requires grad
+    with grad mode on, raises (their kernels have no backward): slot and
+    uniform decode, paged decode and paged prefill (fp32 and int8 pools),
+    the router and both scans."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = "cuda"
+
+    def rn(*shape, grad=False):
+        return torch.randn(*shape, device=dev).requires_grad_(grad)
+
+    B, T, HQ, HKV, dh, bs, nb = 2, 16, 8, 2, 64, 8, 2
+    q = rn(B, 1, HQ, dh, grad=True)
+    kv = rn(B, T, HKV, dh)
+    pool = rn(B * nb + 1, bs, HKV, dh)
+    i8 = torch.zeros(B * nb + 1, bs, HKV, dh, dtype=torch.int8, device=dev)
+    sc = torch.ones(B * nb + 1, HKV, device=dev)
+    tables = torch.arange(B * nb, dtype=torch.int32,
+                          device=dev).reshape(B, nb)
+    pos = torch.full((B,), 5, dtype=torch.int32, device=dev)
+    slot_pos = torch.arange(T, dtype=torch.int32, device=dev)
+    cases = {
+        "slot_decode_attention": lambda: ops.slot_decode_attention(
+            q, kv, kv, slot_pos[None].expand(B, T).contiguous(), pos),
+        "decode_attention": lambda: ops.decode_attention(
+            q, kv, kv, slot_pos, pos[0]),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            q, pool, pool, tables, pos),
+        "paged_decode_attention int8": lambda: ops.paged_decode_attention(
+            q, i8, i8, tables, pos, sc, sc),
+        "paged_prefill_attention": lambda: ops.paged_prefill_attention(
+            rn(B, 4, HQ, dh, grad=True), pool, pool, tables, pos),
+        "paged_prefill_attention int8": lambda: ops.paged_prefill_attention(
+            rn(B, 4, HQ, dh, grad=True), i8, i8, tables, pos, sc, sc),
+        "moe_route": lambda: ops.moe_route(rn(4, 256, grad=True),
+                                           rn(256, 8), 2),
+        "rwkv_scan": lambda: ops.rwkv_scan(
+            rn(1, 4, 2, 16, grad=True), rn(1, 4, 2, 16), rn(1, 4, 2, 16),
+            torch.rand(1, 4, 2, 16, device=dev), rn(2, 16)),
+        "mamba_scan": lambda: ops.mamba_scan(
+            rn(1, 4, 32, grad=True), torch.rand(1, 4, 32, device=dev),
+            -torch.rand(32, 4, device=dev), rn(1, 4, 4), rn(1, 4, 4)),
+    }
+    for name, call in cases.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log(f"grad guard: {name} raised: {e}")
+            continue
+        raise AssertionError(f"{name} took a grad-requiring CUDA input "
+                             "without raising")
+    return sorted(cases)
+
+
+def train_path_phase():
+    """TR1: ``python -m repro_torch.launch.train --arch tinyllama-1.1b
+    --preset nss_shortcut`` through its ``main``, full width and depth,
+    fp32, 4 steps a call, 8 steps of 4 x 1,024 tokens at lr 1e-3, the
+    metrics read every call (``--sync-every 1``: each call's 4 microstep
+    losses, ``step_losses``), no checkpoint inside the run. Launch counts
+    are zeroed just before and read just after. Gates: every step's loss
+    finite, step 8's below step 1's, flash forward and backward 22
+    launches a step each, rmsnorm 45. Returns (the counts, the
+    launcher's report)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    _release()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_tr1_")
+    try:
+        report = os.path.join(tmp, "tr1.json")
+        argv = ["--arch", TRAIN_ARCH, "--preset", "nss_shortcut",
+                "--nss-steps", "4", "--global-batch", str(TRAIN_BATCH),
+                "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                "--lr", str(TRAIN_LR), "--ckpt-every", str(TRAIN_STEPS + 1),
+                "--sync-every", "1", "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                "--report-json", report]
+        log("TR1: python -m repro_torch.launch.train " + " ".join(argv))
+        ops.reset_launch_counts()
+        launch_train.main(argv)
+        counts = ops.launch_counts()
+        with open(report) as f:
+            rep = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = rep["step_losses"]
+    per_step = {k: n / TRAIN_STEPS for k, n in sorted(counts.items())}
+    log(f"TR1: step losses {losses} (a call's last: {rep['losses']}), "
+        f"tokens/s {rep['tokens_per_s']!r}, wall "
+        f"{rep['wall_s']!r} s ({rep['wall_s'] / TRAIN_STEPS!r} s a step), "
+        f"peak device memory {rep['peak_mem_gb']!r} GB; launches a step "
+        f"{per_step}")
+    if (len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses))
+            or losses[-1] >= losses[0]):
+        raise AssertionError(f"TR1: step losses {losses} (need {TRAIN_STEPS}"
+                             ", finite, the last below the first)")
+    want = {"flash_attention": 22, "flash_attention_bwd": 22, "rmsnorm": 45}
+    for name, n in want.items():
+        if counts.get(name, 0) != n * TRAIN_STEPS:
+            raise AssertionError(f"TR1: {name} launched {counts.get(name)} "
+                                 f"times over {TRAIN_STEPS} steps, want "
+                                 f"{n} a step")
+    return counts, rep
+
+
+def _train_state(layers, steps):
+    """Full-width tinyllama-1.1b cut to ``layers`` layers, its seeded init
+    (the same every call), an AdamW config at TRAIN_LR and the data
+    pipeline of TR1's shape."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_train_state
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_blocks=layers)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(cfg, ocfg, gen, "cuda")
+    return cfg, ocfg, state, Pipeline(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ))
+
+
+def train_compare_phase():
+    """TR2: the kernel path (flash forward and backward kernels, the
+    rmsnorm kernel) against the plain path (plain attention and norm
+    through autograd) at full width, TR2_LAYERS layers, fp32, one seeded
+    init and one batch stream. Step 1: the loss, the gradient norm and
+    every parameter's max |dgrad| over its max |grad|, on the same
+    params; then TR2_STEPS in-place steps of each path from the same init
+    (re-made from the seed), their losses. Gated by TR2_TOL. Then one
+    kernel-path step profiled (wall unprofiled, device busy, idle share,
+    CUDA records) and one AdamW update profiled (its launches and device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.core import make_train_step
+    from repro_torch.data import stage
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, loss_fn
+    from repro_torch.optim import adamw
+    _release()
+    cfg, ocfg, state, pipe = _train_state(TR2_LAYERS, TRAIN_STEPS)
+    batches = [stage(pipe.batch_at(i), "cuda") for i in range(TR2_RUN)]
+    plain = ModelOptions(attn_impl="ref", scan_impl="ref",
+                         dtype=torch.float32)
+    kernel = ModelOptions(attn_impl="kernel", scan_impl="ref",
+                          dtype=torch.float32, fused_norm=True)
+
+    def loss_grads(opts):
+        live = [p.detach().requires_grad_(True)
+                for p in tree.leaves(state.params)]
+        loss, _ = loss_fn(tree.unflatten(state.params, live), batches[0],
+                          cfg, opts)
+        return float(loss), torch.autograd.grad(loss, live)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss_k, grads_k = loss_grads(kernel)
+    counts = ops.launch_counts()
+    grads_k = [g.cpu() for g in grads_k]       # room for the plain path
+    loss_p, grads_p = loss_grads(plain)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    norm = {n: math.sqrt(sum(float(g.double().square().sum()) for g in gs))
+            for n, gs in (("kernel", grads_k), ("plain", grads_p))}
+    rel = max(float((gk.cuda() - gp).abs().max())
+              / max(float(gp.abs().max()), 1e-30)
+              for gk, gp in zip(grads_k, grads_p))
+    del grads_p
+    out = {"layers": TR2_LAYERS, "loss_kernel": loss_k, "loss_plain": loss_p,
+           "grad_norm_kernel": norm["kernel"],
+           "grad_norm_plain": norm["plain"], "max_rel_grad_diff": rel,
+           "step1_launches": counts, "peak_mem_gb_plain_step": peak}
+    log(f"TR2 step 1 ({TR2_LAYERS} layers): {out}")
+    if counts.get("flash_attention") != TR2_LAYERS or counts.get(
+            "flash_attention_bwd") != TR2_LAYERS:
+        raise AssertionError(f"TR2: the kernel path launched {counts}")
+    if (abs(loss_k - loss_p) > TR2_TOL["loss"]
+            or abs(norm["kernel"] - norm["plain"])
+            > TR2_TOL["grad_norm"] * norm["plain"]
+            or rel > TR2_TOL["grad"]):
+        raise AssertionError(f"TR2: step 1 outside {TR2_TOL}: {out}")
+
+    losses = {}
+    for name, opts in (("kernel", kernel), ("plain", plain)):
+        if name == "plain":
+            del state
+            _release()
+            _, _, state, _ = _train_state(TR2_LAYERS, TRAIN_STEPS)
+        step_fn = make_train_step(cfg, opts, ocfg, inplace=True)
+        losses[name] = []
+        for b in batches:
+            state, m = step_fn(state, b)
+            losses[name].append(float(m["loss"]))
+    diffs = [abs(a - b) for a, b in zip(losses["kernel"], losses["plain"])]
+    out.update(losses_kernel=losses["kernel"], losses_plain=losses["plain"],
+               loss_diffs=diffs)
+    log(f"TR2 {TR2_RUN} steps (lr schedule as TR1's): kernel "
+        f"{losses['kernel']}, plain {losses['plain']}, |d| {diffs} "
+        f"(the first {TR2_STEPS} gated at {TR2_TOL['losses']})")
+    if max(diffs[:TR2_STEPS]) > TR2_TOL["losses"]:
+        raise AssertionError(f"TR2: losses differ by {diffs}")
+
+    # one kernel-path step: wall (unprofiled), device busy, idle share
+    del state
+    _release()
+    _, _, state, _ = _train_state(TR2_LAYERS, TRAIN_STEPS)
+    step_fn = make_train_step(cfg, kernel, ocfg, inplace=True)
+    state, _ = step_fn(state, batches[0])           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batches[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batches[2])
+        torch.cuda.synchronize()
+    ev = _device_events(prof)
+    busy = sum(us for _, us in ev.values()) / 1e6
+    records = sum(n for n, _ in ev.values())
+    grads = tree.unflatten(state.params, [g.cuda() for g in grads_k])
+    del grads_k
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        adamw.update(ocfg, grads, state.opt, state.params, inplace=True)
+        torch.cuda.synchronize()
+    opt_ev = _device_events(prof)
+    out.update(step_wall_s=wall, step_busy_s=busy,
+               step_idle_share=max(0.0, 1 - busy / wall),
+               step_cuda_records=records,
+               adamw_launches=sum(n for n, _ in opt_ev.values()),
+               adamw_device_ms=sum(us for _, us in opt_ev.values()) / 1e3,
+               step_top_kernels=sorted(
+                   ((name, n, us / 1e3) for name, (n, us) in ev.items()),
+                   key=lambda r: -r[2])[:8])
+    log(f"TR2 profile: one kernel-path step wall {wall!r} s, busy {busy!r} "
+        f"s, idle share {out['step_idle_share']!r}, {records} CUDA records; "
+        f"one AdamW update {out['adamw_launches']} launches, "
+        f"{out['adamw_device_ms']!r} device ms; top kernels (name, "
+        f"records, ms): {out['step_top_kernels']}")
+    del state, grads
+    _release()
+    return out
+
+
+def train_recovery_phase():
+    """TR3: the fault-tolerant driver on full-width tinyllama-1.1b cut to
+    TR3_LAYERS layers, L2 with the shortcut (every step's loss read),
+    TR3_STEPS steps of 4 x 1,024 tokens, a checkpoint every TR3_CKPT
+    steps into a temporary directory, run clean and with a
+    ``FailureInjector`` at step TR3_FAIL. Gates: one restart, and the
+    failed run's losses bit-identical to the clean run's (steps 0-5, then
+    the replay from the step-4 checkpoint, 4-11)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core import L2_BYP, LinkageConfig, build_train_step
+    from repro_torch.models import ModelOptions
+    from repro_torch.runtime import DriverConfig, FailureInjector, train
+    _release()
+    lk = LinkageConfig(level=L2_BYP, shortcut=True)
+    opts = ModelOptions(attn_impl="kernel", scan_impl="ref",
+                        dtype=torch.float32, fused_norm=True)
+    runs = {}
+    for name, inj in (("clean", None),
+                      ("failed", FailureInjector(fail_at=(TR3_FAIL,)))):
+        cfg, ocfg, state, pipe = _train_state(TR3_LAYERS, TR3_STEPS)
+        step = build_train_step(cfg, opts, ocfg, lk)
+        d = tempfile.mkdtemp(prefix="repro_torch_tr3_")
+        t0 = time.time()
+        try:
+            runs[name] = train(step.fn, state, pipe, lk, DriverConfig(
+                total_steps=TR3_STEPS, ckpt_every=TR3_CKPT, ckpt_dir=d,
+                keep_ckpts=2), injector=inj)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        log(f"TR3 {name}: {time.time() - t0:.1f} s, restarts "
+            f"{runs[name].restarts}, losses {runs[name].losses}")
+        del state
+        _release()
+    clean, failed = runs["clean"].losses, runs["failed"].losses
+    want = clean[:TR3_FAIL] + clean[TR3_FAIL // TR3_CKPT * TR3_CKPT:]
+    if runs["failed"].restarts != 1 or failed != want:
+        raise AssertionError(f"TR3: restarts {runs['failed'].restarts}, "
+                             f"losses {failed} against {want}")
+    return {"clean": clean, "failed": failed,
+            "restarts": runs["failed"].restarts}
+
+
+def train_phases(gen):
+    """The training phase: the backward kernel's cases, the serving
+    wrappers' grad guard, TR1-TR3. TR1-TR3 each run whatever an earlier
+    one's gate says; a failed gate raises at the end of the phase.
+    Returns (the kernel rows, TR1's launch counts, the phase's
+    summary)."""
+    rows = flash_bwd_phase(gen)
+    guarded = grad_guard_phase()
+    failed, out = [], {}
+    for name, fn in (("TR1", train_path_phase), ("TR2", train_compare_phase),
+                     ("TR3", train_recovery_phase)):
+        try:
+            out[name] = fn()
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+            log(f"{name} FAILED: {e}")
+            _release()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    counts, tr1 = out["TR1"]
+    summary = {"TR1": {k: tr1[k] for k in ("losses", "step_losses",
+                                           "tokens_per_s", "wall_s",
+                                           "peak_mem_gb")},
+               "TR2": out["TR2"], "TR3": out["TR3"], "grad_guard": guarded}
+    log("train summary: " + json.dumps(summary, default=str))
+    return rows, counts, summary
+
+
 def launch_log():
     """The instantiations of the kernels with dynamic shared memory beside
     ptxas's lines: for paged prefill each (query type, pool type, padded
@@ -4148,6 +4638,12 @@ def launch_log():
                 log(f"  paged_decode launch: q {dtype} pool {kvd or dtype} "
                     f"G={G} dh<={dh}: {info['smem_bytes']} bytes of shared "
                     f"memory, {info['blocks_per_sm']} blocks/SM")
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128):
+            info = kfa.bwd_launch_info(dtype, dh)
+            log(f"  flash_attention_bwd launch: {dtype} dh<={dh}: dq / dkdv "
+                f"kernels {info['smem_bytes']} bytes of shared memory, "
+                f"{info['blocks_per_sm']} blocks/SM")
     for dtype in (torch.float32, torch.bfloat16):
         for kvd in (None, torch.int8, torch.float8_e4m3fn):
             for dh in (64, 128, 256):
@@ -4299,6 +4795,9 @@ def main() -> int:
         phase(route_phase, gen, "mixtral")
         phase(zoo_phase)
         return 0
+    if sys.argv[1:] == ["train"]:
+        phase(train_phases, gen)
+        return 0
     if sys.argv[1:] == ["mamba"]:
         phase(kernel_phase, gen, "jamba")
         phase(route_phase, gen, "jamba")
@@ -4325,7 +4824,9 @@ def main() -> int:
     rwkv_counts = phase(rwkv_phases)
     mamba_counts = phase(mamba_phases)
     zoo_counts = phase(zoo_phase)
+    bwd_rows, train_counts, _ = phase(train_phases, gen)
     records["moe_route"] = route_rows
+    records["flash_attention_bwd"] = bwd_rows
     records["rwkv_scan"] = rwkv_rows
     records["mamba_scan"] = mamba_rows
 
@@ -4340,13 +4841,15 @@ def main() -> int:
                **{f"modes {n}": c for n, c in mode_counts.items()},
                **{f"tier {n}": c for n, c in tier_counts.items()},
                **{f"fleet {n}": c for n, c in fleet_counts.items()},
-               **{f"zoo {n}": c for n, c in zoo_counts.items()}}
+               **{f"zoo {n}": c for n, c in zoo_counts.items()},
+               "train TR1": train_counts}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",
             "paged_prefill_quant": "paged D", "moe_route": "moe slotted open",
             "rwkv_scan": "rwkv slotted open",
-            "mamba_scan": "mamba slotted open"}
+            "mamba_scan": "mamba slotted open",
+            "flash_attention_bwd": "train TR1"}
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:36"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -4368,7 +4871,10 @@ def main() -> int:
                "rwkv_scan": ("src/repro_torch/csrc/rwkv_scan.cu",
                              "src/repro/kernels/rwkv6.py:75"),
                "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
-                              "src/repro/kernels/mamba_ssm.py:74")}
+                              "src/repro/kernels/mamba_ssm.py:74"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:110")}
     out = []
     for name, (src, replaces) in sources.items():
         # the record's dtype is its home path's: float32, bf16 for the MoE
@@ -4376,8 +4882,9 @@ def main() -> int:
                       else "torch.float32")
         rows = [r for r in records[name] if r["dtype"] == home_dtype]
         main_row = rows[0]
-        large = next(r for r in rows if r["label"].startswith("large"))
-        extra = {k: v for k, v in large.items() if k != "dtype"}
+        large = next((r for r in rows if r["label"].startswith("large")),
+                     None)
+        extra = large and {k: v for k, v in large.items() if k != "dtype"}
         seq = [r for r in rows if r["label"].startswith("main seq")]
         out.append({
             "name": name, "route": "cuda", "source": src,
@@ -4391,7 +4898,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "device_ms": main_row["device_ms"],
-            "plain_device_ms": main_row["plain_device_ms"],
+            "plain_device_ms": main_row.get("plain_device_ms"),
             "library_device_ms": main_row["library_device_ms"],
             "shape": main_row["label"],
             "large": extra,
@@ -4438,6 +4945,12 @@ def main() -> int:
         if name == "mamba_scan":
             out[-1]["library_calls"] = ("none: no PyTorch call computes the "
                                         "selective scan")
+        if name == "flash_attention_bwd":
+            out[-1]["launches_per_train_step"] = (
+                train_counts.get(name, 0) / TRAIN_STEPS)
+            out[-1]["library_calls"] = ("SDPA forward + backward through "
+                                        "autograd (the port runs neither)")
+            out[-1]["cases"] = [r for r in records[name] if r is not main_row]
         if name == "moe_route":
             out[-1]["library_calls"] = ("torch.topk(torch.softmax(x.float() "
                                         "@ router.float(), -1), k): 3 calls")

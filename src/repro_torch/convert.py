@@ -20,7 +20,10 @@ channel mix's ``wk``, ``wv``, ``wr`` and mixes), and so do Mamba layers
 (``transformer.py:67``),
 ``A_log`` and ``D`` included, and the port's init casts the same leaves. A
 bfloat16 leaf (an ``ml_dtypes`` array, which ``torch.from_numpy`` cannot
-read) goes through float32, exactly.
+read) goes through float32, exactly. ``train_state_from_jax`` takes a
+whole JAX ``TrainState`` across the same way: the parameters and both
+AdamW moments through ``params_from_jax``'s mapping, the step count and
+the step as int32 scalars.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -41,33 +44,42 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+def params_from_jax(jax_tree: Dict[str, Any],
+                    device="cuda") -> Dict[str, Any]:
     """JAX parameter tree -> the port's parameters on ``device`` (``cuda``
     unless the caller asks for the CPU; ``cuda`` without a GPU raises)."""
     device = resolve_device(device)
-    blocks = tree["blocks"]
-    num_blocks = np.shape(next(_leaves(blocks[0])))[0]
-    layers = [_map(group, lambda a, b=b: _tensor(np.asarray(a)[b], device))
+    blocks = jax_tree["blocks"]
+    num_blocks = np.shape(tree.leaves(blocks[0])[0])[0]
+    layers = [tree.tree_map(lambda a, b=b: _tensor(np.asarray(a)[b], device),
+                            group)
               for b in range(num_blocks) for group in blocks]
     params = {"layers": layers,
-              "final_norm": _map(tree["final_norm"],
-                                 lambda a: _tensor(a, device))}
-    if "embed" in tree:
-        params["embed"] = _tensor(tree["embed"], device)
-    if "lm_head" in tree:
-        params["lm_head"] = _tensor(tree["lm_head"], device)
+              "final_norm": tree.tree_map(lambda a: _tensor(a, device),
+                                          jax_tree["final_norm"])}
+    if "embed" in jax_tree:
+        params["embed"] = _tensor(jax_tree["embed"], device)
+    if "lm_head" in jax_tree:
+        params["lm_head"] = _tensor(jax_tree["lm_head"], device)
     return params
+
+
+def train_state_from_jax(state, device="cuda"):
+    """A JAX ``TrainState`` (``params``, ``opt`` = ``AdamWState(count, mu,
+    nu)``, ``step``; leaves as numpy arrays or anything ``np.asarray``
+    reads) -> the port's ``TrainState`` on ``device``, every leaf in its
+    own dtype (the moments in JAX's ``moment_dtype``)."""
+    from repro_torch.core.step import TrainState
+    from repro_torch.optim.adamw import AdamWState
+    device = resolve_device(device)
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=device)
+    opt = state.opt
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt=AdamWState(count=scalar(opt.count),
+                       mu=params_from_jax(opt.mu, device),
+                       nu=params_from_jax(opt.nu, device)),
+        step=scalar(state.step))

@@ -15,11 +15,15 @@ levels keep their meaning:
                 of buffer donation.
     L3_NSS      ``decode_steps`` microsteps per engine program with no host
                 synchronisation between them; their tokens gather into one
-                device tensor.
+                device tensor. Training: ``nss_steps`` optimizer steps per
+                call over K batches staged on the device at once.
 
   Orthogonal flags:
     ret_async   "ret vs iret": generated tokens stay on the device until a
-                request finishes; the host synchronises only then.
+                request finishes; the host synchronises only then. In
+                training the step returns no metrics; they stay on the
+                device, and the driver reads them every ``sync_every``
+                calls.
     shortcut    the hand-written Hopper kernels (flash attention, slot
                 and paged decode, paged prefill, fused RMSNorm, the MoE
                 router, the Mamba and RWKV scans) in place of the plain
@@ -45,13 +49,17 @@ LEVELS = (L0_EAGER, L1_BASE, L2_BYP, L3_NSS)
 @dataclasses.dataclass(frozen=True)
 class LinkageConfig:
     level: str = L2_BYP
-    ret_async: bool = False       # UKL_RET analogue: async token return
+    nss_steps: int = 4            # training L3: optimizer steps per call
+    ret_async: bool = False       # UKL_RET analogue: async return
+    sync_every: int = 16          # training host sync cadence when ret_async
     shortcut: bool = False        # hand-written kernels for hot paths
     decode_steps: int = 32        # serving L3: tokens decoded per program
 
     def validate(self) -> None:
         if self.level not in LEVELS:
             raise ValueError(f"unknown linkage level {self.level!r}")
+        if self.level == L3_NSS and self.nss_steps < 1:
+            raise ValueError("L3_NSS needs nss_steps >= 1")
         if self.level == L3_NSS and self.decode_steps < 1:
             raise ValueError("L3_NSS needs decode_steps >= 1")
         if self.level == L0_EAGER and self.shortcut:
@@ -63,6 +71,11 @@ class LinkageConfig:
     def donate(self) -> bool:
         """L2+ updates the state buffers in place (BYP: no copy on entry)."""
         return self.level in (L2_BYP, L3_NSS)
+
+    @property
+    def steps_per_call(self) -> int:
+        """Optimizer steps one training call takes: ``nss_steps`` at L3."""
+        return self.nss_steps if self.level == L3_NSS else 1
 
     def model_options(self, base: Optional[ModelOptions] = None
                       ) -> ModelOptions:

@@ -1,26 +1,33 @@
-"""Serving programs of the port (``src/repro/core/step.py``, serving
-subset): the prefill program, the uniform, slotted and paged decode
-programs, the unified serve program of chunked prefill and the
-speculative verify program (slotted and paged), and the sampler with its
-per-slot threefry key chains (``repro_torch.core.prng``), each built at a
-point of the linkage spectrum.
+"""Step programs of the port (``src/repro/core/step.py``): the training
+step (``TrainState``, ``make_train_step``, ``LinkedStep``,
+``build_train_step``) and the serving programs (the prefill program, the
+uniform, slotted and paged decode programs, the unified serve program of
+chunked prefill and the speculative verify program, slotted and paged,
+and the sampler with its per-slot threefry key chains,
+``repro_torch.core.prng``), each built at a point of the linkage
+spectrum.
 
 PyTorch runs eagerly, so a "program" here is a Python callable: at L3 it
-runs ``decode_steps`` microsteps back to back without a host sync and
-stacks their tokens on the device; at L2+ it updates the cache in place;
-at L0/L1 it leaves the caller's cache intact and returns a new one.
+runs ``decode_steps`` microsteps (training: ``nss_steps`` optimizer
+steps) back to back without a host sync and keeps their outputs on the
+device; at L2+ it updates the cache (training: the parameters and
+moments) in place; at L0/L1 it leaves the caller's cache or state intact
+and returns a new one. The sharded training step waits for multi-device
+(ROADMAP module 13).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
+from repro_torch.models import init_params, loss_fn
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import decode_step_paged as model_decode_paged
 from repro_torch.models import decode_step_slots as model_decode_slots
@@ -31,6 +38,126 @@ from repro_torch.models import serve_verify_step as model_verify
 from repro_torch.models import serve_verify_step_paged as model_verify_paged
 from repro_torch.models.layers import ModelOptions
 from repro_torch.models.transformer import _check_pageable, clone_cache
+from repro_torch.optim import adamw
+
+
+# ---------------------------------------------------------------------------
+# Training (step.py:33-126)
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+    step: torch.Tensor      # () int32
+
+
+def init_train_state(cfg: ArchConfig, ocfg: adamw.AdamWConfig,
+                     generator: torch.Generator, device="cuda",
+                     param_dtype=torch.float32) -> TrainState:
+    """Random parameters (``init_params``), zero moments, step 0, on
+    ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    params = init_params(cfg, generator, device, param_dtype)
+    return TrainState(params=params, opt=adamw.init(ocfg, params),
+                      step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def make_train_step(cfg: ArchConfig, opts: ModelOptions,
+                    ocfg: adamw.AdamWConfig, *, inplace: bool = False
+                    ) -> Callable:
+    """The single-step function, the microstep of every linkage level:
+    ``(state, batch) -> (state, metrics)``, metrics {"loss", "ce",
+    "moe_aux", "grad_norm", "lr"} as 0-dim device tensors. The gradient is
+    taken with respect to detached aliases of the parameters, so the state
+    needs no ``requires_grad``; a parameter the loss does not reach gets a
+    zero gradient, as ``jax.grad`` gives it. ``inplace`` updates the
+    state's tensors (linkage L2+)."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        leaves = tree.leaves(state.params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree.unflatten(state.params, live),
+                                    batch, cfg, opts)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = tree.unflatten(state.params, [
+            torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, leaves)])
+        new_params, new_opt, om = adamw.update(ocfg, grads, state.opt,
+                                               state.params, inplace=inplace)
+        step = state.step.add_(1) if inplace else state.step + 1
+        metrics = {k: v.detach() for k, v in {**metrics, **om}.items()}
+        return TrainState(new_params, new_opt, step), metrics
+
+    return train_step
+
+
+def _synchronize(metrics: Dict[str, torch.Tensor]) -> None:
+    for v in metrics.values():
+        if v.is_cuda:
+            torch.cuda.current_stream(v.device).synchronize()
+            return
+
+
+@dataclasses.dataclass
+class LinkedStep:
+    """A training step linked at some point of the UKL spectrum."""
+    fn: Callable                   # (state, batch) -> (state, metrics)
+    linkage: LinkageConfig
+    _pending: Any = None           # RET: the last metrics, not yet read
+
+    def __call__(self, state, batch):
+        state, metrics = self.fn(state, batch)
+        if self.linkage.ret_async:
+            # "ret": return without synchronizing; keep the metrics
+            self._pending = metrics
+            return state, None
+        # "iret": full synchronization on every return
+        _synchronize(metrics)
+        return state, metrics
+
+    def sync(self) -> Optional[Dict[str, Any]]:
+        """RET mode: read the most recent metrics on the host, floats (L3's
+        "loss_steps" a list); None when there are none."""
+        if self._pending is None:
+            return None
+        out = {k: v.tolist() for k, v in self._pending.items()}
+        self._pending = None
+        return out
+
+
+def build_train_step(cfg: ArchConfig, opts: ModelOptions,
+                     ocfg: adamw.AdamWConfig,
+                     linkage: LinkageConfig) -> LinkedStep:
+    """The training step at ``linkage``'s level. L0 and L1 are functional
+    (the caller's state survives; L0 takes no shortcut); L2 updates the
+    state's tensors in place, the counterpart of donation; L3 runs one
+    microstep per leading index of the batch (``nss_steps`` batches
+    stacked, ``data.Pipeline.stacked_at``) with no host sync between them
+    and returns the last microstep's metrics, on the device, with every
+    microstep's loss stacked as "loss_steps" (K,) (JAX keeps that history
+    on the device and returns the last step's alone)."""
+    linkage.validate()
+    micro = make_train_step(cfg, opts, ocfg, inplace=linkage.donate)
+    if linkage.level != L3_NSS:
+        return LinkedStep(fn=micro, linkage=linkage)
+
+    def fused(state, batch_k):
+        losses = []
+        for i in range(batch_k["labels"].shape[0]):
+            state, metrics = micro(state, {k: v[i] for k, v in
+                                           batch_k.items()})
+            losses.append(metrics["loss"])
+        return state, dict(metrics, loss_steps=torch.stack(losses))
+    return LinkedStep(fn=fused, linkage=linkage)
+
+
+def build_sharded_train_step(*args, **kwargs):
+    """JAX's ``build_sharded_train_step`` (``step.py:128-175``) shards the
+    state over a mesh; the port has no mesh yet."""
+    raise NotImplementedError("the sharded training step needs a mesh: "
+                              "ROADMAP module item 13 (multi-device)")
 
 
 @dataclasses.dataclass(frozen=True)

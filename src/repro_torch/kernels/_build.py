@@ -129,6 +129,9 @@ def library() -> ctypes.CDLL:
         lib.rt_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
                                            I, I, F, I, P]
         lib.rt_flash_info.argtypes = [I, I, P, P]
+        lib.rt_flash_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I,
+                                               I, I, I, I, I, I, F, I, P]
+        lib.rt_flash_bwd_info.argtypes = [I, I, P, P]
         lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
                                                  I, I, I, P, F, I, P]
         lib.rt_paged_decode_attention.argtypes = [P, P, P, P, P, P, P, P, P,
@@ -151,7 +154,8 @@ def library() -> ctypes.CDLL:
         lib.rt_mamba_scan_info.argtypes = [I, I, I, P, P]
         for fn in (lib.rt_rmsnorm, lib.rt_rmsnorm_info,
                    lib.rt_flash_attention,
-                   lib.rt_flash_info, lib.rt_slot_decode_attention,
+                   lib.rt_flash_info, lib.rt_flash_attention_bwd,
+                   lib.rt_flash_bwd_info, lib.rt_slot_decode_attention,
                    lib.rt_decode_info, lib.rt_paged_decode_attention,
                    lib.rt_paged_prefill_attention,
                    lib.rt_paged_prefill_attention_quant,
@@ -193,6 +197,19 @@ def copy_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
     for t in tensors:
         bits |= t.data_ptr()
     return next((v for v in (16, 8, 4) if bits % v == 0), 0)
+
+
+def forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through a kernel that has
+    none: grad mode on and an input requiring grad. The serving kernels
+    are ctypes launches that autograd cannot see, so the gradient would be
+    lost without a word; only flash attention and rmsnorm have a backward
+    (their ``torch.autograd.Function``s)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; run it "
+                           f"under torch.no_grad() or on inputs that do not "
+                           f"require grad")
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

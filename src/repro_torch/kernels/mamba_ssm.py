@@ -88,6 +88,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     raises on anything else."""
     if not _build.on_cuda(x, dt, A, Bv, Cv):
         return mamba_scan_ref(x, dt, A, Bv, Cv)
+    _build.forward_only("mamba_scan", x, dt, A, Bv, Cv)
     return _launch(x, dt, A, Bv, Cv)
 
 

@@ -126,6 +126,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, k: int):
     kernel."""
     if not _build.on_cuda(x, router):
         return moe_route_ref(x, router, k)
+    _build.forward_only("moe_route", x, router)
     if x.dim() != 2 or router.dim() != 2 or router.shape[0] != x.shape[1]:
         raise ValueError(f"moe_route: x must be (N, D) and router (D, E); "
                          f"got {tuple(x.shape)} and {tuple(router.shape)}")

@@ -85,6 +85,7 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
     if not _build.on_cuda(*tensors):
         return paged_decode_attention_ref(q, kp, vp, tables, valid, ks=ks,
                                           vs=vs)
+    _build.forward_only("paged_decode_attention", *tensors)
     B, HQ, dh = q.shape
     bs, HKV = kp.shape[1], kp.shape[2]
     nb = tables.shape[1]

@@ -40,6 +40,7 @@ def paged_prefill_attention(q: torch.Tensor, kp: torch.Tensor,
     if not _build.on_cuda(*tensors):
         return paged_prefill_attention_ref(q, kp, vp, tables, start, ks=ks,
                                            vs=vs)
+    _build.forward_only("paged_prefill_attention", *tensors)
     B, W, HQ, dh = q.shape
     bs, HKV = kp.shape[1], kp.shape[2]
     nb = tables.shape[1]

@@ -13,7 +13,10 @@ denominator at 1e-30) where a ``-inf`` softmax would give NaN. And
 ``moe_route_ref`` repeats the Pallas ``_route_kernel``'s arithmetic
 (``moe_route.py:19-36``), not the oracle's (``ref.py:150``).
 ``rwkv_scan_ref`` (``ref.py:132``) and ``mamba_scan_ref`` (``ref.py:114``)
-also return the final state, as the port's kernels do.
+also return the final state, as the port's kernels do. The two kernels
+with a backward have plain backwards here too: ``flash_attention_bwd_ref``
+(autograd through ``flash_attention_ref``) and ``rmsnorm_bwd_ref`` (the
+analytic derivative).
 """
 from __future__ import annotations
 
@@ -42,6 +45,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), v)
     return out.reshape(B, Sq, HQ, dh)
+
+
+def flash_attention_bwd_ref(q, k, v, do, *, causal: bool = True,
+                            window: int = 0):
+    """The plain backward of ``flash_attention_ref``: autograd through it,
+    as JAX's ``_flash_bwd`` (``flash_attention.py:110-128``) differentiates
+    its chunked jnp reference. do (B,Sq,HQ,dh) -> (dq, dk, dv) in the
+    inputs' dtypes; GQA sums dk and dv over each KV head's group."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(o, leaves, do)
 
 
 def slot_decode_attention_ref(q, k, v, valid, *, scale=None):
@@ -126,6 +141,20 @@ def rmsnorm_ref(x, scale, *, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, scale, dy, *, eps: float = 1e-5):
+    """The analytic derivative of ``rmsnorm_ref`` in fp32: with r =
+    rsqrt(mean(x^2) + eps), dx = r (g s - x r^2 mean(g s x)) and dscale =
+    sum over rows of g x r, for dy = g. Returns (dx in x's dtype, dscale in
+    scale's dtype). JAX's Pallas rmsnorm has no custom VJP; this is the
+    derivative its plain form has."""
+    xf, g, s = x.float(), dy.float(), scale.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gs = g * s
+    dx = r * (gs - xf * (r * r) * torch.mean(gs * xf, dim=-1, keepdim=True))
+    dscale = (g * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 NEG_INF = -1e30

@@ -4,6 +4,9 @@
 One device-memory round trip: the row is held in registers between the
 fp32 sum of squares and the write, and only the normalised output is
 written. ``launch_geometry`` is the one place the launch is decided.
+JAX's Pallas rmsnorm has no backward kernel (no custom VJP); for training
+``RMSNorm`` (a ``torch.autograd.Function``) runs this kernel forward and
+the analytic derivative in plain PyTorch backward (``rmsnorm_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 #: elements a lane holds before the row spreads over another warp, and the
 #: most it may hold once the block has MAX_WARPS warps on the row (the
@@ -67,11 +70,36 @@ def launch_geometry(n_rows: int, D: int, itemsize: int, vector: bool,
     return Geometry(vec, nv, warps, rows, grid)
 
 
+class RMSNorm(torch.autograd.Function):
+    """rmsnorm with a gradient: the kernel forward (the plain version for
+    CPU tensors), the analytic derivative backward, dx in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_ref(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (..., D); scale: (D,) in float32 or bfloat16 (bfloat16
     parameters), widened in the kernel. CPU tensors take the plain version,
-    CUDA tensors the kernel."""
+    CUDA tensors the kernel; through ``RMSNorm`` when autograd needs a
+    gradient of x or scale."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
     if not _build.on_cuda(x, scale):
         return rmsnorm_ref(x, scale, eps=eps)
     D = x.shape[-1]

@@ -94,6 +94,7 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in the kernel) and 1 <= hd <= 512, and raises on anything else."""
     if not _build.on_cuda(r, k, v, w, u):
         return rwkv_scan_ref(r, k, v, w, u)
+    _build.forward_only("rwkv_scan", r, k, v, w, u)
     return _launch(r, k, v, w, u)
 
 

@@ -51,6 +51,7 @@ def slot_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q:(B,HQ,dh); k,v:(B,T,HKV,dh); valid:(B,T) bool -> (B,HQ,dh)."""
     if not _build.on_cuda(q, k, v, valid):
         return slot_decode_attention_ref(q, k, v, valid)
+    _build.forward_only("slot_decode_attention", q, k, v)
     B, HQ, dh = q.shape
     T, HKV = k.shape[1], k.shape[2]
     if (k.shape != (B, T, HKV, dh) or v.shape != k.shape

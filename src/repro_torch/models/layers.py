@@ -48,6 +48,10 @@ class ModelOptions:
     scan_impl: str = "ref"              # ref | kernel (JAX: ref|chunked|pallas)
     dtype: torch.dtype = torch.bfloat16  # activation dtype
     fused_norm: bool = False            # fused RMSNorm kernel (shortcut)
+    # ---- training (JAX layers.py:41-58) ----
+    remat: bool = False                 # recompute each block in backward
+    logit_chunk: int = 0                # 0 = whole-seq logits, else chunked
+    norm_bf16_grad: bool = False        # RMSNorm dx in the activation dtype
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -209,11 +213,37 @@ def _rmsnorm_raw(scale, x, eps):
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+class _RMSNormBF16Grad(torch.autograd.Function):
+    """``_rmsnorm_bf16_grad`` (JAX ``layers.py:103-123``): the plain norm
+    forward; backward the analytic derivative with dx cast to x's dtype
+    before it leaves the op (in JAX the point is bf16 all-reduces of the
+    norm's cotangents; with fp32 activations the cast is a no-op)."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps: float):
+        ctx.save_for_backward(scale, x)
+        ctx.eps = eps
+        return _rmsnorm_raw(scale, x, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels.ref import rmsnorm_bwd_ref
+        scale, x = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_ref(x, scale, dy, eps=ctx.eps)
+        return dscale, dx, None
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float,
             opts: ModelOptions) -> torch.Tensor:
+    """``layers.py:126``: the kernel wrapper under ``fused_norm`` (with its
+    autograd ``Function`` when training), else the plain norm, whose
+    gradient comes from autograd or, under ``norm_bf16_grad``, from
+    ``_RMSNormBF16Grad``."""
     if opts.fused_norm:
         from repro_torch.kernels import ops as kops
         return kops.rmsnorm(x, params["scale"], eps=eps)
+    if opts.norm_bf16_grad:
+        return _RMSNormBF16Grad.apply(params["scale"], x, eps)
     return _rmsnorm_raw(params["scale"], x, eps)
 
 
@@ -393,8 +423,10 @@ def attention(params: Params, x: torch.Tensor, cfg: ArchConfig,
               spec: LayerSpec, opts: ModelOptions, positions: torch.Tensor,
               xctx=None) -> torch.Tensor:
     """Full-sequence (train / prefill) attention; ``xctx`` (B, n_ctx,
-    ctx_dim) is a cross-attention layer's context."""
-    xkv = None if xctx is None else xattn_kv(params, xctx, cfg, x.dtype)
+    ctx_dim) is a cross-attention layer's context (the other layers
+    ignore it)."""
+    xkv = (xattn_kv(params, xctx, cfg, x.dtype)
+           if xctx is not None and spec.mixer == XATTN else None)
     return attention_kv(params, x, cfg, spec, opts, positions, xkv)[0]
 
 

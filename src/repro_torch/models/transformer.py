@@ -17,13 +17,16 @@ JAX stacks each block-pattern position's parameters and scans over blocks;
 PyTorch runs eagerly, so the port keeps one parameter dict per layer in
 execution order (``params["layers"][b * len(pattern) + p]`` is block ``b``,
 pattern position ``p``) and the cache as one dict per layer. Layer specs
-come from ``layer_specs(cfg)`` in the same order.
+come from ``layer_specs(cfg)`` in the same order. Training runs
+``loss_fn`` over ``train_backbone``, which sums the MoE aux losses that
+the serving paths drop.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, RWKV,
@@ -163,29 +166,139 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     return x + L.mlp(p["mlp"], h)
 
 
+def _mix(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
+         opts: ModelOptions, positions: torch.Tensor,
+         xctx: Optional[torch.Tensor]) -> torch.Tensor:
+    """The pre-norm mixer half of a full-sequence layer, ``x +
+    mixer(norm1(x))`` (the scans' final states dropped)."""
+    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
+    if spec.mixer == RWKV:
+        return x + L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)[0]
+    if spec.mixer == MAMBA:
+        return x + L.mamba(p["mixer"], h, cfg, opts)[0]
+    return x + L.attention(p["mixer"], h, cfg, spec, opts, positions, xctx)
+
+
 def apply_layer(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                 opts: ModelOptions, positions: torch.Tensor,
                 xctx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pre-norm residual layer (full sequence); ``xctx`` is the context of
     a cross-attention layer."""
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
-    if spec.mixer == RWKV:
-        x = x + L.rwkv(p["mixer"], h, _shift_right(h), cfg, opts)[0]
-    elif spec.mixer == MAMBA:
-        x = x + L.mamba(p["mixer"], h, cfg, opts)[0]
-    else:
-        x = x + L.attention(p["mixer"], h, cfg, spec, opts, positions, xctx)
-    return mlp_block(p, x, cfg, spec, opts)
+    return mlp_block(p, _mix(p, x, cfg, spec, opts, positions, xctx), cfg,
+                     spec, opts)
+
+
+def apply_layer_train(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                      spec: LayerSpec, opts: ModelOptions,
+                      positions: torch.Tensor,
+                      xctx: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_layer`` of training (JAX ``transformer.py:82``): returns
+    (x, the MoE aux loss), which a MoE layer takes from ``moe_with_aux``
+    and every other layer makes zero."""
+    x = _mix(p, x, cfg, spec, opts, positions, xctx)
+    if spec.mlp == MOE:
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps, opts)
+        out, aux = L.moe_with_aux(p["mlp"], h, cfg, opts)
+        return x + out, aux
+    return (mlp_block(p, x, cfg, spec, opts),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
              opts: ModelOptions, positions: torch.Tensor,
              xctx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h: (B,S,D) embedded input -> final (normed) hidden state; ``xctx``
-    (B, n_ctx, ctx_dim) feeds the cross-attention layers."""
+    (B, n_ctx, ctx_dim) feeds the cross-attention layers. The serving
+    view: no aux loss (``train_backbone`` has it)."""
     for p, spec in zip(params["layers"], layer_specs(cfg)):
         h = apply_layer(p, h, cfg, spec, opts, positions, xctx)
     return L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
+
+
+def train_backbone(params: Params, h: torch.Tensor, cfg: ArchConfig,
+                   opts: ModelOptions, positions: torch.Tensor,
+                   xctx: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``backbone`` (``transformer.py:107-147``): (final normed
+    hidden, the MoE aux losses summed in layer order). Under
+    ``opts.remat`` each block of the pattern runs under non-reentrant
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of ``block_fn``,
+    ``:129-130``): its activations are recomputed in the backward."""
+    specs = layer_specs(cfg)
+    n = len(cfg.block_pattern)
+
+    def block_fn(x, b):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(b * n, (b + 1) * n):
+            x, a = apply_layer_train(params["layers"][i], x, cfg, specs[i],
+                                     opts, positions, xctx)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for b in range(cfg.num_blocks):
+        if opts.remat:
+            h, a = torch.utils.checkpoint.checkpoint(block_fn, h, b,
+                                                     use_reentrant=False)
+        else:
+            h, a = block_fn(h, b)
+        aux = aux + a
+    return L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss (with optional chunked cross-entropy that never forms (B, S, V))
+# ---------------------------------------------------------------------------
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy, ``logsumexp - gold`` in fp32
+    (``transformer.py:156``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            opts: ModelOptions
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss (``transformer.py:163-197``). ``batch``: "inputs"
+    (B,S) token ids or (B,S,D) embeddings for an ``embeds_in`` model,
+    "labels" (B,S), and "xctx" (B, n_ctx, ctx_dim) for a cross-attention
+    model. Under ``opts.logit_chunk`` (which must divide S) the logits are
+    formed a chunk of positions at a time and their cross-entropies
+    summed. Returns (loss, {"loss", "ce", "moe_aux"}): loss = mean ce +
+    the summed MoE aux losses."""
+    inputs, labels = batch["inputs"], batch["labels"]
+    xctx = batch.get("xctx")
+    if cfg.embeds_in:
+        h = embed(params, inputs, cfg, opts)
+    else:
+        # F.embedding, where ``embed`` indexes: its CUDA backward sorts the
+        # ids and sums each id's rows in a fixed order, so a step repeats
+        # bit for bit (the driver's exact recovery rests on it). Serving
+        # keeps indexing: a dead slot's id may be -1, which F.embedding
+        # refuses.
+        h = torch.nn.functional.embedding(inputs.long(),
+                                          params["embed"]).to(opts.dtype)
+    B, S = labels.shape
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    h, aux = train_backbone(params, h, cfg, opts, positions, xctx)
+    c = opts.logit_chunk
+    if c and S > c:
+        if S % c:
+            raise ValueError(f"logit_chunk {c} must divide the sequence "
+                             f"length {S}")
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, S, c):
+            logits = unembed_logits(params, h[:, i:i + c], cfg)
+            total = total + _xent(logits, labels[:, i:i + c]).sum()
+        ce = total / (B * S)
+    else:
+        ce = _xent(unembed_logits(params, h, cfg), labels).mean()
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -292,6 +292,7 @@ def test_build_fingerprint_tracks_sources(tmp_path):
     assert _build._fingerprint([a], []) != h1
     srcs = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in srcs} == {"rmsnorm.cu", "flash_attention.cu",
+                                      "flash_attention_bwd.cu",
                                       "decode_attention.cu",
                                       "paged_prefill.cu", "moe_route.cu",
                                       "rwkv_scan.cu", "mamba_scan.cu"}
@@ -380,3 +381,51 @@ def test_cuda_launch_error_raises_not_falls_back(cuda, monkeypatch):
     valid = torch.ones(1, 8, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="bad shapes"):
         tsd.slot_decode_attention(q, k, k, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_matches_plain(cuda, dtype, monkeypatch):
+    """``flash_attention_bwd`` against the plain backward on the same
+    values in float32 (max |d| within 1e-4 / 2e-2 of the largest |grad|:
+    fp32 sums in another order; bf16 rounds its outputs once), two runs
+    bit-identical, at a window with odd dh and G 2, 300 positions at dh
+    128 and G 4, and S 1; through the ``FlashAttention`` Function the same
+    gradients without the plain version consulted; dh above 128 raises
+    naming the limit; a serving wrapper refuses a grad-requiring input."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(dtype)
+
+    tol = _card_tol(dtype)
+    for B, S, HQ, HKV, dh, window in ((1, 77, 6, 3, 33, 16),
+                                      (2, 300, 16, 4, 128, 0),
+                                      (1, 1, 4, 2, 64, 0)):
+        q, k, v, do = (rn(B, S, HQ, dh), rn(B, S, HKV, dh),
+                       rn(B, S, HKV, dh), rn(B, S, HQ, dh))
+        with torch.no_grad():
+            o = tfa.flash_attention(q, k, v, window=window)
+        got = tfa.flash_attention_bwd(q, k, v, o, do, window=window)
+        again = tfa.flash_attention_bwd(q, k, v, o, do, window=window)
+        want = tref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                            do.float(), window=window)
+        top = max(max(float(w.abs().max()) for w in want), 1.0)
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a, b) and a.dtype == dtype
+            assert float((a.float() - w).abs().max()) <= tol * top
+    monkeypatch.setattr(tfa, "flash_attention_bwd_ref",
+                        lambda *a, **k: pytest.fail("plain backward called"))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(
+        tfa.flash_attention(*leaves, window=window), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, got))
+    big = torch.zeros(1, 4, 2, 136, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="128"):
+        tfa.flash_attention_bwd(big, big[:, :, :1], big[:, :, :1], big, big)
+    kv = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tsd.slot_decode_attention(
+            torch.zeros(1, 4, 64, device=cuda, requires_grad=True), kv, kv,
+            torch.ones(1, 8, dtype=torch.bool, device=cuda))

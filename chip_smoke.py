@@ -7,13 +7,15 @@
                                   # with a PREFIX, all without one)
     python3 chip_smoke.py norm    # the build and the rmsnorm cases
     python3 chip_smoke.py compare [KERNEL ...]  # the build, then for
-                                  # each of rmsnorm, moe_route, rwkv_scan
-                                  # and mamba_scan named (all without one)
-                                  # its cases and its path's profile (the
-                                  # router: its path, jamba, large and tie
-                                  # cases, the MoE path); no launch log,
-                                  # and the cases a tree refuses skipped:
-                                  # runs over an older tree's src/ too
+                                  # each of rmsnorm, moe_route, rwkv_scan,
+                                  # mamba_scan, flash_attention and
+                                  # flash_attention_bwd named (all without
+                                  # one) its cases and its path's profile
+                                  # (the router: its path, jamba, large and
+                                  # tie cases, the MoE path; flash: its
+                                  # cases only); no launch log, and the
+                                  # cases a tree refuses skipped: runs
+                                  # over an older tree's src/ too
     python3 chip_smoke.py moe     # the build, the MoE path and its profile
     python3 chip_smoke.py rwkv    # the build, rwkv_scan, the RWKV path
     python3 chip_smoke.py mamba   # the build, jamba's kernel shapes,
@@ -41,6 +43,10 @@
     python3 chip_smoke.py train   # the build and the training phase: the
                                   # flash backward's cases, the grad
                                   # guard, TR1-TR3
+    python3 chip_smoke.py bwd     # the build and the flash backward's
+                                  # cases only
+    python3 chip_smoke.py bwd-chunks  # the build, the backward's dkdv
+                                  # chunk swept at its timed cases
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -258,15 +264,21 @@ non-zero before the result line):
    ``zoo``: HQ/HKV/dh 28/4/128, 96/8/128, 32/8/80, 64/8/112), flash with
    danube's 4,096-token window at S 4,128 and slot decode over its
    4,096-key buffer, and the router at mixtral's rows (E 8, k 2).
-11. training, after the zoo (``train_phases``): ``flash_attention_bwd``
+11. training, after the zoo (``train_phases``; in the full run its
+   backward cases run right after the kernel phase, while the profiler
+   still keeps its records, ROADMAP M2): ``flash_attention_bwd``
    against the plain backward (autograd through the plain attention; a
    bf16 case against the same values widened to fp32) at the train
    path's q (4,1024,32,64), qwen2's G 7, kimi's dh 112, danube's 4,096
-   window at S 4,128 and ragged S 1, 7 and 129, fp32 and bf16, max |d|
-   over the largest |grad| within 1e-4 / 2e-2, two runs bit-identical,
-   timed beside the plain backward, SDPA forward + backward and the
-   bound; every serving wrapper raising on a grad-requiring CUDA input
-   (``grad_guard_phase``); TR1 (``train_path_phase``): ``python -m
+   window at S 4,128, ragged S 1, 7 and 129, dh 80 with a 100-token
+   window at S 333 and dh 112 at S 100, fp32 and bf16, its lse from the
+   forward kernel (held against the plain lse, the forward's output
+   bit-identical with and without it, a call without lse raising), max
+   |d| over the largest |grad| within 1e-4 / 2e-2, two runs
+   bit-identical, timed (device time both ways, and by CUDA launch)
+   beside the plain backward, SDPA forward + backward, SDPA's backward
+   alone (forward + backward less forward) and the bound; every serving
+   wrapper raising on a grad-requiring CUDA input (``grad_guard_phase``); TR1 (``train_path_phase``): ``python -m
    repro_torch.launch.train --arch tinyllama-1.1b --preset nss_shortcut``
    through its ``main`` at full width, fp32, 8 steps of 4 x 1,024 tokens
    at lr 1e-3, every step's loss finite and the last below the first,
@@ -408,30 +420,48 @@ def device_ms(fn, iters: int = 50, between=None, only: str = ""):
 
 
 def kernel_device_ms(fn, kernel: str, iters: int = 50, between=None,
-                     symbol: str = ""):
+                     symbol: str = "", cuda_launches: int = 1,
+                     tries: int = 3, parts=()):
     """The device time per call of the hand-written kernel ``kernel``
     (its CUDA records are those whose name holds ``symbol``, by default
     ``kernel``: the fused-dequant paged prefill counts as
     ``paged_prefill_quant`` and runs ``paged_prefill_kernel``), read two
     ways from
     one profiled loop: as ``device_ms`` (the records summed over the calls
-    made), and as the records' mean times the launches a call its wrapper
-    counted (``_build.launches``), which a record the profiler drops does
-    not lower (ROADMAP M2). (None, None) when no record was kept; raises
-    when the wrapper counted no whole number of launches a call or the
-    records outnumber the launches."""
-    events, made = _profiled(fn, iters, between)
-    per_call, rest = divmod(made.get(kernel, 0), iters)
-    records = [v for name, v in events.items() if (symbol or kernel) in name]
-    kept = sum(n for n, _ in records)
-    if per_call < 1 or rest or kept > per_call * iters:
-        raise AssertionError(f"{kernel}: {made.get(kernel, 0)} counted "
-                             f"launches and {kept} records over {iters} "
-                             f"calls")
+    made), and as the records' mean times the CUDA launches a call (the
+    launches its wrapper counted, ``_build.launches``, times
+    ``cuda_launches``, the CUDA launches one counted launch makes: the
+    flash backward's 2 or 3), which a record the profiler drops does not
+    lower (ROADMAP M2). A loop whose records fall short of its launches
+    is profiled again, up to ``tries`` times, and the one that kept most
+    is read. (None, None) when no record was kept; raises when the
+    wrapper counted no whole number of launches a call or the records
+    outnumber the launches. Given ``parts`` (substrings of the CUDA
+    kernels' names), also their device ms a call from the same records,
+    as a third value."""
+    best = None
+    for _ in range(tries):
+        events, made = _profiled(fn, iters, between)
+        per_call, rest = divmod(made.get(kernel, 0), iters)
+        per_call *= cuda_launches
+        records = [v for name, v in events.items()
+                   if (symbol or kernel) in name]
+        kept = sum(n for n, _ in records)
+        if per_call < 1 or rest or kept > per_call * iters:
+            raise AssertionError(f"{kernel}: {made.get(kernel, 0)} counted "
+                                 f"launches and {kept} records over "
+                                 f"{iters} calls")
+        if best is None or kept > best[0]:
+            best = (kept, records, events)
+        if kept == per_call * iters:
+            break
+    kept, records, events = best
     total = sum(us for _, us in records)
-    if not kept or total <= 0:
-        return None, None
-    return total / iters / 1e3, total / kept * per_call / 1e3
+    by = {p: sum(us for name, (_, us) in events.items() if p in name)
+          / iters / 1e3 for p in parts}
+    read = ((None, None) if not kept or total <= 0 else
+            (total / iters / 1e3, total / kept * per_call / 1e3))
+    return (*read, by) if parts else read
 
 
 #: bytes written between launches for an L2-cold time: more than the
@@ -4164,32 +4194,100 @@ FLASH_BWD_CASES = (
     ("ragged S 1", 2, 1, 32, 4, 64, 0),
     ("ragged S 7", 2, 7, 32, 4, 64, 0),
     ("ragged S 129", 2, 129, 28, 4, 128, 0),
+    ("ragged dh 80 window 100", 2, 333, 32, 8, 80, 100),
+    ("ragged dh 112 S 100", 1, 100, 16, 2, 112, 0),
 )
 #: max |kernel - plain| of dq, dk, dv over the largest |grad| of the three
 #: (at least 1): fp32 sums in another order; a bf16 kernel rounds its
 #: outputs once (2^-9 relative), held against the plain backward of the
 #: same values in fp32
 BWD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+#: the backward's CUDA kernels, by the name each record carries
+BWD_LAUNCHES = ("flash_bwd_dq", "flash_bwd_dkdv", "flash_bwd_reduce")
+
+
+def bwd_chunk_phase(gen):
+    """The dkdv chunk's trade-off (``bwd_geometry``): at the timed cases
+    of FLASH_BWD_CASES, fp32 and bf16, the backward's device ms by launch
+    under the chunk the geometry picks and under forced chunks (one step
+    a block up to one chunk a key tile), with the blocks and waves each
+    makes on this card."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, S, HQ, HKV, dh, window in FLASH_BWD_CASES:
+            if label.startswith("ragged"):
+                continue
+
+            def rn(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device="cuda").to(dtype)
+            q, k, v = rn(B, S, HQ, dh), rn(B, S, HKV, dh), rn(B, S, HKV, dh)
+            do = rn(B, S, HQ, dh)
+            with torch.no_grad():
+                o, lse = kfa.flash_attention_with_lse(q, k, v, causal=True,
+                                                      window=window)
+            slots = kfa._bwd_slots(dtype, kfa.bwd_head_dim(dh),
+                                   torch.cuda.current_device())
+            picked = kfa.bwd_geometry(B, S, HQ, HKV, dh, True, window, dtype,
+                                      slots)
+            most = max(kfa.bwd_steps(S, HQ // HKV, True, window,
+                                     picked.bqs))
+            chunks = sorted({picked.chunk, 1, 2, 4, 8, 16, 32, 64, most,
+                             -(-most // 2), -(-most // 4)} - {0})
+            for c in chunks:
+                if c > most:
+                    continue
+                geo = kfa.bwd_geometry(B, S, HQ, HKV, dh, True, window,
+                                       dtype, slots, chunk=c)
+
+                def call():
+                    return kfa.flash_attention_bwd(
+                        q, k, v, o, do, lse, causal=True, window=window,
+                        _chunk=c)
+                *_, by = kernel_device_ms(
+                    call, "flash_attention_bwd", 10, symbol="flash_bwd",
+                    cuda_launches=geo.launches, parts=BWD_LAUNCHES)
+                blocks = geo.chunks * B * HKV
+                log(f"bwd chunk {str(dtype):15s} {label:20s} chunk {c:4d}"
+                    f"{' (picked)' if c == picked.chunk else '         '} "
+                    f"blocks {blocks:6d} waves {blocks / slots:6.2f} "
+                    f"device {sum(by.values()):.5f} ms: " + " ".join(
+                        f"{kk} {vv:.5f}" for kk, vv in by.items()))
+            del q, k, v, o, lse, do
+    _release()
 
 
 def flash_bwd_phase(gen):
     """``flash_attention_bwd`` against the plain backward
     (``flash_attention_bwd_ref``: autograd through the plain attention),
-    on every case of FLASH_BWD_CASES in fp32 and bf16, the output ``o``
-    from the forward kernel; a bf16 case's plain backward runs on the
-    same values widened to fp32. Two runs of the kernel must be bit
-    identical. Timed but for the ragged cases: the kernel (``ms``,
-    ``device_ms`` over both of its launches), the plain backward in the
-    working dtype, the forward and backward kernels through the autograd
-    ``Function``, SDPA's forward and backward through autograd (the
-    library yardstick; the port never calls it) and the bound (bytes: q,
+    on every case of FLASH_BWD_CASES in fp32 and bf16, ``o`` and ``lse``
+    from the forward kernel (``flash_attention_with_lse``); a bf16 case's
+    plain backward runs on the same values widened to fp32. Gated: the
+    forward's ``o`` bit-identical with the lse pointer set and null
+    (serving's), its lse against the plain one (``flash_attention_ref(...,
+    return_lse=True)`` on the widened values) within TOL of max(1, |lse|),
+    two runs of the backward bit-identical, the gradients within BWD_TOL,
+    and (first case) a CUDA call without lse raising. Timed but for the
+    ragged cases: the kernel (``ms``; ``device_ms`` and ``device_mean_ms``
+    over its 2 or 3 CUDA launches by ``kernel_device_ms``; each launch's
+    apart), the forward with and without lse (device), the plain backward
+    in the working dtype, the forward and backward kernels through the
+    autograd ``Function``, SDPA's forward and backward through autograd
+    and its forward alone (their difference the backward's library
+    yardstick; the port never calls SDPA) and the bound (bytes: q,
     k, v, o, do read and dq, dk, dv written once; operations: 10 dh a
     live (query, key) pair and head -- the scores, dP and the three
-    gradient products)."""
+    gradient products). Over an older tree (``compare``), without
+    ``flash_attention_with_lse``, the lse gates are skipped and the
+    backward is called as that tree takes it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
+    # ``compare`` runs this over an older tree too, whose forward writes no
+    # lse and whose backward takes none
+    has_lse = hasattr(kfa, "flash_attention_with_lse")
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for label, B, S, HQ, HKV, dh, window in FLASH_BWD_CASES:
@@ -4198,18 +4296,51 @@ def flash_bwd_phase(gen):
                                    device="cuda").to(dtype)
             q, k, v = rn(B, S, HQ, dh), rn(B, S, HKV, dh), rn(B, S, HKV, dh)
             do = rn(B, S, HQ, dh)
+            name = f"flash_attention_bwd [{label}] {dtype}"
             with torch.no_grad():
-                o = kfa.flash_attention(q, k, v, causal=True, window=window)
+                o_serve = kfa.flash_attention(q, k, v, causal=True,
+                                              window=window)
+                o, lse = (kfa.flash_attention_with_lse(
+                    q, k, v, causal=True, window=window) if has_lse
+                    else (o_serve, None))
+            lse_err = None
+            if has_lse:
+                _, lse_want = ref.flash_attention_ref(
+                    q.float(), k.float(), v.float(), causal=True,
+                    window=window, return_lse=True)
+                torch.cuda.synchronize()
+                if not torch.equal(o, o_serve):
+                    raise AssertionError(f"{name}: the forward's o differs "
+                                         f"with the lse pointer set")
+                lse_err = (lse - lse_want).abs().max().item()
+                lse_top = max(lse_want.abs().max().item(), 1.0)
+                if (not torch.isfinite(lse).all().item()
+                        or lse_err > TOL[str(dtype)] * lse_top):
+                    raise AssertionError(f"{name}: the forward's lse is off "
+                                         f"by {lse_err} (largest |lse| "
+                                         f"{lse_top:.3e})")
+                del lse_want
+                if not rows:
+                    try:
+                        kfa.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                                window=window)
+                    except ValueError:
+                        pass
+                    else:
+                        raise AssertionError(f"{name}: no lse, and no "
+                                             f"raise")
 
             def call():
-                return kfa.flash_attention_bwd(q, k, v, o, do, causal=True,
-                                               window=window)
+                if not has_lse:    # an older tree: the backward recomputes it
+                    return kfa.flash_attention_bwd(q, k, v, o, do,
+                                                   causal=True, window=window)
+                return kfa.flash_attention_bwd(q, k, v, o, do, lse,
+                                               causal=True, window=window)
             got, again = call(), call()
             want = ref.flash_attention_bwd_ref(
                 q.float(), k.float(), v.float(), do.float(), causal=True,
                 window=window)
             torch.cuda.synchronize()
-            name = f"flash_attention_bwd [{label}] {dtype}"
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: two runs differ")
             errs = [(g.float() - w).abs().max().item()
@@ -4227,9 +4358,16 @@ def flash_bwd_phase(gen):
             if window:
                 live &= i[:, None] - i[None, :] < window
             pairs = int(live.sum().item()) * B * HQ
+            geo = kfa.bwd_geometry(
+                B, S, HQ, HKV, dh, True, window, dtype,
+                kfa._bwd_slots(dtype, kfa.bwd_head_dim(dh),
+                               torch.cuda.current_device())) \
+                if has_lse else None
             row = {"label": label, "dtype": str(dtype),
                    "max_abs_err": max(errs), "dq_dk_dv_err": errs,
-                   "max_abs_grad": top, "deterministic": True,
+                   "max_abs_grad": top, "lse_err": lse_err,
+                   "deterministic": True,
+                   "geometry": geo and geo._asdict(),
                    "shape": f"q ({B},{S},{HQ},{dh}), kv ({B},{S},{HKV},"
                             f"{dh}), window {window}"}
             if not label.startswith("ragged"):
@@ -4252,22 +4390,59 @@ def flash_bwd_phase(gen):
                         enable_gqa=True)
                     return torch.autograd.grad(out, (qT, kT, vT), doT)
 
+                def lib_fwd():
+                    with torch.no_grad():
+                        return F.scaled_dot_product_attention(
+                            qT, kT, vT, attn_mask=mask,
+                            is_causal=mask is None, enable_gqa=True)
+
+                def fwd():
+                    with torch.no_grad():
+                        return kfa.flash_attention(q, k, v, causal=True,
+                                                   window=window)
+
+                def fwd_lse():
+                    if not has_lse:
+                        return fwd()
+                    with torch.no_grad():
+                        return kfa.flash_attention_with_lse(
+                            q, k, v, causal=True, window=window)
+
                 def plain():
                     return ref.flash_attention_bwd_ref(
                         q, k, v, do, causal=True, window=window)
-                row.update(ms=cuda_ms(call, 10, 2),
-                           device_ms=device_ms(call, 10, only="flash_bwd"),
+                # an older tree's backward made two launches
+                dev, dev_mean, by = kernel_device_ms(
+                    call, "flash_attention_bwd", 10, symbol="flash_bwd",
+                    cuda_launches=geo.launches if geo else 2,
+                    parts=BWD_LAUNCHES)
+                row["launch_device_ms"] = by
+                row.update(ms=cuda_ms(call, 10, 2), device_ms=dev,
+                           device_mean_ms=dev_mean,
+                           fwd_device_ms=device_ms(fwd, 10,
+                                                   only="flash_fwd"),
+                           fwd_lse_device_ms=device_ms(fwd_lse, 10,
+                                                       only="flash_fwd"),
                            fwd_bwd_ms=cuda_ms(fwd_bwd, 10, 2),
                            plain_ms=cuda_ms(plain, 5, 1),
                            library_ms=cuda_ms(lib, 10, 2),
                            library_device_ms=device_ms(lib, 10),
+                           library_fwd_ms=cuda_ms(lib_fwd, 10, 2),
+                           library_fwd_device_ms=device_ms(lib_fwd, 10),
                            bound_ms=b_ms, bound_by=b_by)
+                row["library_bwd_ms"] = row["library_ms"] - row[
+                    "library_fwd_ms"]
+                if (row["library_device_ms"] is not None
+                        and row["library_fwd_device_ms"] is not None):
+                    row["library_bwd_device_ms"] = (
+                        row["library_device_ms"]
+                        - row["library_fwd_device_ms"])
                 del qg, kg, vg, qT, kT, vT
             log(f"kernel flash_attention_bwd {str(dtype):15s} {label:20s} "
                 + " ".join(f"{k}={v!r}" for k, v in row.items()
                            if k not in ("label", "dtype")))
             rows.append(row)
-            del q, k, v, o, do, got, again, want
+            del q, k, v, o, o_serve, lse, do, got, again, want
     _release()
     return rows
 
@@ -4569,13 +4744,15 @@ def train_recovery_phase():
             "restarts": runs["failed"].restarts}
 
 
-def train_phases(gen):
-    """The training phase: the backward kernel's cases, the serving
-    wrappers' grad guard, TR1-TR3. TR1-TR3 each run whatever an earlier
-    one's gate says; a failed gate raises at the end of the phase.
-    Returns (the kernel rows, TR1's launch counts, the phase's
-    summary)."""
-    rows = flash_bwd_phase(gen)
+def train_phases(gen, rows=None):
+    """The training phase: the backward kernel's cases (``rows``, when
+    the full run has already run them, early, where the profiler keeps
+    its records: ROADMAP M2), the serving wrappers' grad guard, TR1-TR3.
+    TR1-TR3 each run whatever an earlier one's gate says; a failed gate
+    raises at the end of the phase. Returns (the kernel rows, TR1's
+    launch counts, the phase's summary)."""
+    if rows is None:
+        rows = flash_bwd_phase(gen)
     guarded = grad_guard_phase()
     failed, out = [], {}
     for name, fn in (("TR1", train_path_phase), ("TR2", train_compare_phase),
@@ -4639,11 +4816,12 @@ def launch_log():
                     f"G={G} dh<={dh}: {info['smem_bytes']} bytes of shared "
                     f"memory, {info['blocks_per_sm']} blocks/SM")
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in (64, 128):
+        for dh in kfa.BWD_HEAD_DIMS:
             info = kfa.bwd_launch_info(dtype, dh)
             log(f"  flash_attention_bwd launch: {dtype} dh<={dh}: dq / dkdv "
                 f"kernels {info['smem_bytes']} bytes of shared memory, "
-                f"{info['blocks_per_sm']} blocks/SM")
+                f"{info['blocks_per_sm']} blocks/SM, dkdv steps of "
+                f"{kfa.bwd_query_step(dtype, dh)} queries")
     for dtype in (torch.float32, torch.bfloat16):
         for kvd in (None, torch.int8, torch.float8_e4m3fn):
             for dh in (64, 128, 256):
@@ -4740,7 +4918,10 @@ def main() -> int:
             "rwkv_scan": ((rwkv_scan_phase, gen, True),
                           (rwkv_phases, False)),
             "mamba_scan": ((mamba_scan_phase, gen, True),
-                           (mamba_phases, False))}
+                           (mamba_phases, False)),
+            "flash_attention": ((kernel_phase, gen, "",
+                                 ("flash_attention",)),),
+            "flash_attention_bwd": ((flash_bwd_phase, gen),)}
         names = sys.argv[2:] or list(groups)
         if not set(names) <= set(groups):
             print(f"chip_smoke compare: kernels {sorted(groups)}, got "
@@ -4798,6 +4979,12 @@ def main() -> int:
     if sys.argv[1:] == ["train"]:
         phase(train_phases, gen)
         return 0
+    if sys.argv[1:] == ["bwd"]:
+        phase(flash_bwd_phase, gen)
+        return 0
+    if sys.argv[1:] == ["bwd-chunks"]:
+        phase(bwd_chunk_phase, gen)
+        return 0
     if sys.argv[1:] == ["mamba"]:
         phase(kernel_phase, gen, "jamba")
         phase(route_phase, gen, "jamba")
@@ -4805,6 +4992,7 @@ def main() -> int:
         phase(mamba_phases)
         return 0
     records = phase(kernel_phase, gen)
+    bwd_rows = phase(flash_bwd_phase, gen)
     phase(quant_insert_phase)
     _, _, counts, paged = phase(path_phase)
     phase(teacher_forced_phase)
@@ -4824,7 +5012,7 @@ def main() -> int:
     rwkv_counts = phase(rwkv_phases)
     mamba_counts = phase(mamba_phases)
     zoo_counts = phase(zoo_phase)
-    bwd_rows, train_counts, _ = phase(train_phases, gen)
+    _, train_counts, _ = phase(train_phases, gen, bwd_rows)
     records["moe_route"] = route_rows
     records["flash_attention_bwd"] = bwd_rows
     records["rwkv_scan"] = rwkv_rows

@@ -33,7 +33,9 @@
 // this tile's math, at the widest width (16, 8 or 4 bytes) that the
 // pointers, strides and dh*elem allow, element by element otherwise. Q, K,
 // V and O are read and written through their (B, S, H, dh) strides: no
-// transpose copy.
+// transpose copy. For training the rows' log-sum-exp goes out too (lse,
+// natural log, (B, HQ, Sq)), which flash_attention_bwd.cu takes instead of
+// recomputing it.
 #include "cp_async.cuh"
 #include "register_tiles.cuh"
 
@@ -48,6 +50,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, HQ, Sq) row log-sum-exp for the backward, or nullptr
   int B, Sq, Sk, HQ, HKV, dh, causal, window;
   int vec;  // bytes per cp.async (16, 8, 4), or 0: element copies
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
@@ -80,7 +83,11 @@ struct Layout {
 template <int V>
 using Vec = std::integral_constant<int, V>;
 
-template <typename T, int DP>
+// LSE: also write the rows' log-sum-exp to a.lse (training). A compile-time
+// option, so the serving instantiation carries none of its code: a runtime
+// branch moved the fp32 dh-64 kernel's register allocation (204 -> 164) and
+// cost it 2-5 % at (1,2048,32,64) on the H100.
+template <typename T, int DP, bool LSE>
 __global__ void __launch_bounds__(THREADS, (Layout<T, DP>::MIN_BLOCKS))
     flash_fwd_kernel(const Args a) {
   using L = Layout<T, DP>;
@@ -200,6 +207,15 @@ __global__ void __launch_bounds__(THREADS, (Layout<T, DP>::MIN_BLOCKS))
         return r < rows ? ob + (r / G) * a.oss + (r % G) * a.osh : nullptr;
       },
       dh);
+  if constexpr (LSE) {
+    float* lb = a.lse + static_cast<long long>(b) * a.HQ * a.Sq;
+    tile.row_lse(
+        [&](int i, float x) {
+          const int r = r0 + i;
+          if (r < rows) lb[static_cast<long long>(hk * G + r % G) * a.Sq + r / G] = x;
+        },
+        a.scale);
+  }
 }
 
 template <typename Op>
@@ -223,7 +239,7 @@ struct Launch {
   template <typename T, int DP>
   int run() const {
     using L = Layout<T, DP>;
-    auto kernel = flash_fwd_kernel<T, DP>;
+    auto kernel = a.lse != nullptr ? flash_fwd_kernel<T, DP, true> : flash_fwd_kernel<T, DP, false>;
     cudaError_t err = rt::allow_smem(kernel, L::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     Args args = a;
@@ -245,7 +261,7 @@ struct Info {
   template <typename T, int DP>
   int run() const {
     using L = Layout<T, DP>;
-    auto kernel = flash_fwd_kernel<T, DP>;
+    auto kernel = flash_fwd_kernel<T, DP, false>;
     cudaError_t err = rt::allow_smem(kernel, L::BYTES);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS,
@@ -259,17 +275,20 @@ struct Info {
 
 // q (B,Sq,HQ,dh), k/v (B,Sk,HKV,dh), o (B,Sq,HQ,dh); `strides` holds the
 // batch, sequence and head strides (elements) of q, k, v and o in that
-// order; the last dimension of each is contiguous.
-extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                  int Sq, int Sk, int HQ, int HKV, int dh,
+// order; the last dimension of each is contiguous. lse: nullptr, or a
+// contiguous (B,HQ,Sq) fp32 output for the rows' log-sum-exp of the scaled
+// scores (natural log; +inf for a row that sees no key); o is the same
+// either way.
+extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                  float* lse, int B, int Sq, int Sk, int HQ, int HKV, int dh,
                                   const long long* strides, int causal, int window, float scale,
                                   int dtype, void* stream) {
   if (dh < 1 || dh > 256 || HKV < 1 || HQ % HKV != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   const long long* st = strides;
-  Args a{q,     k,     v,     o,     B,     Sq,    Sk,    HQ,    HKV,    dh,     causal, window,
-         0,     st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-         st[11], scale};
+  Args a{q, k, v, o, lse, B, Sq, Sk, HQ, HKV, dh, causal, window, /*vec=*/0,
+         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+         scale};
   return dispatch(dtype, dh, Launch{a, static_cast<cudaStream_t>(stream)});
 }
 

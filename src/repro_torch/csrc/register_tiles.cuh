@@ -34,7 +34,8 @@
 // START (a sliding window), their start; a tile's per-score test is then
 // one or two compares. Masked scores are NEG_INF and their probabilities
 // are forced to 0, as in decode_attention.cu; the final normalizer is
-// max(l, 1e-30).
+// max(l, 1e-30). row_lse gives the rows' log-sum-exp after the last step
+// (the flash forward's, for its backward); the paged kernels never call it.
 #pragma once
 
 #include <cstdint>
@@ -275,6 +276,24 @@ struct TcTile {
         }
     }
   }
+
+  // The rows' log-sum-exp of the scaled scores, scale * m + log(l) in
+  // natural-log units (m is kept unscaled), to dst(i, value) for block row
+  // i; +inf for a row that saw no key. Called after the last step, outside
+  // the key loop; O is untouched.
+  template <typename Dst>
+  __device__ __forceinline__ void row_lse(Dst dst, float scale) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[h];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if ((lane & 3) == 0)
+        dst(warp * 16 + (lane >> 2) + 8 * h,
+            sum > 0.f ? fmaf(m[h], scale, logf(sum)) : __int_as_float(0x7f800000));
+    }
+  }
 };
 
 template <int DP, bool START = false>
@@ -441,6 +460,21 @@ struct FmaTile {
           const int d = c * 32 + cg * 4 + e;
           if (d < dh) row[d] = from_f<T>(o[i][c][e] / den);
         }
+    }
+  }
+
+  // As TcTile::row_lse; m is kept scaled here.
+  template <typename Dst>
+  __device__ __forceinline__ void row_lse(Dst dst, float) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int i0 = warp * 16 + (lane >> 3) * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float sum = l[i];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      if ((lane & 7) == 0) dst(i0 + i, sum > 0.f ? m[i] + logf(sum) : __int_as_float(0x7f800000));
     }
   }
 };

@@ -126,11 +126,12 @@ def library() -> ctypes.CDLL:
         L = ctypes.c_longlong
         lib.rt_rmsnorm.argtypes = [P, P, P, L, I, F, I, I, I, I, I, I, I, P]
         lib.rt_rmsnorm_info.argtypes = [I, I, I, I, I, P]
-        lib.rt_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, P,
-                                           I, I, F, I, P]
+        lib.rt_flash_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
+                                           P, I, I, F, I, P]
         lib.rt_flash_info.argtypes = [I, I, P, P]
-        lib.rt_flash_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I,
-                                               I, I, I, I, I, I, F, I, P]
+        lib.rt_flash_attention_bwd.argtypes = [P, P, P, P, P, P, P, P, P, P,
+                                               I, I, I, I, I, I, I, F, I, I,
+                                               I, P]
         lib.rt_flash_bwd_info.argtypes = [I, I, P, P]
         lib.rt_slot_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I,
                                                  I, I, I, P, F, I, P]

@@ -27,8 +27,13 @@ import torch
 from repro_torch.kernels.kv_quant import dequantize, raw
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q:(B,Sq,HQ,dh) k,v:(B,Sk,HKV,dh) -> (B,Sq,HQ,dh). GQA by head grouping."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """q:(B,Sq,HQ,dh) k,v:(B,Sk,HKV,dh) -> (B,Sq,HQ,dh). GQA by head
+    grouping. With ``return_lse`` also the rows' log-sum-exp of the masked,
+    scaled scores, (B,HQ,Sq) float32 (+inf for a row that sees no key, as
+    the kernel writes it): the plain version of the forward kernel's
+    ``lse`` output."""
     B, Sq, HQ, dh = q.shape
     Sk, HKV = k.shape[1], k.shape[2]
     G = HQ // HKV
@@ -44,7 +49,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), v)
-    return out.reshape(B, Sq, HQ, dh)
+    out = out.reshape(B, Sq, HQ, dh)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, HQ, Sq)
+    return out, lse.masked_fill(lse == float("-inf"), float("inf"))
 
 
 def flash_attention_bwd_ref(q, k, v, do, *, causal: bool = True,

@@ -388,11 +388,14 @@ def test_cuda_launch_error_raises_not_falls_back(cuda, monkeypatch):
 def test_cuda_flash_backward_matches_plain(cuda, dtype, monkeypatch):
     """``flash_attention_bwd`` against the plain backward on the same
     values in float32 (max |d| within 1e-4 / 2e-2 of the largest |grad|:
-    fp32 sums in another order; bf16 rounds its outputs once), two runs
-    bit-identical, at a window with odd dh and G 2, 300 positions at dh
-    128 and G 4, and S 1; through the ``FlashAttention`` Function the same
-    gradients without the plain version consulted; dh above 128 raises
-    naming the limit; a serving wrapper refuses a grad-requiring input."""
+    fp32 sums in another order; bf16 rounds P, dS and its outputs), two
+    runs bit-identical, at a window with odd dh and G 2, 300 positions at
+    dh 128 and G 4, S 1, dh 80 with a window and dh 112 at G 3; the
+    forward's lse against the plain one (1e-4 / 2e-2 of max(1, |lse|)) and
+    its output bit-identical with the lse pointer null or set; through the
+    ``FlashAttention`` Function the same gradients without the plain
+    version consulted; a call without lse and dh above 128 raise; a
+    serving wrapper refuses a grad-requiring input."""
     dtype = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(1)
 
@@ -402,19 +405,29 @@ def test_cuda_flash_backward_matches_plain(cuda, dtype, monkeypatch):
     tol = _card_tol(dtype)
     for B, S, HQ, HKV, dh, window in ((1, 77, 6, 3, 33, 16),
                                       (2, 300, 16, 4, 128, 0),
-                                      (1, 1, 4, 2, 64, 0)):
+                                      (1, 1, 4, 2, 64, 0),
+                                      (2, 190, 8, 2, 80, 70),
+                                      (1, 129, 6, 2, 112, 0)):
         q, k, v, do = (rn(B, S, HQ, dh), rn(B, S, HKV, dh),
                        rn(B, S, HKV, dh), rn(B, S, HQ, dh))
         with torch.no_grad():
-            o = tfa.flash_attention(q, k, v, window=window)
-        got = tfa.flash_attention_bwd(q, k, v, o, do, window=window)
-        again = tfa.flash_attention_bwd(q, k, v, o, do, window=window)
+            o_serve = tfa.flash_attention(q, k, v, window=window)
+            o, lse = tfa.flash_attention_with_lse(q, k, v, window=window)
+        _, lse_want = tref.flash_attention_ref(
+            q.float(), k.float(), v.float(), window=window, return_lse=True)
+        assert torch.equal(o, o_serve)
+        assert float((lse - lse_want).abs().max()) <= tol * max(
+            1.0, float(lse_want.abs().max()))
+        got = tfa.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        again = tfa.flash_attention_bwd(q, k, v, o, do, lse, window=window)
         want = tref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                             do.float(), window=window)
         top = max(max(float(w.abs().max()) for w in want), 1.0)
         for a, b, w in zip(got, again, want):
             assert torch.equal(a, b) and a.dtype == dtype
             assert float((a.float() - w).abs().max()) <= tol * top
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        tfa.flash_attention_bwd(q, k, v, o, do, window=window)
     monkeypatch.setattr(tfa, "flash_attention_bwd_ref",
                         lambda *a, **k: pytest.fail("plain backward called"))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]

@@ -29,7 +29,8 @@ from repro_torch.core import (L0_EAGER, L1_BASE, L2_BYP, L3_NSS,  # noqa: E402
                               build_train_step, init_train_state)
 from repro_torch.data import DataConfig, Pipeline, stage  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_bwd_ref  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
+                                     flash_attention_ref)
 from repro_torch.models import ModelOptions as TOpts  # noqa: E402
 from repro_torch.models import loss_fn as tloss  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
@@ -317,6 +318,44 @@ def test_flash_bwd_ref_matches_jax_vjp(B_, S_, HQ, HKV, dh, window):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
                                    rtol=1e-4, err_msg=n)
         assert torch.equal(f, g), n
+
+
+@pytest.mark.parametrize("B_,S_,HQ,HKV,dh,window", [
+    FLASH_BWD_SWEEP[1], FLASH_BWD_SWEEP[3], FLASH_BWD_SWEEP[5]])
+def test_flash_lse_ref_matches_jax(B_, S_, HQ, HKV, dh, window):
+    """The forward's row log-sum-exp, plain (``flash_attention_ref(...,
+    return_lse=True)``, what the kernel's ``lse`` output is held to on the
+    card) against ``jax.nn.logsumexp`` over the masked, scaled scores, at
+    HKV 3 and two windows, within 1e-5 + 1e-5 relative; the forward's
+    output the same with and without it, through the wrapper too; the
+    ``FlashAttention`` Function's CPU backward bit for bit the plain one
+    with the lse given or not."""
+    rng = np.random.default_rng(S_ * 100 + dh)
+    q = rng.standard_normal((B_, S_, HQ, dh), np.float32)
+    k = rng.standard_normal((B_, S_, HKV, dh), np.float32)
+    v = rng.standard_normal((B_, S_, HKV, dh), np.float32)
+    do = rng.standard_normal((B_, S_, HQ, dh), np.float32)
+    G = HQ // HKV
+    s = jnp.einsum("bqhgd,bkhd->bhgqk", jnp.asarray(q).reshape(
+        B_, S_, HKV, G, dh), jnp.asarray(k)) / np.sqrt(dh)
+    i = np.arange(S_)
+    live = (i[:, None] >= i[None, :]) & ((i[:, None] - i[None, :] < window)
+                                         | (window == 0))
+    want = jax.nn.logsumexp(jnp.where(live, s, -jnp.inf), axis=-1)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = flash_attention_ref(tq, tk, tv, window=window,
+                                   return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want).reshape(
+        B_, HQ, S_), atol=1e-5, rtol=1e-5)
+    o2, lse2 = kfa.flash_attention_with_lse(tq, tk, tv, window=window)
+    assert torch.equal(out, flash_attention_ref(tq, tk, tv, window=window))
+    assert torch.equal(o2, out) and torch.equal(lse2, lse)
+    plain = flash_attention_bwd_ref(tq, tk, tv, tdo, window=window)
+    for with_lse in (kfa.flash_attention_bwd(tq, tk, tv, out, tdo, lse,
+                                             window=window),
+                     kfa.flash_attention_bwd(tq, tk, tv, out, tdo,
+                                             window=window)):
+        assert all(torch.equal(a, b) for a, b in zip(with_lse, plain))
 
 
 def test_flash_bwd_dispatches_on_the_device():

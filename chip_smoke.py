@@ -47,6 +47,9 @@
                                   # cases only
     python3 chip_smoke.py bwd-chunks  # the build, the backward's dkdv
                                   # chunk swept at its timed cases
+    python3 chip_smoke.py mesh    # the build, the kernels at the mesh's
+                                  # local shapes, the unsharded paths, the
+                                  # mesh phase
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -141,7 +144,9 @@ non-zero before the result line):
    library time null. The router also runs
    at jamba's shapes (N 4 and 32, D 4096, E 16, k 2).
 4. path — the main paths through their entry points, full-width
-   tinyllama-1.1b with the port's seeded init, ``nss_shortcut``, 8
+   tinyllama-1.1b cut to MAIN_BLOCKS (8) of its 22 layers (as in phases
+   5-9 and 12: the run stays inside its time limit) with the port's
+   seeded init, ``nss_shortcut``, 8
    requests each: slotted ``--load open`` and ``--load seq``; paged path A
    (``--kv paged --shared-prefix-len 16``, open load) and paged path B
    (``--kv paged --chunked --budget 48 --chunk-width 24``, open load);
@@ -229,8 +234,8 @@ non-zero before the result line):
    pinned and pageable copies of the same bytes); ``tier_profile_phase``
    (M1: W1's wall, busy and idle share against recompute under the same
    pool).
-9. the fleet, tinyllama-1.1b at full width and depth in fp32, after the
-   tier phases (``fleet_phase``): FL1 one replica == path A (and its
+9. the fleet, tinyllama-1.1b at full width (MAIN_BLOCKS layers) in fp32,
+   after the tier phases (``fleet_phase``): FL1 one replica == path A (and its
    utilization == the bare engine's); FL2 one prefill and one decode cell
    == path A, 8 handoffs, the prefill cell decoding nothing; FL3 FL2 over
    int8 blocks == the colocated chunked int8 engine, blocks 3.98x
@@ -284,12 +289,28 @@ non-zero before the result line):
    at lr 1e-3, every step's loss finite and the last below the first,
    flash and its backward 22 launches a step; TR2
    (``train_compare_phase``): the kernel path against the plain path
-   over 22 layers (step 1's loss, gradient norm and every parameter's
-   gradient; 4 steps' losses within 10 x lr), one step and one AdamW
-   update profiled; TR3 (``train_recovery_phase``): the driver cut to 2
-   layers, a failure injected at step 6, the losses bit-identical to the
-   clean run's. TR1-TR3 each run whatever an earlier one's gate says;
+   over MAIN_BLOCKS (8) layers (step 1's loss, gradient norm and every
+   parameter's gradient; 4 steps' losses within 10 x lr), one step and
+   one AdamW update profiled; TR3 (``train_recovery_phase``): the
+   driver cut to 2 layers, a failure injected at step 6, the losses
+   bit-identical to the clean run's. TR1-TR3 each run whatever an earlier one's gate says;
    the phase raises at its end if any failed.
+12. serving over a mesh, after the fleet (``mesh_phase``): full-width
+   tinyllama-1.1b in fp32 over 1x2 (tensor parallel: HQ 16, HKV 2 a
+   rank) and 2x1 (slots over data: 2 slot rows a rank), one spawn
+   (``repro_torch.launch.mesh.spawn``) a mesh, both ranks on the one
+   card over gloo; the slotted path and paths A and C (C at 1x2 only)
+   through ``run_engine`` in every rank; every request finished, every
+   kernel of each path launched on every rank, the KV bytes per shard
+   halved where the heads or the slot rows split, the streams at both
+   meshes equal to the unsharded paths' (1x2's path C, over int8 pools,
+   equal or parting only at near ties: ``mesh_phase``), 1x2's
+   teacher-forced kernel
+   path within 2e-3 of the unsharded kernel path over fp32 pools and
+   over int8 pools (each rank replaying its heads of the unsharded
+   run's K/V writes). The kernel phase
+   holds rows 1-6b at the mesh's local shapes (labels ``mesh``). Two
+   ranks sharing a card measure correctness, not tensor-parallel speed.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -316,8 +337,12 @@ MEM_BPS = 3.35e12                       # H100 SXM HBM3
 PEAK_OPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 
-# the main path: full-width tinyllama-1.1b, 4 slots, prompt 32, gen 32
+# the main path: full-width tinyllama-1.1b, 4 slots, prompt 32, gen 32;
+# its serving phases (paths, modes, tier, fleet, mesh) and TR2 cut it to
+# MAIN_BLOCKS of its 22 layers so that the whole run stays well inside its
+# time limit (each engine run's host time grows with the depth)
 ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
+MAIN_BLOCKS = 8
 # the MoE path: full-width moonshot-v1-16b-a3b in bf16, the same traffic
 MOE_ARCH = "moonshot-v1-16b-a3b"
 # the RWKV path: full-width rwkv6-7b in fp32, the same traffic
@@ -354,6 +379,14 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
+
+
+def main_config():
+    """The main path's config: full-width tinyllama-1.1b, MAIN_BLOCKS
+    layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), num_blocks=MAIN_BLOCKS)
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 5) -> float:
@@ -841,6 +874,28 @@ def make_cases(gen, dtype):
                        VERIFY_STARTS)
     paged_prefill_quant_case(VERIFY_LABEL, "int8", SLOTS, SPEC_W, NB, BS, 32,
                              4, 64, VERIFY_STARTS)
+    # the mesh phase's local shapes (tensor parallelism over 2 ranks: HQ
+    # 16, HKV 2 a rank; slots over 2 data ranks: 2 slots a rank)
+    rms_case("mesh: decode rows (4,1,2048)", (SLOTS, 1, 2048))
+    flash_case("mesh 1x2: prefill q (1,32,16,64) HKV=2", 1, PROMPT, 16, 2,
+               64)
+    slot_case("mesh 1x2: decode q (4,16,64) kv (4,72,2,64)", SLOTS, MAX_LEN,
+              16, 2, 64, (PROMPT + 1, PROMPT + 17, PROMPT + 32, 5))
+    slot_case("mesh 2x1: decode q (2,32,64) kv (2,72,4,64)", 2, MAX_LEN, 32,
+              4, 64, (PROMPT + 1, PROMPT + 17))
+    paged_decode_case("mesh 1x2: paged decode q (4,16,64) pools "
+                      "(22,16,2,64)", SLOTS, NB, BS, 16, 2, 64,
+                      (32, 48, 71, 0))
+    paged_prefill_case("mesh 1x2: paged prefill q (4,24,16,64) starts "
+                       "(0,8,24,40)", SLOTS, CHUNK_W, NB, BS, 16, 2, 64,
+                       (0, 8, 24, 40))
+    for kvd in ("int8", "fp8"):
+        paged_decode_quant_case("mesh 1x2: paged decode q (4,16,64) pools "
+                                "(22,16,2,64)", kvd, SLOTS, NB, BS, 16, 2,
+                                64, (32, 48, 71, 0))
+        paged_prefill_quant_case("mesh 1x2: paged prefill q (4,24,16,64) "
+                                 "starts (0,8,24,40)", kvd, SLOTS, CHUNK_W,
+                                 NB, BS, 16, 2, 64, (0, 8, 24, 40))
     # the MoE path's shapes: moonshot-v1-16b-a3b, D 2048, HQ = HKV = 16,
     # dh 128 (G = 1), the same slots, prompt and cache length; the norm
     # scales in bf16, as all of its parameters
@@ -1546,9 +1601,10 @@ def path_phase():
     from repro_torch.launch.serve import run_engine, run_server
 
     ops.reset_launch_counts()
-    rep = run_engine(ARCH, PRESET, n_slots=SLOTS, prompt_len=PROMPT,
-                     gen_len=GEN, requests=REQUESTS, load="open",
-                     smoke=False, device="cuda")
+    with last_streams({}) as slot_out:
+        rep = run_engine(main_config(), PRESET, n_slots=SLOTS,
+                         prompt_len=PROMPT, gen_len=GEN, requests=REQUESTS,
+                         load="open", smoke=False, device="cuda")
     open_counts = ops.launch_counts()
     log("serve report (open):", json.dumps(rep))
     log("launches (open):", open_counts)
@@ -1558,8 +1614,9 @@ def path_phase():
                              f"{REQUESTS} x {GEN}")
 
     ops.reset_launch_counts()
-    seq = run_server(ARCH, PRESET, batch=1, prompt_len=PROMPT, gen_len=GEN,
-                     requests=REQUESTS, smoke=False, device="cuda")
+    seq = run_server(main_config(), PRESET, batch=1, prompt_len=PROMPT,
+                     gen_len=GEN, requests=REQUESTS, smoke=False,
+                     device="cuda")
     seq_counts = ops.launch_counts()
     log("serve report (seq):", json.dumps(seq))
     log("launches (seq):", seq_counts)
@@ -1595,7 +1652,7 @@ def path_phase():
              unquantized)):
         ops.reset_launch_counts()
         with last_streams({}) as out:
-            rep_p = run_engine(ARCH, PRESET, n_slots=SLOTS,
+            rep_p = run_engine(main_config(), PRESET, n_slots=SLOTS,
                                prompt_len=PROMPT, gen_len=GEN,
                                requests=REQUESTS, load="open", smoke=False,
                                device="cuda", kv="paged", block_size=BS,
@@ -1629,29 +1686,7 @@ def path_phase():
             raise AssertionError(f"paged path {name}: blocks only "
                                  f"{ratio:.3f}x smaller than path A's")
         paged[name] = (rep_p, counts, out["streams"])
-    return rep, seq, open_counts, paged
-
-
-@contextlib.contextmanager
-def paged_writes(log: list, replay: bool):
-    """The paged attention layers' K/V writes, in call order: recorded into
-    ``log``, or (``replay``) replaced by its entries, so a second run
-    writes exactly what the first one wrote."""
-    from repro_torch.models import layers
-    orig, recorded = layers._paged_write, iter(log)
-
-    def write(cache, blk, off, k, v):
-        if replay:
-            k, v = next(recorded)
-        else:
-            log.append((k, v))
-        return orig(cache, blk, off, k, v)
-
-    layers._paged_write = write
-    try:
-        yield
-    finally:
-        layers._paged_write = orig
+    return rep, seq, open_counts, paged, slot_out["streams"]
 
 
 def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
@@ -1659,8 +1694,8 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
 
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import L3_NSS, preset
+    from repro_torch.launch.mesh_cases import paged_writes
     from repro_torch.models import (ModelOptions, decode_step,
                                     decode_step_paged, decode_step_slots,
                                     init_params, prefill,
@@ -1669,7 +1704,7 @@ def teacher_forced_phase(steps: int = 8, tol: float = 2e-3):
     from repro_torch.serve import ServeEngine, slotify, synthetic_requests
     from repro_torch.serve.paging import init_paged_cache, scatter_kv
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, "cuda")
     plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
@@ -1868,12 +1903,11 @@ def profile_phase():
     import dataclasses
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import preset
     from repro_torch.models import ModelOptions, init_params
     from repro_torch.serve import ServeEngine, synthetic_requests
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
@@ -2014,12 +2048,11 @@ def modes_phase():
     import dataclasses
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import SamplingConfig, preset, prng
     from repro_torch.models import ModelOptions, init_params
     from repro_torch.serve import synthetic_requests
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
@@ -2120,14 +2153,14 @@ def verify_teacher_forced_phase(tol: float = 2e-3):
     writes, ``paged_writes``: an ulp of difference in K can move a code).
     ``build_verify_step``'s emitted counts on both paths are printed."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import build_verify_step, preset
+    from repro_torch.launch.mesh_cases import paged_writes
     from repro_torch.models import (ModelOptions, decode_step, init_params,
                                     prefill, serve_verify_step_paged)
     from repro_torch.models.transformer import clone_cache
     from repro_torch.serve.paging import init_paged_cache, scatter_kv
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     plain = ModelOptions(attn_impl="ref", dtype=torch.float32)
@@ -2207,12 +2240,11 @@ def modes_profile_phase():
     import dataclasses
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import SamplingConfig, preset
     from repro_torch.models import ModelOptions, init_params
     from repro_torch.serve import ServeEngine, synthetic_requests
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
@@ -2344,12 +2376,11 @@ def tier_phase():
 
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import SamplingConfig, preset
     from repro_torch.models import ModelOptions, init_params
     from repro_torch.serve import Request, synthetic_requests
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
@@ -2696,12 +2727,11 @@ def tier_profile_phase():
     import dataclasses
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import preset
     from repro_torch.models import ModelOptions, init_params
     from repro_torch.serve import ServeEngine, synthetic_requests
 
-    cfg = get_config(ARCH)
+    cfg = main_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
@@ -2898,7 +2928,6 @@ def fleet_phase(base=None):
 
     import torch
     import repro_torch.serve as rs
-    from repro_torch.configs import get_config
     from repro_torch.core import preset
     from repro_torch.launch.fleet import run_fleet_engine
     from repro_torch.models import ModelOptions, init_params
@@ -2906,7 +2935,7 @@ def fleet_phase(base=None):
     from repro_torch.serve.telemetry import load_trace, validate_events
 
     t_start = time.time()
-    cfg = get_config(ARCH)
+    cfg = main_config()
     lk = dataclasses.replace(preset(PRESET), decode_steps=GEN)
     opts = lk.model_options(ModelOptions(attn_impl="ref",
                                          dtype=torch.float32))
@@ -2967,9 +2996,10 @@ def fleet_phase(base=None):
             torch.cuda.reset_peak_memory_stats()
             m0 = torch.cuda.memory_allocated()
             ops.reset_launch_counts()
-            rep5 = run_fleet_engine(ARCH, PRESET, replicas=4, disaggregate=2,
-                                    n_slots=SLOTS, prompt_len=PROMPT,
-                                    gen_len=GEN, requests=REQUESTS,
+            rep5 = run_fleet_engine(main_config(), PRESET, replicas=4,
+                                    disaggregate=2, n_slots=SLOTS,
+                                    prompt_len=PROMPT, gen_len=GEN,
+                                    requests=REQUESTS,
                                     load="open", smoke=False, device="cuda",
                                     block_size=BS, shared_prefix_len=SHARED,
                                     trace=path)
@@ -3166,6 +3196,249 @@ def fleet_phase(base=None):
 # ---------------------------------------------------------------------------
 # the MoE path: full-width, full-depth moonshot-v1-16b-a3b in bf16
 # ---------------------------------------------------------------------------
+
+# the mesh phase: tinyllama-1.1b at full width over 1x2 (tensor parallel)
+# and 2x1 (slots over data), both ranks of each on the one card over gloo
+MESH_PATHS = {"1,2": ("slotted", "A", "C"), "2,1": ("slotted", "A")}
+#: the mesh phase's int8 teacher-forced case without the replayed writes
+#: (``flip`` against the unsharded run, ``fmt`` against its fp32 pools)
+FLIP_CASE = "paged int8, own writes"
+
+
+def _mesh_rank(mesh, paths, teacher):
+    """One rank of ``mesh_phase`` (``spawn``'s entry, in a process of its
+    own): each path through ``serve_rank`` (``run_engine`` over this rank's
+    shard), then the teacher-forced cases (``mesh_cases``)."""
+    from repro_torch.launch import mesh_cases
+    from repro_torch.launch.serve import serve_rank
+    out = {"paths": {}, "teacher": {}, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    for name, kw in paths:
+        t = time.time()
+        with last_streams({}) as got:
+            res = serve_rank(mesh, kw)
+        out["paths"][name] = dict(res, streams=got["streams"],
+                                  seconds=time.time() - t)
+    for case in teacher:
+        out["teacher"][case["name"]] = mesh_cases.run_case(case, mesh,
+                                                           smoke=False)
+    return out
+
+
+def mesh_phase(base=None, tol: float = 2e-3):
+    """Serving over a (data, model) mesh, full-width tinyllama-1.1b in fp32,
+    ``nss_shortcut``, the main paths' traffic (4 slots, prompt 32, gen 32,
+    max_len 72, 8 open-load requests). One spawn a mesh
+    (``repro_torch.launch.mesh.spawn``), both ranks on the one card over
+    gloo: two ranks sharing a card measure correctness, not tensor-parallel
+    speed.
+
+    1x2  Megatron tensor parallelism (HQ 16, HKV 2 a rank): the slotted
+         path, paged path A and paged path C (int8 blocks) through
+         ``run_engine``, the streams equal to the unsharded paths'; the
+         teacher-forced kernel path (prefill, 8 decode steps slotted and
+         paged, a 16-token paged chunk pass) within ``tol`` of the
+         unsharded kernel path on every rank, over fp32 pools and over
+         int8 pools (there each rank replays its heads of the unsharded
+         run's K/V writes, so its codes and (L, HKV_local) scales are the
+         unsharded pool's heads: a code moves a whole step on an ulp).
+         Path C's streams may part where two logits nearly tie: each rank
+         writes codes from K/V that differ from the unsharded run's by
+         fp32 ulps (the model axis sums its partials in another order),
+         and a code moves a whole step on an ulp. So at each request's
+         first differing token the unsharded kernel path, teacher-forced
+         over the request's prompt and the common history, must hold the
+         two tokens' logits within twice ``fmt``, the largest |dlogit|
+         between its int8 and fp32 pools on the teacher-forced case: the
+         teacher path reads the prompt's K/V as the engine's does not
+         (the engine's later admissions read the shared prefix's codes),
+         a difference of the int8 format's size. Printed beside it:
+         ``flip``, the largest |dlogit| between the 1x2 and unsharded
+         kernel paths over int8 pools that each write their own K/V.
+    2x1  slots over the data axis: the slotted path (2 slot rows a rank)
+         and paged path A (the pools replicated, as JAX's spec has them):
+         the streams equal the unsharded paths'.
+
+    Gated on every rank: every request finished, every kernel of its path
+    launched (and no paged kernel of the other storage type), the KV bytes
+    per shard half the unsharded path's where the heads or the slot rows
+    split (equal for 2x1 paged). Printed: tokens/s, per-rank peak memory,
+    seconds. ``base`` maps "slotted", "A", "C" to (report, streams) of the
+    path phase; without it (``chip_smoke.py mesh``) they are served here.
+    Returns the launch counts by (mesh, path, rank)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import mesh_cases
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import run_engine
+
+    t_start = time.time()
+    common = dict(n_slots=SLOTS, prompt_len=PROMPT, gen_len=GEN,
+                  requests=REQUESTS, load="open", smoke=False, device="cuda")
+    path_kw = {"slotted": {},
+               "A": dict(kv="paged", block_size=BS,
+                         shared_prefix_len=SHARED),
+               "C": dict(kv="paged", block_size=BS, shared_prefix_len=SHARED,
+                         kv_dtype="int8")}
+    unquantized = ("paged_decode", "paged_prefill")
+    quantized = ("paged_decode_quant", "paged_prefill_quant")
+    want = {"slotted": ("rmsnorm", "flash_attention", "slot_decode"),
+            "A": ("paged_decode", "flash_attention", "rmsnorm"),
+            "C": ("paged_decode_quant", "flash_attention", "rmsnorm")}
+    never = {"slotted": unquantized + quantized, "A": quantized,
+             "C": unquantized}
+    if base is None:
+        base = {}
+        for name, kw in path_kw.items():
+            with last_streams({}) as out:
+                rep = run_engine(main_config(), PRESET, **common, **kw)
+            base[name] = (rep, out["streams"])
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, 32000, PROMPT).tolist()
+    feed = rng.integers(0, 32000, 8).tolist()
+    # the int8 case records the unsharded run's K/V writes and the ranks
+    # replay their heads of them (``mesh_cases.paged_writes``): the pools
+    # then hold the same codes and per-(block, head) scales, and only the
+    # arithmetic differs, as in ``teacher_forced_phase``
+    # FLIP_CASE (no replay) measures ``flip`` and ``fmt`` (docstring)
+    teacher, ref = [], {}
+    for n, b, kvd in (("slotted", "slotted", "bf16"),
+                      ("paged", "paged", "bf16"),
+                      ("paged int8", "paged", "int8"),
+                      (FLIP_CASE, "paged", "int8")):
+        c = dict(name=n, kind="teacher", preset=PRESET, prompt=prompt,
+                 overrides=(("num_blocks", MAIN_BLOCKS),),
+                 feed=feed, backend=b, max_len=MAX_LEN, block_size=BS,
+                 kv_dtype=kvd)
+        if n == "paged int8":
+            c["kv_writes"] = "record"
+        res = mesh_cases.run_case(c, None, smoke=False, device="cuda")
+        ref[n] = res["logits"]
+        teacher.append(dict(c, kv_writes=res["kv_writes"])
+                       if "kv_writes" in res else c)
+    mesh_cases._MODELS.clear()
+    _release()
+    fmt = float(np.abs(ref[FLIP_CASE] - ref["paged"]).max())
+    log(f"mesh: unsharded references done at {time.time() - t_start:.1f} s;"
+        f" int8 against fp32 pools (fmt): max |dlogit| {fmt:.3e}")
+
+    counts = {}
+    for spec, names in MESH_PATHS.items():
+        t0 = time.time()
+        mname = spec.replace(",", "x")
+        paths = [(n, dict(arch=main_config(), preset_name=PRESET, **common,
+                          **path_kw[n])) for n in names]
+        ranks = spawn(_mesh_rank, spec, "cuda",
+                      (paths, teacher if spec == "1,2" else []),
+                      deadline_s=420)
+        log(f"mesh {mname}: {len(ranks)} ranks, backend "
+            f"{ranks[0]['backend']}, devices "
+            f"{[r['device'] for r in ranks]}, spawn {time.time() - t0:.1f} s")
+        flip = None
+        for name in ranks[0]["teacher"]:
+            worst = max(float(np.abs(rank["teacher"][name]["logits"]
+                                     - ref[name]).max()) for rank in ranks)
+            if name == FLIP_CASE:
+                flip = worst
+                log(f"mesh {mname} teacher-forced ({name}: each path writing "
+                    f"its own K/V) vs unsharded: max |dlogit| {worst:.3e} "
+                    "(flip, not gated)")
+                continue
+            log(f"mesh {mname} teacher-forced ({name}, kernels, prefill + 8 "
+                f"decode steps + a chunk pass"
+                + (", the unsharded K/V writes replayed" if "int8" in name
+                   else "")
+                + f") vs unsharded: max |dlogit| {worst:.3e} (tolerance "
+                f"{tol})")
+            if not worst <= tol:
+                raise AssertionError(f"mesh {mname} teacher-forced {name}: "
+                                     f"logits differ by {worst}")
+        for n in names:
+            base_rep, base_streams = base[n]
+            for r, rank in enumerate(ranks):
+                got = rank["paths"][n]
+                rep = got["report"]
+                c = counts[f"{mname} {n} rank {r}"] = got["launches"]
+                if (rep["requests"] != REQUESTS
+                        or rep["total_tokens"] != REQUESTS * GEN):
+                    raise AssertionError(
+                        f"mesh {mname} {n} rank {r}: {rep['requests']} "
+                        f"requests, {rep['total_tokens']} tokens")
+                for k in want[n]:
+                    if c.get(k, 0) < 1:
+                        raise AssertionError(f"mesh {mname} {n} rank {r}: "
+                                             f"kernel {k} never launched")
+                for k in never[n]:
+                    if c.get(k, 0):
+                        raise AssertionError(f"mesh {mname} {n} rank {r} "
+                                             f"launched {k}")
+                ratio = rep["kv_bytes_per_shard"] / base_rep[
+                    "kv_bytes_per_shard"]
+                split = spec == "1,2" or n == "slotted"
+                if (ratio > 0.51) if split else (ratio != 1.0):
+                    raise AssertionError(
+                        f"mesh {mname} {n} rank {r}: KV bytes per shard "
+                        f"{rep['kv_bytes_per_shard']}, unsharded "
+                        f"{base_rep['kv_bytes_per_shard']}")
+                log(f"mesh {mname} {n} rank {r}: launches {c}; KV bytes per "
+                    f"shard {rep['kv_bytes_per_shard']} (unsharded "
+                    f"{base_rep['kv_bytes_per_shard']}, ratio {ratio:.6f}); "
+                    f"peak memory {got['peak_memory_bytes'] / 1e9:.3f} GB; "
+                    f"tokens/s {rep['tokens_per_s']:.6g}; "
+                    f"{got['seconds']:.1f} s")
+            streams = ranks[0]["paths"][n]["streams"]
+            agree = _agreement(streams, base_streams)
+            log(f"mesh {mname} {n}: streams vs the unsharded path: {agree}")
+            if streams == base_streams:
+                continue
+            if n != "C" or flip is None:
+                raise AssertionError(f"mesh {mname} {n}: streams differ from "
+                                     f"the unsharded path: {agree}")
+            _near_ties(f"mesh {mname} {n}", streams, base_streams,
+                       dict(path_kw[n], **common), 2 * fmt)
+        log(f"mesh {mname} done at {time.time() - t_start:.1f} s")
+    log(f"mesh phase: {time.time() - t_start:.1f} s (two ranks sharing one "
+        "card over gloo measure correctness, not tensor-parallel speed)")
+    return counts
+
+
+def _near_ties(label, got, want, kw, bound):
+    """Where the streams ``got`` part from ``want`` (path C's, ``kw`` its
+    ``run_engine`` arguments): at each request's first differing token,
+    the unsharded kernel path over int8 pools, teacher-forced over the
+    request's prompt and the common history, gives the logits of both
+    tokens; raises where their gap exceeds ``bound``. Prints each gap."""
+    from repro_torch.launch import mesh_cases
+    from repro_torch.serve import synthetic_requests
+    reqs = synthetic_requests(kw["requests"], kw["prompt_len"],
+                              kw["gen_len"], main_config().vocab_size,
+                              seed=0, rate=25.0,
+                              shared_prefix_len=kw["shared_prefix_len"])
+    prompts = {r.rid: r.prompt.tolist() for r in reqs}
+    gaps = []
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        case = dict(name="tie", kind="teacher", preset=PRESET,
+                    prompt=prompts[rid], feed=b[:j], backend="paged",
+                    kv_dtype=kw["kv_dtype"], max_len=MAX_LEN, block_size=BS,
+                    overrides=(("num_blocks", MAIN_BLOCKS),))
+        lg = mesh_cases.run_case(case, None, smoke=False,
+                                 device="cuda")["logits"][j]
+        gap = float(lg[b[j]] - lg[a[j]])
+        gaps.append(abs(gap))
+        log(f"{label}: request {rid} parts at token {j} of {len(b)} "
+            f"(unsharded {b[j]}, mesh {a[j]}): logit gap {gap:.3e} on the "
+            f"unsharded kernel path (top logit {float(lg.max()):.4g}; bound "
+            f"{bound:.3e})")
+    mesh_cases._MODELS.clear()
+    _release()
+    if not gaps or max(gaps) > bound:
+        raise AssertionError(f"{label}: streams part at gaps {gaps}, bound "
+                             f"{bound}")
+
 
 def _release():
     """Free what earlier phases left to the collector and the caching
@@ -4177,7 +4450,7 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = (
 #: lr: AdamW's first steps move a parameter by about lr x sign(g), and a
 #: gradient of rounding-noise size may take the other sign on the other
 #: path
-TR2_LAYERS, TR2_STEPS, TR2_RUN = 22, 4, 8
+TR2_LAYERS, TR2_STEPS, TR2_RUN = MAIN_BLOCKS, 4, 8
 TR2_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad": 1e-3,
            "losses": 10 * TRAIN_LR}
 #: TR3: full width cut to 2 layers (a checkpoint of 2.6 GB: params and
@@ -4979,6 +5252,10 @@ def main() -> int:
     if sys.argv[1:] == ["train"]:
         phase(train_phases, gen)
         return 0
+    if sys.argv[1:] == ["mesh"]:
+        phase(kernel_phase, gen, "mesh")
+        phase(mesh_phase)
+        return 0
     if sys.argv[1:] == ["bwd"]:
         phase(flash_bwd_phase, gen)
         return 0
@@ -4994,7 +5271,7 @@ def main() -> int:
     records = phase(kernel_phase, gen)
     bwd_rows = phase(flash_bwd_phase, gen)
     phase(quant_insert_phase)
-    _, _, counts, paged = phase(path_phase)
+    rep, _, counts, paged, slot_streams = phase(path_phase)
     phase(teacher_forced_phase)
     phase(profile_phase)
     phase(prng_phase)
@@ -5005,6 +5282,9 @@ def main() -> int:
     phase(tier_transfer_phase)
     phase(tier_profile_phase)
     fleet_counts = phase(fleet_phase, {n: paged[n][2] for n in "AC"})
+    mesh_counts = phase(mesh_phase, {
+        "slotted": (rep, slot_streams),
+        **{n: (paged[n][0], paged[n][2]) for n in "AC"}})
     route_rows = phase(route_phase, gen)
     rwkv_rows = phase(rwkv_scan_phase, gen)
     mamba_rows = phase(mamba_scan_phase, gen)
@@ -5030,6 +5310,7 @@ def main() -> int:
                **{f"tier {n}": c for n, c in tier_counts.items()},
                **{f"fleet {n}": c for n, c in fleet_counts.items()},
                **{f"zoo {n}": c for n, c in zoo_counts.items()},
+               **{f"mesh {n}": c for n, c in mesh_counts.items()},
                "train TR1": train_counts}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",

@@ -8,7 +8,7 @@ stored as its uint16 bits.
 
 ``restore`` puts the arrays on the device of the state it is given, in
 that state's dtypes. Elastic restore onto another mesh waits for
-multi-device (ROADMAP module 13).
+training over a mesh (ROADMAP entry 9b).
 """
 from __future__ import annotations
 

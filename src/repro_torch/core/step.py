@@ -12,8 +12,14 @@ runs ``decode_steps`` microsteps (training: ``nss_steps`` optimizer
 steps) back to back without a host sync and keeps their outputs on the
 device; at L2+ it updates the cache (training: the parameters and
 moments) in place; at L0/L1 it leaves the caller's cache or state intact
-and returns a new one. The sharded training step waits for multi-device
-(ROADMAP module 13).
+and returns a new one.
+
+Under a serving mesh each rank runs the same programs on its shard: the
+model layers issue their tensor-parallel collectives
+(``ModelOptions.tp``), and the KV backends merge the slots and broadcast
+the host-built operands. As in JAX (``step.py:358-359``) a mesh needs a
+linked level: L0 with a mesh raises ``ValueError``. The sharded training
+step waits for ROADMAP entry 9b.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch
 from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
-from repro_torch.core.linkage import L3_NSS, LinkageConfig
+from repro_torch.core.linkage import L0_EAGER, L3_NSS, LinkageConfig
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import decode_step_paged as model_decode_paged
@@ -155,9 +161,17 @@ def build_train_step(cfg: ArchConfig, opts: ModelOptions,
 
 def build_sharded_train_step(*args, **kwargs):
     """JAX's ``build_sharded_train_step`` (``step.py:128-175``) shards the
-    state over a mesh; the port has no mesh yet."""
-    raise NotImplementedError("the sharded training step needs a mesh: "
-                              "ROADMAP module item 13 (multi-device)")
+    training state over a mesh; the port's mesh serves only so far."""
+    raise NotImplementedError("the sharded training step is not ported "
+                              "yet: ROADMAP entry 9b (training over a mesh)")
+
+
+def check_mesh_linkage(linkage: LinkageConfig, sharded: bool) -> None:
+    """Serving over a mesh (``sharded``: a rank's program has ``opts.tp``
+    set, an engine or a launcher has a mesh) needs a linked level, as in
+    JAX, whose eager L0 cannot carry shardings."""
+    if sharded and linkage.level == L0_EAGER:
+        raise ValueError("mesh serving needs a jitted linkage level")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,6 +311,7 @@ def build_slot_decode_step(cfg: ArchConfig, opts: ModelOptions,
     """(params, slot_cache, tokens (B,), keys (B,2)) -> (slot_cache,
     tokens (B, K), keys)."""
     linkage.validate()
+    check_mesh_linkage(linkage, opts.tp is not None)
     return make_slot_decode_fn(cfg, opts, linkage, sampling)
 
 
@@ -329,6 +344,7 @@ def build_paged_decode_step(cfg: ArchConfig, opts: ModelOptions,
     """(params, paged_cache, tokens (B,), keys (B,2), tables (B, nb)) ->
     (paged_cache, tokens (B, K), keys)."""
     linkage.validate()
+    check_mesh_linkage(linkage, opts.tp is not None)
     return make_paged_decode_fn(cfg, opts, linkage, max_len, sampling)
 
 
@@ -370,6 +386,7 @@ def build_serve_step(cfg: ArchConfig, opts: ModelOptions,
     only (rows admitted this step drop their stale ``slot_pos`` marks).
     """
     linkage.validate()
+    check_mesh_linkage(linkage, opts.tp is not None)
     sample = make_sampler(sampling)
     K = linkage.decode_steps if linkage.level == L3_NSS else 1
     paged = _kv_kind(kv_kind)
@@ -443,6 +460,7 @@ def build_verify_step(cfg: ArchConfig, opts: ModelOptions,
     with vmask False carry clen 0, write nothing and emit nothing.
     """
     linkage.validate()
+    check_mesh_linkage(linkage, opts.tp is not None)
     sample = make_sampler(sampling)
     paged = _kv_kind(kv_kind)
     _check_pageable(cfg, "serve_verify_step_paged" if paged

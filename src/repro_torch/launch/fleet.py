@@ -17,8 +17,9 @@ counters summed across replicas, the handoff and shared-store totals, and
 the per-replica breakdown under ``per_replica``. Runs on ``cuda`` unless
 ``--device cpu`` is given; the CLI serves the smoke model, as the JAX
 launcher does (``run_fleet_engine(..., smoke=False)`` serves the published
-widths). ``--mesh`` and ``--scale`` raise ``NotImplementedError`` naming
-their ROADMAP items (13, 14).
+widths); ``--scale S`` widens it as the serve launcher does. A
+per-replica ``--mesh`` raises ``NotImplementedError`` naming ROADMAP entry
+9c.
 """
 from __future__ import annotations
 
@@ -53,12 +54,14 @@ def run_fleet_engine(arch, preset_name: str, *, replicas: int = 2,
                                    synthetic_requests)
     from repro_torch.serve.engine import _not_in_slice
 
-    check_slice(kv=kv, mesh=mesh, kv_dtype=kv_dtype)
-    if scale != 1.0:
-        raise _not_in_slice("the --scale width option", "14")
+    from repro_torch.launch.mesh import parse_mesh_spec
+    check_slice(kv=kv, kv_dtype=kv_dtype)
+    if parse_mesh_spec(mesh) is not None:
+        raise _not_in_slice("a per-replica --mesh", "9c")
     if requests < 1:
         raise ValueError("need --requests >= 1")
-    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
+    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
+                                   scale=scale, seed=seed,
                                    gen_len=gen_len,
                                    decode_steps=decode_steps, device=device,
                                    dtype=dtype)
@@ -172,7 +175,7 @@ def main(argv=None) -> int:
                         "cross-replica prefix store)")
     p.add_argument("--mesh", default="",
                    help="per-replica serving mesh 'data,model' (ROADMAP "
-                        "item 13: raises unless empty)")
+                        "entry 9c: raises unless single-device)")
     p.add_argument("--rate", type=float, default=25.0)
     p.add_argument("--concurrency", type=int, default=0,
                    help="closed-loop outstanding requests "
@@ -187,7 +190,7 @@ def main(argv=None) -> int:
     p.add_argument("--gen-len", type=int, default=32)
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--scale", type=float, default=1.0,
-                   help="width scale (ROADMAP item 14: raises unless 1)")
+                   help="width multiplier on the smoke config")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--report-json", default=None)
     args = p.parse_args(argv)

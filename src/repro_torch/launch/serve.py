@@ -48,6 +48,9 @@ Two paths share one model/linkage setup:
       python -m repro_torch.launch.serve --arch jamba-v0.1-52b  # Mamba
       python -m repro_torch.launch.serve --arch qwen2-7b --kv paged
       python -m repro_torch.launch.serve --arch h2o-danube-1.8b  # SWA
+      python -m repro_torch.launch.serve --mesh 1,2    # 2 ranks, Megatron
+                                                       # tensor parallel
+      python -m repro_torch.launch.serve --mesh 2,1 --device cpu
 
   sequential        one request batch at a time (``--load seq``, also
                     ``run_server``): the baseline the engine's continuous
@@ -73,10 +76,23 @@ block chain. musicgen-medium (embedding inputs) and llama-3.2-vision-11b
 (cross-attention over a context no request carries) run at model level
 only: both ``run_engine`` and ``run_server`` raise ``ValueError`` for
 them, as JAX's engine does.
-Meshes raise ``NotImplementedError`` naming their ROADMAP item (13);
 ``--kv-dtype int8|fp8`` or ``--prefix-cache`` without ``--kv paged``
 raise ``ValueError``, as in JAX. ``--load seq`` decodes greedily, as
-JAX's does.
+JAX's does. ``--scale S`` widens the smoke model as JAX's launcher does
+(``d_model``, ``d_ff`` and the head dim times S).
+
+``--mesh data,model`` serves over a mesh of ``data x model`` ranks
+(``repro_torch.launch.mesh.spawn``), each a process on ``--device``:
+Megatron tensor parallelism over "model" (every rank holds a slice of
+every weight and its KV heads), slots over "data" on the slotted backend.
+The ranks take gloo when they share a card (with a single card every
+rank runs on ``cuda:0``) or run on the CPU, NCCL when each owns a card.
+Rank 0 prints the report (its ``ranks`` list holds every rank's KV bytes,
+peak device memory and kernel launches) and writes the trace, metrics and
+prefix cache. Two ranks sharing one card measure correctness, not
+tensor-parallel speed. MoE, Mamba and RWKV models at a model axis > 1
+raise ``NotImplementedError`` (ROADMAP entry 9c) before any rank starts,
+and L0 (``--preset linux``) with a mesh raises ``ValueError``, as in JAX.
 """
 from __future__ import annotations
 
@@ -99,13 +115,25 @@ def _dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-def _setup(arch, preset_name: str, *, smoke: bool = True, seed: int = 0,
-           gen_len: int = 64, decode_steps: int = 0, device="cuda",
-           dtype="fp32"):
+def scaled_config(cfg, scale: float):
+    """The smoke config widened by ``scale`` (JAX ``launch/serve.py:57-62``):
+    ``d_model`` and ``d_ff`` times ``scale``, the head dim following
+    ``d_model`` over the heads."""
+    if scale == 1.0:
+        return cfg
+    return dataclasses.replace(
+        cfg, d_model=int(cfg.d_model * scale), d_ff=int(cfg.d_ff * scale),
+        d_head=cfg.d_head if cfg.n_heads == 0
+        else int(cfg.d_model * scale) // cfg.n_heads)
+
+
+def _setup(arch, preset_name: str, *, smoke: bool = True, scale: float = 1.0,
+           seed: int = 0, gen_len: int = 64, decode_steps: int = 0,
+           device="cuda", dtype="fp32"):
     """Shared model/linkage construction for both serving paths: ``arch``
     a registered name or an ``ArchConfig`` (``smoke`` cuts either to its
-    smoke variant), weights from the port's own seeded init on ``device``,
-    activations and parameters in ``dtype``."""
+    smoke variant, widened by ``scale``), weights from the port's own
+    seeded init on ``device``, activations and parameters in ``dtype``."""
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core import L3_NSS, preset
@@ -114,7 +142,7 @@ def _setup(arch, preset_name: str, *, smoke: bool = True, seed: int = 0,
     dev = resolve_device(device)
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if smoke:
-        cfg = cfg.smoke()
+        cfg = scaled_config(cfg.smoke(), scale)
     lk = preset(preset_name)
     if lk.level == L3_NSS:
         k = decode_steps or min(lk.decode_steps, gen_len)
@@ -130,7 +158,8 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                prompt_len: int = 32, gen_len: int = 32, requests: int = 8,
                load: str = "open", rate: float = 25.0,
                concurrency: int = 0, decode_steps: int = 0,
-               smoke: bool = True, seed: int = 0, device="cuda",
+               smoke: bool = True, scale: float = 1.0, seed: int = 0,
+               device="cuda", mesh="",
                kv: str = "slotted", block_size: int = 16,
                num_blocks: int = 0, bucket_prompts: bool = False,
                temperature: float = 0.0, top_k: int = 0, eos_id: int = -1,
@@ -158,7 +187,13 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
     prints a one-line stats log every S seconds, ``profile_dir`` captures a
     ``torch.profiler`` trace around the first post-warmup steps. All empty
     by default: the engine then runs with the zero-cost NULL_TELEMETRY.
+
+    ``mesh`` ("data,model") serves over that many rank processes
+    (``serve_rank`` in each) and returns rank 0's report with every rank's
+    summary under ``ranks``; a ``Mesh`` (inside a rank) serves this rank's
+    shard.
     """
+    kw = dict(locals())
     import os
 
     from repro_torch.core import MetricWriter, SamplingConfig
@@ -171,16 +206,23 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
         # fail before the (possibly long) run, not at the save afterwards
         raise ValueError("--prefix-cache needs --kv paged (dense slot rows "
                          "have no prompt-keyed blocks to persist)")
+    if isinstance(mesh, str) or mesh is None:
+        from repro_torch.launch.mesh import parse_mesh_spec
+        if parse_mesh_spec(mesh) is not None:
+            return _spawn_engine(kw)
+        mesh = None                           # "" or "1,1": one device
+    lead = mesh is None or mesh.rank == 0     # the rank that reports
     sampling = SamplingConfig(temperature=temperature, top_k=top_k,
                               seed=seed)
-    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
-                                   gen_len=gen_len,
-                                   decode_steps=decode_steps, device=device,
+    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
+                                   scale=scale, seed=seed, gen_len=gen_len,
+                                   decode_steps=decode_steps,
+                                   device=mesh.device if mesh else device,
                                    dtype=dtype)
     max_len = prompt_len + gen_len + 8
 
     tel = None
-    if trace or metrics or log_interval > 0 or profile_dir:
+    if lead and (trace or metrics or log_interval > 0 or profile_dir):
         sink = None
         if metrics and log_interval > 0:
             # periodic registry snapshots through the MetricWriter
@@ -208,7 +250,8 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                       warm_start=warm_start,
                       ttft_slo_s=ttft_slo / 1e3 if ttft_slo > 0 else None,
                       kv_dtype=kv_dtype, spec_decode=spec_decode,
-                      spec_width=spec_width, telemetry=tel)
+                      spec_width=spec_width, telemetry=tel, mesh=mesh)
+    del params                # a mesh rank keeps its shard only
 
     # warmup: one request through prefill and one decode program, outside
     # the timed region (first launches load the kernel library and warm
@@ -250,7 +293,7 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
         "n_slots": n_slots, "prompt_len": prompt_len, "gen_len": gen_len,
         "decode_steps_per_program": eng.tokens_per_program,
         "dtype": str(opts.dtype).removeprefix("torch."),
-        "device": _device_name(params["embed"].device),
+        "device": _device_name(eng.device),
     })
     if load == "open":
         rep["offered_rate_req_s"] = rate
@@ -258,6 +301,47 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
         rep["prefix_cache_restored"] = eng.kv.restored_entries
     if prefix_cache:
         rep["prefix_cache_saved"] = eng.save_prefix_cache(prefix_cache)
+    return rep
+
+
+def serve_rank(mesh, kw: dict) -> dict:
+    """One rank of a mesh run (``spawn``'s entry): ``run_engine`` with the
+    keyword arguments ``kw`` ("arch" and "preset_name" among them) over
+    this rank's ``mesh``. Returns its report, its kernel launches over the
+    run (warmup included) and, on CUDA, its peak device memory."""
+    from repro_torch.kernels import ops
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    rep = run_engine(**{**kw, "mesh": mesh})
+    return {"rank": mesh.rank, "coords": mesh.coords, "report": rep,
+            "launches": ops.launch_counts(),
+            "kv_bytes_per_shard": rep["kv_bytes_per_shard"],
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None)}
+
+
+def _spawn_engine(kw: dict) -> dict:
+    """A mesh run from outside the ranks: check what the ranks would
+    refuse, spawn them, and return rank 0's report with every rank's
+    summary under ``ranks``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.core.step import check_mesh_linkage
+    from repro_torch.launch.mesh import mesh_shape, parse_mesh_spec, spawn
+    from repro_torch.sharding.placement import check_mesh
+    cfg = (get_config(kw["arch"]) if isinstance(kw["arch"], str)
+           else kw["arch"])
+    if kw["smoke"]:
+        cfg = scaled_config(cfg.smoke(), kw["scale"])
+    check_mesh(cfg, mesh_shape(*parse_mesh_spec(kw["mesh"])))
+    check_mesh_linkage(preset(kw["preset_name"]), True)
+    out = spawn(serve_rank, kw["mesh"], kw["device"], (kw,))
+    rep = dict(out[0]["report"])
+    rep["ranks"] = [{k: o[k] for k in ("rank", "coords", "launches",
+                                       "kv_bytes_per_shard",
+                                       "peak_memory_bytes")} for o in out]
     return rep
 
 
@@ -272,17 +356,18 @@ def _sync(dev: torch.device) -> None:
 
 def run_server(arch: str, preset_name: str, *, batch: int = 8,
                prompt_len: int = 64, gen_len: int = 64, requests: int = 4,
-               smoke: bool = True, seed: int = 0, device="cuda",
-               dtype="fp32"):
+               smoke: bool = True, scale: float = 1.0, seed: int = 0,
+               device="cuda", dtype="fp32"):
     """Sequential baseline: whole-batch prefill + decode, one request batch
     at a time (no admission between programs), in ``dtype``."""
     from repro_torch.core import L3_NSS, build_decode_step
     from repro_torch.models import prefill
     from repro_torch.serve.engine import check_servable
 
-    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke, seed=seed,
-                                   gen_len=gen_len, decode_steps=gen_len,
-                                   device=device, dtype=dtype)
+    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
+                                   scale=scale, seed=seed, gen_len=gen_len,
+                                   decode_steps=gen_len, device=device,
+                                   dtype=dtype)
     check_servable(cfg)
     dev = params["embed"].device
     dec = build_decode_step(cfg, opts, lk)
@@ -448,27 +533,32 @@ def main(argv=None) -> int:
                    help="paged: block storage — bf16 keeps the activation "
                         "dtype (the uncompressed control), int8/fp8 store "
                         "per-block scaled codes")
-    # the JAX launcher's option that a later slice brings (it raises
-    # NotImplementedError unless left at its default)
-    p.add_argument("--mesh", default="")
+    p.add_argument("--mesh", default="",
+                   help="serving mesh as 'data,model' (e.g. 1,2): one rank "
+                        "process a position, weights tensor-parallel over "
+                        "'model', KV heads per-rank resident, slots over "
+                        "'data'. Empty or 1,1 = single device")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="width multiplier on the smoke config")
     args = p.parse_args(argv)
 
     from repro_torch.serve import check_slice
-    check_slice(kv=args.kv, spec_decode=args.spec_decode, mesh=args.mesh,
+    check_slice(kv=args.kv, spec_decode=args.spec_decode,
                 kv_dtype=args.kv_dtype)
     if args.load == "seq":
         rep = run_server(args.arch, args.preset, batch=args.batch,
                          prompt_len=args.prompt_len, gen_len=args.gen_len,
-                         requests=args.requests, seed=args.seed,
-                         device=args.device, dtype=args.dtype)
+                         requests=args.requests, scale=args.scale,
+                         seed=args.seed, device=args.device,
+                         dtype=args.dtype)
     else:
         rep = run_engine(args.arch, args.preset, n_slots=args.slots,
                          prompt_len=args.prompt_len, gen_len=args.gen_len,
                          requests=args.requests, load=args.load,
                          rate=args.rate, concurrency=args.concurrency,
                          decode_steps=args.decode_steps,
-                         seed=args.seed,
-                         device=args.device, kv=args.kv,
+                         scale=args.scale, seed=args.seed,
+                         device=args.device, mesh=args.mesh, kv=args.kv,
                          block_size=args.block_size,
                          num_blocks=args.num_blocks,
                          bucket_prompts=args.bucket_prompts,

@@ -9,7 +9,7 @@ device: ``cuda`` unless ``--device cpu`` is given (without a GPU, ``cuda``
 raises). ``--smoke`` trains the reduced same-family config, widened by
 ``--scale`` as JAX's launcher widens it; without it, the published
 widths. ``--data-mesh`` > 0 (a data-parallel mesh) raises
-``NotImplementedError``: ROADMAP module item 13. ``--sync-every`` sets the
+``NotImplementedError``: ROADMAP entry 9b. ``--sync-every`` sets the
 ret_async read cadence (the preset's, 16, by default).
 """
 from __future__ import annotations
@@ -46,14 +46,14 @@ def main(argv=None) -> int:
                         "(0 = the preset's)")
     p.add_argument("--data-mesh", type=int, default=0,
                    help="shard the batch over this many devices "
-                        "(0 = single; needs ROADMAP module item 13)")
+                        "(0 = single; needs ROADMAP entry 9b)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--report-json", default=None)
     args = p.parse_args(argv)
     if args.data_mesh > 0:
-        raise NotImplementedError("--data-mesh needs a mesh: ROADMAP module "
-                                  "item 13 (multi-device)")
+        raise NotImplementedError("--data-mesh is not ported yet: ROADMAP "
+                                  "entry 9b (training over a mesh)")
 
     import torch
     from repro_torch import resolve_device

@@ -14,6 +14,14 @@ in ``repro_torch.kernels.ops``, which launch the Hopper kernels for CUDA
 tensors and run their plain versions for CPU tensors); ``scan_impl`` does
 the same for the MoE router and the Mamba and RWKV recurrences.
 
+Under tensor parallelism (``ModelOptions.tp``, mesh serving) the layers
+run at the rank's local head counts and ``d_ff`` (the ``cfg`` they are
+given), and the row-parallel ``wo`` products end in one all-reduce over
+the model axis (``repro_torch.sharding.comm``); without it nothing
+changes. JAX's ``constrain_acts`` (``layers.py:65-75``), which pins
+activations' shardings for GSPMD, has no counterpart: here every tensor
+already lives where the rank computes it.
+
 Decode writes the new K/V (or the Mamba or RWKV state) into the cache
 tensors in place (the PyTorch counterpart of JAX buffer donation at
 linkage L2+); the callers clone the cache first where the linkage level
@@ -52,6 +60,9 @@ class ModelOptions:
     remat: bool = False                 # recompute each block in backward
     logit_chunk: int = 0                # 0 = whole-seq logits, else chunked
     norm_bf16_grad: bool = False        # RMSNorm dx in the activation dtype
+    # ---- mesh serving: this rank's tensor parallelism over "model"
+    # (``repro_torch.sharding.comm.TensorParallel``); None on one device
+    tp: Any = None
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -271,7 +282,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # Attention (GQA, causal / sliding-window)
 # ---------------------------------------------------------------------------
 
-def _qkv(params, x, cfg: ArchConfig):
+def _qkv(params, x, cfg: ArchConfig, opts: ModelOptions):
+    """The column-parallel projections: under tensor parallelism ``cfg``
+    holds the local head counts (and a rank whose KV heads do not split
+    holds ``wk``/``wv`` whole, ``serve_shard``)."""
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ params["wq"].to(x.dtype)
@@ -283,6 +297,23 @@ def _qkv(params, x, cfg: ArchConfig):
         v = v + params["bv"].to(x.dtype)
     return (q.reshape(B, S, hq, dh), k.reshape(B, S, hkv, dh),
             v.reshape(B, S, hkv, dh))
+
+
+def _kv_view(opts: ModelOptions, *tensors):
+    """The KV heads this rank's queries read (every one on one device): the
+    head axis is dim 2 of K/V rows and pools, dim 1 of a pool's scales."""
+    if opts.tp is None or opts.tp.kv_heads is None:
+        return tensors
+    return tuple(None if t is None else
+                 opts.tp.kv_view(t, 2 if t.dim() == 4 else 1)
+                 for t in tensors)
+
+
+def _wo(params, out: torch.Tensor, opts: ModelOptions) -> torch.Tensor:
+    """An attention output projection: row-parallel over the heads under
+    tensor parallelism (one ``all_reduce``)."""
+    y = out @ params["wo"].to(out.dtype)
+    return y if opts.tp is None else opts.tp.row_parallel(y, opts.tp.heads)
 
 
 def _window(cfg: ArchConfig, spec: LayerSpec) -> int:
@@ -400,17 +431,18 @@ def attention_kv(params: Params, x: torch.Tensor, cfg: ArchConfig,
     cross-attention layer adds its gated term over ``xkv``, the context's
     (K, V) from ``xattn_kv``."""
     B, S, _ = x.shape
-    q, k, v = _qkv(params, x, cfg)
+    q, k, v = _qkv(params, x, cfg, opts)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = _window(cfg, spec)
+    ka, va = _kv_view(opts, k, v)
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        out = kops.flash_attention(q, ka, va, causal=True, window=window)
     else:
-        out = _sdpa_ref(q, k, v, causal=True, window=window, q_pos=positions,
-                        k_pos=positions)
-    y = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+        out = _sdpa_ref(q, ka, va, causal=True, window=window,
+                        q_pos=positions, k_pos=positions)
+    y = _wo(params, out.reshape(B, S, -1), opts)
     if spec.mixer == XATTN:
         if xkv is None:
             raise ValueError("a cross-attention layer needs the context "
@@ -448,11 +480,11 @@ def _decode_ref(q, ck, cv, valid, dtype):
     return _attend_ref(q, ck, cv, valid[:, None], dtype)
 
 
-def _decode_out(params, x, out, cache, cfg, spec):
+def _decode_out(params, x, out, cache, cfg, spec, opts):
     """The one-token mixer output: the attention through ``wo``, plus a
     cross-attention layer's gated term over the cache's ``xk``/``xv``
     (``layers.py:401-404, 455-458``)."""
-    y = out.reshape(x.shape[0], 1, -1) @ params["wo"].to(x.dtype)
+    y = _wo(params, out.reshape(x.shape[0], 1, -1), opts)
     if spec.mixer == XATTN:
         y = y + _xattn(params, x, cache["xk"], cache["xv"], cfg)
     return y
@@ -469,7 +501,7 @@ def attention_decode(params: Params, x: torch.Tensor, cache: Params,
     cross-attention layer's also holds the context's "xk"/"xv".
     """
     B = x.shape[0]
-    q, k, v = _qkv(params, x, cfg)  # S == 1
+    q, k, v = _qkv(params, x, cfg, opts)  # S == 1
     pos = cache["pos"]
     posv = pos.reshape(1)
     q = rope(q, posv, cfg.rope_theta)
@@ -480,6 +512,7 @@ def attention_decode(params: Params, x: torch.Tensor, cache: Params,
     cv.index_copy_(1, slot, v.to(cv.dtype))
     slot_pos.index_copy_(0, slot, posv.to(slot_pos.dtype))
     window = _window(cfg, spec)
+    ck, cv = _kv_view(opts, ck, cv)
 
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
@@ -490,7 +523,7 @@ def attention_decode(params: Params, x: torch.Tensor, cache: Params,
             valid &= pos - slot_pos < window
         out = _decode_ref(q, ck, cv, valid[None].expand(B, -1), x.dtype)
     cache["pos"] += 1
-    return _decode_out(params, x, out, cache, cfg, spec)
+    return _decode_out(params, x, out, cache, cfg, spec, opts)
 
 
 def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
@@ -503,7 +536,7 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
               "slot_pos": (B,T), "pos": (B,)}, updated in place.
     """
     B = x.shape[0]
-    q, k, v = _qkv(params, x, cfg)  # S == 1
+    q, k, v = _qkv(params, x, cfg, opts)  # S == 1
     pos = cache["pos"]                                   # (B,)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
@@ -514,6 +547,7 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
     cv[rows, slot] = v[:, 0].to(cv.dtype)
     slot_pos[rows, slot] = pos.to(slot_pos.dtype)
     window = _window(cfg, spec)
+    ck, cv = _kv_view(opts, ck, cv)
 
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
@@ -525,7 +559,7 @@ def attention_decode_slots(params: Params, x: torch.Tensor, cache: Params,
             valid &= pos[:, None] - slot_pos < window
         out = _decode_ref(q, ck, cv, valid, x.dtype)
     cache["pos"] += 1
-    return _decode_out(params, x, out, cache, cfg, spec)
+    return _decode_out(params, x, out, cache, cfg, spec, opts)
 
 
 def attention_serve_chunk(params: Params, x: torch.Tensor, cache: Params,
@@ -555,7 +589,7 @@ def attention_serve_chunk(params: Params, x: torch.Tensor, cache: Params,
     masked einsum too.
     """
     B, W, _ = x.shape
-    q, k, v = _qkv(params, x, cfg)                       # (B, W, H, dh)
+    q, k, v = _qkv(params, x, cfg, opts)                 # (B, W, H, dh)
     q_pos = start[:, None] + torch.arange(W, dtype=start.dtype,
                                           device=x.device)[None]
     q = rope(q, q_pos, cfg.rope_theta)
@@ -571,9 +605,9 @@ def attention_serve_chunk(params: Params, x: torch.Tensor, cache: Params,
                                       slot_pos[rows, idx])
     valid = ((slot_pos[:, None, :] >= 0)
              & (slot_pos[:, None, :] <= q_pos[:, :, None]))   # (B, W, T)
-    out = _attend_ref(q, ck, cv, valid, x.dtype)
+    out = _attend_ref(q, *_kv_view(opts, ck, cv), valid, x.dtype)
     cache["pos"].copy_(start + clen)
-    return out.reshape(B, W, -1) @ params["wo"].to(x.dtype)
+    return _wo(params, out.reshape(B, W, -1), opts)
 
 
 def _paged_write(cache: Params, blk: torch.Tensor, off: torch.Tensor,
@@ -622,7 +656,7 @@ def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
     through the table, fusing the decode.
     """
     B = x.shape[0]
-    q, k, v = _qkv(params, x, cfg)  # S == 1
+    q, k, v = _qkv(params, x, cfg, opts)  # S == 1
     pos = cache["pos"]                                   # (B,)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
@@ -632,6 +666,7 @@ def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
     blk = torch.gather(tables, 1, logical[:, None])[:, 0].long()
     off = (pos % bs).long()
     ks, vs = _paged_write(cache, blk, off, k[:, 0], v[:, 0])
+    kp, vp, ks, vs = _kv_view(opts, kp, vp, ks, vs)
 
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
@@ -643,7 +678,7 @@ def attention_decode_paged(params: Params, x: torch.Tensor, cache: Params,
                           _paged_view(vp, tables, vs, max_len, x.dtype),
                           valid, x.dtype)
     cache["pos"] += 1
-    return out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+    return _wo(params, out.reshape(B, 1, -1), opts)
 
 
 def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
@@ -669,7 +704,7 @@ def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
     chunked serving.
     """
     B, W, _ = x.shape
-    q, k, v = _qkv(params, x, cfg)                       # (B, W, H, dh)
+    q, k, v = _qkv(params, x, cfg, opts)                 # (B, W, H, dh)
     q_pos = start[:, None] + torch.arange(W, dtype=start.dtype,
                                           device=x.device)[None]
     q = rope(q, q_pos, cfg.rope_theta)
@@ -682,6 +717,7 @@ def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
                       trash).long()
     off = (q_pos % bs).long()
     ks, vs = _paged_write(cache, blk, off, k, v)
+    kp, vp, ks, vs = _kv_view(opts, kp, vp, ks, vs)
 
     if opts.attn_impl == "kernel":
         from repro_torch.kernels import ops as kops
@@ -693,17 +729,21 @@ def attention_serve_chunk_paged(params: Params, x: torch.Tensor,
                           _paged_view(vp, tables, vs, max_len, x.dtype),
                           valid, x.dtype)
     cache["pos"].copy_(start + clen)
-    return out.reshape(B, W, -1) @ params["wo"].to(x.dtype)
+    return _wo(params, out.reshape(B, W, -1), opts)
 
 
 # ---------------------------------------------------------------------------
 # Dense SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor,
+        opts: ModelOptions = ModelOptions()) -> torch.Tensor:
+    """The SwiGLU MLP; under tensor parallelism ``wi``/``wg`` hold this
+    rank's slice of ``d_ff`` and ``wo`` is row-parallel."""
     h = (torch.nn.functional.silu(x @ params["wg"].to(x.dtype))
          * (x @ params["wi"].to(x.dtype)))
-    return h @ params["wo"].to(x.dtype)
+    y = h @ params["wo"].to(x.dtype)
+    return y if opts.tp is None else opts.tp.row_parallel(y, opts.tp.ff)
 
 
 def rwkv_mix(params: Params, x: torch.Tensor,

@@ -123,16 +123,25 @@ def embed(params: Params, tokens_or_embeds: torch.Tensor, cfg: ArchConfig,
     model's (B, S, D) embeddings pass through in the activation dtype
     (``transformer.py:145-150``), made contiguous: a caller's strided view
     (a slice of a longer sequence) would otherwise reach the kernels,
-    which take contiguous rows."""
+    which take contiguous rows. Under tensor parallelism the table holds
+    this rank's vocab rows (``TensorParallel.embed``)."""
     if cfg.embeds_in:
         return tokens_or_embeds.to(opts.dtype).contiguous()
+    if opts.tp is not None:
+        return opts.tp.embed(params["embed"],
+                             tokens_or_embeds.long()).to(opts.dtype)
     return params["embed"][tokens_or_embeds.long()].to(opts.dtype)
 
 
-def unembed_logits(params: Params, h: torch.Tensor,
-                   cfg: ArchConfig) -> torch.Tensor:
+def unembed_logits(params: Params, h: torch.Tensor, cfg: ArchConfig,
+                   opts: Optional[ModelOptions] = None) -> torch.Tensor:
+    """fp32 logits; under tensor parallelism ``lm_head`` holds this rank's
+    vocab columns, assembled whole on every rank
+    (``TensorParallel.logits``)."""
     w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    return (h @ w.to(h.dtype)).float()
+    logits = (h @ w.to(h.dtype)).float()
+    tp = opts.tp if opts is not None else None
+    return logits if tp is None else tp.logits(logits)
 
 
 def _shift_right(x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +172,7 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                                  h[:, :-1]], dim=1)
             cache_l["shift_mlp"].copy_(h[:, -1:])
         return x + L.rwkv_mix(p["mlp"], h, shifted)
-    return x + L.mlp(p["mlp"], h)
+    return x + L.mlp(p["mlp"], h, opts)
 
 
 def _mix(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
@@ -409,7 +418,7 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
     for p, spec, cl in zip(params["layers"], layer_specs(cfg), cache):
         h = apply_layer_decode(p, h, cl, cfg, spec, opts, slots=slots)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
-    return unembed_logits(params, h, cfg)[:, 0], cache
+    return unembed_logits(params, h, cfg, opts)[:, 0], cache
 
 
 def decode_step_slots(params: Params, cache: Cache, tokens: torch.Tensor,
@@ -451,7 +460,7 @@ def decode_step_paged(params: Params, cache: Cache, tokens: torch.Tensor,
         h = apply_layer_decode(p, h, cl, cfg, spec, opts, paged_tables=tables,
                                paged_max_len=max_len)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
-    return unembed_logits(params, h, cfg)[:, 0], cache
+    return unembed_logits(params, h, cfg, opts)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -480,7 +489,7 @@ def _chunk_logits(params: Params, h: torch.Tensor, clen: torch.Tensor,
     last = torch.clamp(clen.long() - 1, 0, h.shape[1] - 1)
     h_last = torch.gather(h, 1, last[:, None, None].expand(-1, 1,
                                                            h.shape[2]))
-    return unembed_logits(params, h_last, cfg)[:, 0]
+    return unembed_logits(params, h_last, cfg, opts)[:, 0]
 
 
 def _verify_logits(params: Params, h: torch.Tensor, cfg: ArchConfig,
@@ -488,7 +497,7 @@ def _verify_logits(params: Params, h: torch.Tensor, cfg: ArchConfig,
     """Logits at all W fed positions, (B, W, V) (``transformer.py:499``):
     verify needs the next-token distribution after every drafted prefix."""
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
-    return unembed_logits(params, h, cfg)
+    return unembed_logits(params, h, cfg, opts)
 
 
 def _slotted_pass(params, cache, tokens, start, clen, cfg, opts):
@@ -658,8 +667,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
         h = _prefill_layer(p, h, cl, cfg, spec, opts, positions, xctx)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
     if true_len is None:
-        return unembed_logits(params, h[:, -1:], cfg)[:, 0], cache
-    logits = unembed_logits(params, h[:, true_len - 1:true_len], cfg)[:, 0]
+        return unembed_logits(params, h[:, -1:], cfg, opts)[:, 0], cache
+    logits = unembed_logits(params, h[:, true_len - 1:true_len], cfg,
+                            opts)[:, 0]
     for g in cache:
         g["pos"].fill_(true_len)
         sp = g["slot_pos"]
@@ -702,14 +712,15 @@ def prefill_suffix(params: Params, tokens: torch.Tensor, prefix_kv: Cache,
         suffix_kv.append(kv)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)
     last = S if true_len is None else true_len
-    return unembed_logits(params, h[:, last - 1:last], cfg)[:, 0], suffix_kv
+    return (unembed_logits(params, h[:, last - 1:last], cfg, opts)[:, 0],
+            suffix_kv)
 
 
 def _prefill_suffix_layer(p, x, pkv, cfg, spec, opts, q_pos, k_pos):
     """One attention layer of the suffix prefill. Returns (x, {k, v})."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     B, S, _ = x.shape
-    q, k, v = L._qkv(p["mixer"], h, cfg)
+    q, k, v = L._qkv(p["mixer"], h, cfg, opts)
     q = L.rope(q, q_pos, cfg.rope_theta)
     k = L.rope(k, q_pos, cfg.rope_theta)
     p0 = int(q_pos[0])
@@ -718,6 +729,7 @@ def _prefill_suffix_layer(p, x, pkv, cfg, spec, opts, q_pos, k_pos):
     k_full[:, p0:p0 + S] = k
     v_full[:, p0:p0 + S] = v
     kwargs = dict(causal=True, window=0, q_pos=q_pos, k_pos=k_pos)
+    k_full, v_full = L._kv_view(opts, k_full, v_full)
     if opts.attn_impl == "ref":
         out = L._sdpa_ref(q, k_full, v_full, **kwargs)
     else:
@@ -725,5 +737,5 @@ def _prefill_suffix_layer(p, x, pkv, cfg, spec, opts, q_pos, k_pos):
         # is square, so the shortcut lowers through here too (as in JAX)
         out = L._sdpa_chunked(q, k_full, v_full, q_chunk=SUFFIX_Q_CHUNK,
                               kv_chunk=SUFFIX_KV_CHUNK, **kwargs)
-    x = x + out.reshape(B, S, -1) @ p["mixer"]["wo"].to(x.dtype)
+    x = x + L._wo(p["mixer"], out.reshape(B, S, -1), opts)
     return mlp_block(p, x, cfg, spec, opts), {"k": k, "v": v}

@@ -22,6 +22,15 @@ and scan states or an RWKV layer's state and shifts, which have no
 admission is one row write per leaf (``write_slot``): it overwrites every
 recurrent state of the row, so nothing of an evicted request reaches the
 next one.
+
+Under a serving mesh (``shard``, a ``repro_torch.sharding.placement.
+ServeShard``; JAX ``cache.py:236-290``) the cache holds the rank's KV
+heads, and when the slots divide over the "data" axis the rank holds and
+computes only its ``n_slots / data`` rows: every program's tokens are
+merged over the data axis (one ``all_reduce`` of a zeroed (n_slots, ...)
+buffer), so every rank's scheduler sees every slot. The host-built
+operands of the chunk and verify programs are rank 0's, broadcast as one
+packed tensor (``operands``), so every rank runs the same program.
 """
 from __future__ import annotations
 
@@ -167,6 +176,25 @@ def tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def operands(arrays, device, shard=None) -> list:
+    """A program's host-built operands as tensors on ``device``. Under a
+    mesh, rank 0's arrays on every rank: packed into one int32 tensor,
+    broadcast over the world, unpacked into their shapes and dtypes (bool
+    or integer arrays)."""
+    arrays = [np.asarray(a) for a in arrays]
+    if shard is None or shard.mesh.world.size == 1:
+        return [tensor(a, device) for a in arrays]
+    buf = tensor(np.concatenate([a.astype(np.int32).ravel()
+                                 for a in arrays]), device)
+    shard.mesh.world.broadcast_(buf)
+    out, off = [], 0
+    for a in arrays:
+        dt = torch.from_numpy(a[:0]).dtype
+        out.append(buf[off:off + a.size].view(a.shape).to(dt))
+        off += a.size
+    return out
+
+
 class SlottedKV:
     """Dense slot-row backend behind the KVBackend API (``cache.py:233``).
     The cache and the key chains live on the parameters' device."""
@@ -176,11 +204,17 @@ class SlottedKV:
 
     def __init__(self, cfg: ArchConfig, params, opts, linkage, n_slots: int,
                  max_len: int, sampling=None, bucket_fn=None,
-                 chunked: bool = False, spec: bool = False):
+                 chunked: bool = False, spec: bool = False, shard=None):
         self.cfg, self.params, self.opts = cfg, params, opts
         self.n_slots, self.max_len = n_slots, max_len
         self.device = params["embed"].device
-        self.cache = init_slot_cache(cfg, n_slots, max_len, opts.dtype,
+        # under a mesh: this rank's slot rows (all of them unless the slots
+        # split over "data"); cfg and params are the rank's
+        self.shard = shard
+        self.rows = shard.rows if shard is not None else slice(0, n_slots)
+        self.split = shard is not None and shard.slots_split
+        n_local = self.rows.stop - self.rows.start
+        self.cache = init_slot_cache(cfg, n_local, max_len, opts.dtype,
                                      self.device)
         # the decode program serves both step disciplines: two-phase
         # decode, and the chunked engine's pure-decode steps
@@ -196,25 +230,49 @@ class SlottedKV:
         if spec:
             self._verify = build_verify_step(cfg, opts, linkage, max_len,
                                              sampling, kv_kind="slotted")
-        self.keys = torch.zeros((n_slots, 2), dtype=torch.int64,
+        # the key chains of this rank's rows
+        self.keys = torch.zeros((n_local, 2), dtype=torch.int64,
                                 device=self.device)
 
-    def _seed(self, slot: int, key) -> None:
+    def _row(self, slot: int):
+        """The local row of ``slot``, or None when another data rank holds
+        it."""
+        if self.rows.start <= slot < self.rows.stop:
+            return slot - self.rows.start
+        return None
+
+    def _merge(self, local: torch.Tensor) -> torch.Tensor:
+        """Every slot's program output from this rank's rows."""
+        if self.shard is None:
+            return local
+        return self.shard.merge_slots(local, self.split)
+
+    def _seed(self, row: int, key) -> None:
         if key is not None:
-            self.keys[slot] = key
+            self.keys[row] = key
 
     def admit(self, slot: int, prompt: np.ndarray, key=None) -> torch.Tensor:
-        logits, c1 = self._prefill(self.params, prompt)
-        write_slot(self.cache, slotify(c1), slot)
-        self._seed(slot, key)
-        first, krow = self._sample(logits, self.keys[slot:slot + 1])
-        self.keys[slot] = krow[0]
-        return first
+        i = self._row(slot)
+        if i is None:            # another data rank prefills it
+            first = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        else:
+            logits, c1 = self._prefill(self.params, prompt)
+            write_slot(self.cache, slotify(c1), i)
+            self._seed(i, key)
+            first, krow = self._sample(logits, self.keys[i:i + 1])
+            self.keys[i] = krow[0]
+        if self.shard is None:
+            return first
+        # the owner's token: summed over the data axis (the others hold
+        # zero), or data rank 0's when the slots are replicated
+        data = self.shard.data
+        first = first.contiguous()
+        return data.sum_(first) if self.split else data.broadcast_(first)
 
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
-        self.cache, toks, self.keys = self._dec(self.params, self.cache,
-                                                next_tokens, self.keys)
-        return toks
+        self.cache, toks, self.keys = self._dec(
+            self.params, self.cache, next_tokens[self.rows], self.keys)
+        return self._merge(toks)
 
     def reserve(self, slot: int, k: int) -> bool:
         return True                     # the slot's row is always there
@@ -241,7 +299,9 @@ class SlottedKV:
         row shares no prefix). The serve program's sampler splits the
         request key as the two-phase admission's does, so key chains replay
         bit for bit across step disciplines."""
-        self._seed(slot, key)
+        i = self._row(slot)
+        if i is not None:
+            self._seed(i, key)
         return 0
 
     def append_chunk(self, slot: int, start: int, tokens: np.ndarray) -> bool:
@@ -249,21 +309,24 @@ class SlottedKV:
 
     def serve_step(self, chunk_tokens, clen, start, reset, emit0, dec_mask,
                    dec_tok):
-        d = self.device
+        toks, clen, start, reset, emit0, dec_mask = (
+            t[self.rows] for t in operands(
+                (chunk_tokens, clen, start, reset, emit0, dec_mask),
+                self.device, self.shard))
         self.cache, t0, seq, self.keys = self._serve(
-            self.params, self.cache, tensor(chunk_tokens, d),
-            tensor(clen, d), tensor(start, d), tensor(reset, d),
-            tensor(emit0, d), dec_tok, tensor(dec_mask, d), self.keys)
-        return t0, seq
+            self.params, self.cache, toks, clen, start, reset, emit0,
+            dec_tok[self.rows], dec_mask, self.keys)
+        return self._merge(t0), self._merge(seq)
 
     # -- speculative decode -------------------------------------------------
 
     def verify_step(self, tokens, clen, start, vmask):
-        d = self.device
+        toks, clen, start, vmask = (
+            t[self.rows] for t in operands((tokens, clen, start, vmask),
+                                           self.device, self.shard))
         self.cache, out, n_emit, self.keys = self._verify(
-            self.params, self.cache, tensor(tokens, d), tensor(clen, d),
-            tensor(start, d), tensor(vmask, d), self.keys)
-        return out, n_emit
+            self.params, self.cache, toks, clen, start, vmask, self.keys)
+        return self._merge(out), self._merge(n_emit)
 
     def rollback(self, slot: int, new_len: int) -> None:
         pass    # the verify program repaired slot_pos and pos; a dense row

@@ -61,8 +61,21 @@ dispatched before any replica blocks on its result) and moves finished
 prompts from prefill replicas to decode replicas (``extract_handoffs`` /
 ``inject_handoff``) over a host tier they share (``shared_host``).
 
-Device meshes raise ``NotImplementedError`` naming their ROADMAP item
-(13). An ``embeds_in`` model (musicgen-medium) and a cross-attention
+With ``mesh`` (a ``repro_torch.launch.mesh.Mesh`` over the
+``torch.distributed`` world, one rank a position) the engine is SPMD:
+every rank runs this loop over its shard (``repro_torch.sharding.
+placement``): weights tensor-parallel over "model", each rank's KV heads
+in its cache, slots over "data" on the slotted backend. Every host
+decision is a function of state every rank shares, except those that
+read a clock: open-load arrivals (rank 0 runs the ``AdmissionWorker`` and
+broadcasts what arrived) and the TTFT tuner's budget (rank 0's, broadcast
+each tick). The swap stream polls no event (a transfer completes past
+its depth or at a drain, both by count) and the draft proposer reads no
+clock, so neither needs agreeing. Rank 0 reports. MoE, Mamba and RWKV
+layers at a model axis > 1 raise ``NotImplementedError`` (ROADMAP entry
+9c); L0 with a mesh raises ``ValueError``, as in JAX.
+
+An ``embeds_in`` model (musicgen-medium) and a cross-attention
 model (llama-3.2-vision-11b) raise ``ValueError``: requests are token
 ids, and no request carries a context, as in JAX.
 """
@@ -78,7 +91,8 @@ import torch
 from repro_torch.configs.base import XATTN, ArchConfig
 from repro_torch.core.coprocess import AdmissionWorker
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
-from repro_torch.core.step import SamplingConfig, program_label
+from repro_torch.core.step import (SamplingConfig, check_mesh_linkage,
+                                   program_label)
 from repro_torch.serve.cache import KVBackend, SlottedKV
 from repro_torch.serve.scheduler import (MIN_BUCKET, BudgetTuner,
                                          Completion, DraftProposer,
@@ -93,21 +107,18 @@ SPEC_MODES = ("none", "ngram")
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP module item {item})")
+        f"{what} is not ported yet (ROADMAP entry {item})")
 
 
-def check_slice(*, kv: str = "slotted", spec_decode: str = "none", mesh=None,
+def check_slice(*, kv: str = "slotted", spec_decode: str = "none",
                 kv_dtype: str = "bf16") -> None:
-    """Raise ``NotImplementedError`` for a serving option this port does not
-    have yet (device meshes), naming the ROADMAP item that brings it, and
-    ``ValueError`` for a combination the reference rejects too."""
+    """Raise ``ValueError`` for a serving option or combination the
+    reference rejects too."""
     if kv not in KV_BACKENDS:
         raise ValueError(f"unknown kv backend {kv!r}; known: {KV_BACKENDS}")
     if spec_decode not in SPEC_MODES:
         raise ValueError(f"unknown spec_decode {spec_decode!r}; known: "
                          f"{SPEC_MODES}")
-    if mesh:
-        raise _not_in_slice("mesh serving", "13")
     if kv == "slotted" and kv_dtype != "bf16":
         raise ValueError("kv_dtype quantization needs kv='paged': dense "
                          "slot rows have no per-block scale tables")
@@ -130,6 +141,39 @@ def check_servable(cfg: ArchConfig) -> None:
 def _host(t) -> np.ndarray:
     """A token tensor (or numpy array) as a host numpy array."""
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+class MeshArrivals:
+    """Open-load arrivals over a mesh, with ``AdmissionWorker``'s
+    ``poll`` / ``wait`` / ``exhausted``: rank 0 runs the worker (its clock
+    decides) and broadcasts how many requests arrived; every other rank
+    takes as many from the same list in the worker's release order."""
+
+    def __init__(self, requests, clock, mesh):
+        self.mesh = mesh
+        self.order = sorted(requests, key=lambda r: r.arrival_s)
+        self.worker = (AdmissionWorker(requests, clock=clock)
+                       if mesh.rank == 0 else None)
+        self.released = 0
+
+    @property
+    def exhausted(self) -> bool:
+        return self.released >= len(self.order)
+
+    def _take(self, got: list) -> list:
+        n = self.mesh.agree([len(got)])[0]
+        if self.worker is None:
+            got = self.order[self.released:self.released + n]
+        self.released += n
+        return got
+
+    def poll(self) -> list:
+        return self._take(self.worker.poll() if self.worker else [])
+
+    def wait(self, timeout: Optional[float] = None):
+        r = self.worker.wait(timeout=timeout) if self.worker else None
+        got = self._take([] if r is None else [r])
+        return got[0] if got else None
 
 
 class ServeEngine:
@@ -160,12 +204,26 @@ class ServeEngine:
                  ttft_slo_s: Optional[float] = None,
                  kv_dtype: str = "bf16", spec_decode: str = "none",
                  spec_width: int = 0, telemetry: Optional[Telemetry] = None,
-                 async_swap: bool = True, shared_host=None):
+                 async_swap: bool = True, shared_host=None, mesh=None):
         check_slice(kv=kv, spec_decode=spec_decode, kv_dtype=kv_dtype)
         linkage.validate()
         check_servable(cfg)
         if n_slots < 1:
             raise ValueError("serving engine needs n_slots >= 1")
+        # a mesh: this rank's weights, local widths and collectives; the
+        # programs below are built over them (opts.tp)
+        self.mesh = mesh
+        self.shard = None
+        kcfg = cfg
+        check_mesh_linkage(linkage, mesh is not None)
+        if mesh is not None:
+            if shared_host is not None:
+                raise _not_in_slice("a fleet-shared host tier over a mesh",
+                                    "9c")
+            from repro_torch.sharding.placement import serve_shard
+            self.shard = serve_shard(cfg, params, mesh, n_slots)
+            params, kcfg = self.shard.params, self.shard.local_cfg
+            opts = dataclasses.replace(opts, tp=self.shard.tp)
         self.cfg = cfg
         self.params = params
         self.opts = opts
@@ -210,11 +268,12 @@ class ServeEngine:
                 hb = None            # auto: mirror the device pool (and grow
                                      # to fit the warm-start file)
             self.kv: KVBackend = PagedKV(
-                cfg, params, opts, linkage, n_slots, max_len, self.sampling,
+                kcfg, params, opts, linkage, n_slots, max_len, self.sampling,
                 bucket_fn, block_size=block_size, num_blocks=num_blocks,
                 chunked=chunked, kv_dtype=kv_dtype, spec=spec,
                 host_blocks=hb, warm_start=warm_start,
-                async_swap=async_swap, shared_host=shared_host)
+                async_swap=async_swap, shared_host=shared_host,
+                shard=self.shard)
         else:
             # host_blocks=None means "auto-size the host tier" on paged —
             # reject it here too, not just explicit sizes
@@ -226,9 +285,9 @@ class ServeEngine:
                 raise ValueError("a shared host tier (shared_host) needs "
                                  "kv='paged': dense slot rows have no block "
                                  "structure to publish")
-            self.kv = SlottedKV(cfg, params, opts, linkage, n_slots, max_len,
-                                self.sampling, bucket_fn, chunked=chunked,
-                                spec=spec)
+            self.kv = SlottedKV(kcfg, params, opts, linkage, n_slots,
+                                max_len, self.sampling, bucket_fn,
+                                chunked=chunked, spec=spec, shard=self.shard)
         # NULL_TELEMETRY is the zero-cost disabled bundle (every hook a
         # no-op, now() never reads a clock)
         self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
@@ -843,6 +902,10 @@ class ServeEngine:
                 self.chunk_budget = self.tuner.observe(c.ttft_s)
                 self.tel.budget_adjust(old, self.chunk_budget,
                                        self.tel.now())
+            if self.mesh is not None:
+                # the budget follows rank 0's clock on every rank
+                self.chunk_budget = self.mesh.agree([self.chunk_budget])[0]
+                self.tuner.budget = self.chunk_budget
         return finished
 
     # -- fleet: prefill/decode disaggregation handoff -----------------------
@@ -918,7 +981,9 @@ class ServeEngine:
         rel = lambda: clock() - t0
         self.tel.set_clock(rel)
         if load == "open":
-            worker = AdmissionWorker(requests, clock=clock)
+            worker = (AdmissionWorker(requests, clock=clock)
+                      if self.mesh is None
+                      else MeshArrivals(requests, clock, self.mesh))
             while len(completions) < n:
                 for r in worker.poll():
                     self.sched.enqueue(r)
@@ -1003,12 +1068,15 @@ class ServeEngine:
                 u["spec_tokens_per_step"] = round(
                     self.spec_emitted_tokens / self.spec_steps, 2)
         u.update(self.kv.utilization())
-        u["kv_bytes_per_shard"] = _kv_bytes(self.kv.cache)
+        # on one device the single shard holds the whole store
+        u["kv_bytes_per_shard"] = _kv_bytes_per_shard(self.kv.cache)
         if "kv_blocks_hwm" in u:
             # resident high-watermark in bytes (+1: the trash row)
             u["kv_hwm_bytes_per_shard"] = int(
                 u["kv_bytes_per_shard"] * u["kv_blocks_hwm"]
                 / (u["kv_blocks_total"] + 1))
+        if self.mesh is not None:
+            u["mesh"] = self.mesh.describe()
         return u
 
     def reset_counters(self) -> None:
@@ -1041,8 +1109,10 @@ class ServeEngine:
 # Reporting
 # ---------------------------------------------------------------------------
 
-def _kv_bytes(cache) -> int:
-    """Device bytes of the KV store (one device holds the whole store)."""
+def _kv_bytes_per_shard(cache) -> int:
+    """Device bytes this rank holds for the KV store (JAX
+    ``engine.py:1064-1071``): under a mesh its heads' and its slots' share,
+    on one device the whole store."""
     return int(sum(t.numel() * t.element_size()
                    for g in cache for t in g.values()))
 

@@ -45,8 +45,9 @@ config, in the JAX package's npz layout (a file passes between the two).
 A fleet of engine replicas shares one host tier (``SharedHostTier``): every
 replica demotes into it, publishes freshly indexed prompt blocks through
 it (``_publish``) and promotes from it by copy, and a prefill replica hands
-finished chains to a decode replica over it. Meshes are ROADMAP module
-item 13.
+finished chains to a decode replica over it. Under a serving mesh every
+rank makes the same block decisions over one logical block table, its pools
+and its host tier holding its KV heads' slice of every block.
 
 Quantized pools (``kv_dtype`` int8 / fp8, ``repro_torch.kernels.kv_quant``)
 store per-(block, KV head) scales beside the pools; every write re-encodes
@@ -81,8 +82,9 @@ from repro_torch.kernels.kv_quant import quant_insert, raw
 from repro_torch.kernels.ref import gather_pool
 from repro_torch.models.transformer import (Cache, _check_pageable,
                                             layer_specs, prefill_suffix)
-from repro_torch.serve.cache import tensor
+from repro_torch.serve.cache import operands, tensor
 from repro_torch.serve.telemetry import NULL_TELEMETRY
+from repro_torch.sharding.rules import host_to_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -712,9 +714,14 @@ class PagedKV:
                  chunked: bool = False, kv_dtype: str = "bf16",
                  spec: bool = False, host_blocks: Optional[int] = 0,
                  warm_start: Optional[str] = None, async_swap: bool = True,
-                 shared_host: Optional[SharedHostTier] = None):
+                 shared_host: Optional[SharedHostTier] = None, shard=None):
         _check_pageable(cfg, "PagedKV")
         self.cfg, self.params, self.opts = cfg, params, opts
+        # under a mesh (a ServeShard): cfg and params are this rank's; the
+        # pools and the host tier hold its KV heads, every slot is computed
+        # on every data rank (the block axis is not split), and every rank
+        # takes the same block decisions over one logical block table
+        self.shard = shard
         self.kv_dtype = kv_dtype
         self.n_slots, self.max_len = n_slots, max_len
         self.bs = block_size
@@ -1266,11 +1273,12 @@ class PagedKV:
         """The cache-compatibility key: KV geometry only, byte for byte the
         JAX package's string. Parameter values are not covered: pair a
         cache file with the weights it was built from."""
+        cfg = self.cfg if self.shard is None else self.shard.cfg
         return json.dumps({
-            "arch": self.cfg.name, "layers": self.cfg.num_blocks,
-            "groups": len(self.cfg.block_pattern),
-            "n_kv_heads": self.cfg.n_kv_heads,
-            "head_dim": self.cfg.head_dim, "block_size": self.bs,
+            "arch": cfg.name, "layers": cfg.num_blocks,
+            "groups": len(cfg.block_pattern),
+            "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "block_size": self.bs,
             "dtype": str(self.opts.dtype).removeprefix("torch."),
             "kv_dtype": self.kv_dtype}, sort_keys=True)
 
@@ -1281,7 +1289,9 @@ class PagedKV:
         ``tok_i`` and ``k_i_g``/``v_i_g`` of (L, bs, HKV, dh) per group,
         float32 for unquantized pools (lossless for fp32 and bf16); int8
         codes as int8 and fp8 codes as a uint8 view, with ``ks_i_g`` /
-        ``vs_i_g`` beside them. Returns the number of entries written."""
+        ``vs_i_g`` beside them. Returns the number of entries written.
+        Under a mesh every rank's heads are gathered into the file (its
+        layout is the unsharded one), which rank 0 writes."""
         self._drain_tier()             # pending demote writes must land
         entries = []                   # (tokens, kvs)
         seen = set()
@@ -1300,8 +1310,11 @@ class PagedKV:
             "fingerprint": np.array(self._fingerprint()),
             "n": np.int64(len(entries)),
         }
+        specs = self._block_specs()
         for i, (tokens, kvs) in enumerate(entries):
             payload[f"tok_{i}"] = np.asarray(tokens, np.int32)
+            if specs is not None:
+                kvs = self._gather_heads(kvs, specs)
             for g, kv in enumerate(kvs):
                 for name in ("k", "v"):
                     t = kv[name].cpu()
@@ -1312,9 +1325,38 @@ class PagedKV:
                     for name in ("ks", "vs"):
                         payload[f"{name}_{i}_{g}"] = \
                             kv[name].cpu().float().numpy()
-        with open(path, "wb") as f:
-            np.savez(f, **payload)
+        if self.shard is None or self.shard.mesh.rank == 0:
+            with open(path, "wb") as f:
+                np.savez(f, **payload)
+        if self.shard is not None:
+            # no rank reads the file before rank 0 has written it
+            self.shard.mesh.agree([len(entries)])
         return len(entries)
+
+    def _block_specs(self):
+        """The host tier's block specs when its heads are split over the
+        model axis (``serve_swap_block_specs``), else None."""
+        if self.shard is None or self.shard.tp.comm.size == 1:
+            return None
+        return self.shard.sharding.serve_swap_block_specs(self.cache)
+
+    def _gather_heads(self, kvs, specs):
+        """One block's per-group tensors with every rank's KV heads."""
+        comm = self.shard.tp.comm
+        out = []
+        for kv, spec in zip(kvs, specs):
+            g = {}
+            for name, t in kv.items():
+                if "model" not in spec[name]:
+                    g[name] = t
+                    continue
+                # as raw bytes: exact for every storage type (codes too)
+                dim = list(spec[name]).index("model")
+                b = t.contiguous().view(torch.uint8).to(self.device)
+                g[name] = comm.place(b, b.shape[dim] * comm.size,
+                                     dim).cpu().view(t.dtype)
+            out.append(g)
+        return tuple(out)
 
     def restore(self, path: str) -> int:
         """Load persisted prefix blocks into the host tier (they promote to
@@ -1322,6 +1364,7 @@ class PagedKV:
         ``ValueError`` on a fingerprint mismatch; keeps what fits when the
         tier is smaller than the file. Returns the entries restored."""
         store = kv_quant.storage_dtype(self.kv_dtype, self.opts.dtype)
+        specs = self._block_specs()
         with np.load(path) as data:
             fp = str(data["fingerprint"])
             if fp != self._fingerprint():
@@ -1352,6 +1395,8 @@ class PagedKV:
                             kv[name] = torch.from_numpy(
                                 data[f"{name}_{i}_{g}"].astype(np.float32))
                     kvs.append(kv)
+                if specs is not None:   # this rank's heads of the file's
+                    kvs = host_to_mesh(kvs, specs, self.shard.mesh)
                 self.host.write(h, tuple(kvs))
                 self.host_map[key] = h
                 self.host_keys[h] = (key, tokens)
@@ -1425,7 +1470,12 @@ class PagedKV:
             self.keys[slot] = key
         first, krow = self._sample(logits, self.keys[slot:slot + 1])
         self.keys[slot] = krow[0]
-        return first
+        return self._agree(first)
+
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """A program output, data rank 0's on every rank (every data rank
+        computed every slot)."""
+        return t if self.shard is None else self.shard.merge_slots(t, False)
 
     def decode(self, next_tokens: torch.Tensor) -> torch.Tensor:
         tables = tensor(self.tables_host, self.device)
@@ -1433,7 +1483,7 @@ class PagedKV:
                                                 next_tokens, self.keys,
                                                 tables)
         self.pos_host += self.K
-        return toks
+        return self._agree(toks)
 
     def reserve(self, slot: int, k: int) -> bool:
         """Demand-allocate (and CoW-fork) the blocks the next ``k`` writes
@@ -1513,12 +1563,13 @@ class PagedKV:
         # particular not a CoW-shared prefix block)
         scan_tables = np.where(dec_mask[:, None], self.tables_host,
                                self.trash).astype(np.int32)
-        d = self.device
+        toks, clen_t, start_t, reset, emit0, dec_mask_t, tables, scan = \
+            operands((chunk_tokens, clen, start, reset, emit0, dec_mask,
+                      self.tables_host, scan_tables), self.device, self.shard)
         self.cache, t0, seq, self.keys = self._serve(
-            self.params, self.cache, tensor(chunk_tokens, d), tensor(clen, d),
-            tensor(start, d), tensor(reset, d), tensor(emit0, d), dec_tok,
-            tensor(dec_mask, d), self.keys, tensor(self.tables_host, d),
-            tensor(scan_tables, d))
+            self.params, self.cache, toks, clen_t, start_t, reset, emit0,
+            dec_tok, dec_mask_t, self.keys, tables, scan)
+        t0, seq = self._agree(t0), self._agree(seq)
         self.pos_host[:] = (np.asarray(start, np.int64)
                             + np.asarray(clen, np.int64)
                             + self.K * dec_mask.astype(np.int64))
@@ -1536,12 +1587,13 @@ class PagedKV:
         """One draft-widened verify program over the pools. Host positions
         do not move here: the engine commits each row by ``rollback(slot,
         start + n_emit)`` once it has read the accept counts."""
-        d = self.device
+        toks, clen, start, vmask, tables = operands(
+            (tokens, clen, start, vmask, self.tables_host), self.device,
+            self.shard)
         self.cache, out, n_emit, self.keys = self._verify(
-            self.params, self.cache, tensor(tokens, d), tensor(clen, d),
-            tensor(start, d), tensor(vmask, d), self.keys,
-            tensor(self.tables_host, d))
-        return out, n_emit
+            self.params, self.cache, toks, clen, start, vmask, self.keys,
+            tables)
+        return self._agree(out), self._agree(n_emit)
 
     def rollback(self, slot: int, new_len: int) -> None:
         """Truncate ``slot``'s residency to ``new_len`` tokens

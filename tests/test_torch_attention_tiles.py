@@ -33,6 +33,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import slot_decode as tsd  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 ROWS, TILE_KEYS = 64, 64
 NEG_INF = -1e30

@@ -22,6 +22,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_ref)
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 LOG2E = 1.4426950408889634
 #: B, S, HQ, HKV, dh, window (all causal): HKV 3, odd dh (padded to 64),

@@ -52,6 +52,9 @@ from repro_torch.serve.paging import export_chain  # noqa: E402
 from repro_torch.serve.telemetry import (chrome_trace,  # noqa: E402
                                          load_trace, validate_events,
                                          validate_spans)
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)
@@ -575,8 +578,9 @@ def test_run_fleet_engine_reports_jax_keys():
     assert ([set(u) for u in trep["per_replica"]]
             == [set(u) for u in jrep["per_replica"]])
     assert trep["requests"] == 2 and trep["fleet_handoffs"] == 2
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["--mesh", "1,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_fleet_engine("tinyllama-1.1b", "nss_shortcut", device="cpu",
-                         scale=0.5)
+    with pytest.raises(NotImplementedError, match="entry 9c"):
+        main(["--mesh", "1,2", "--device", "cpu"])
+    # --scale widens the smoke model as the serve launcher does
+    srep = run_fleet_engine("tinyllama-1.1b", "nss_shortcut", device="cpu",
+                            scale=1.5, requests=1, prompt_len=8, gen_len=4)
+    assert srep["requests"] == 1 and srep["total_tokens"] == 4

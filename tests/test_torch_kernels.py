@@ -26,6 +26,9 @@ from repro_torch.kernels import paged_decode as tpd  # noqa: E402
 from repro_torch.kernels import paged_prefill as tpp  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
 from repro_torch.kernels import slot_decode as tsd  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 F32, BF16 = "float32", "bfloat16"
 

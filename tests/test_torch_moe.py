@@ -42,6 +42,9 @@ from repro_torch.models import ModelOptions as TOpts  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import slotify as tslotify  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 ARCH = "moonshot-v1-16b-a3b"
 F32, BF16 = "float32", "bfloat16"

@@ -30,6 +30,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import moe_route as troute  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rmsnorm as trms  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 F32, BF16 = "float32", "bfloat16"
 #: a decode block's warps (``DEC_WARPS`` in the source)

@@ -34,6 +34,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import kv_quant as tkq  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import slot_decode as tsd  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 NEG_INF = -1e30
 F32_TOL, BF16_TOL = 1e-5, 2e-2

@@ -51,6 +51,9 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.serve import (BlockPool, PrefixIndex, Request,  # noqa: E402
                                ServeEngine, Telemetry, synthetic_requests)
 from repro_torch.serve import scheduler as tsched  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 _MOE = get_config("moonshot-v1-16b-a3b").smoke()

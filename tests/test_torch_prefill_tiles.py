@@ -26,6 +26,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 TILE_KEYS = 64
 NEG_INF = -1e30

@@ -46,6 +46,9 @@ from repro_torch.models import (ModelOptions, decode_step_paged,  # noqa: E402
                                 init_params, serve_chunk_step_paged)
 from repro_torch.serve import ServeEngine, synthetic_requests  # noqa: E402
 from repro_torch.serve.paging import copy_block, init_paged_cache  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)

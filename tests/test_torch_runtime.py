@@ -25,6 +25,9 @@ from repro_torch.models import ModelOptions  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime import (DriverConfig, FailureInjector,  # noqa: E402
                                  train)
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 OPTS = ModelOptions(attn_impl="ref", scan_impl="ref", dtype=torch.float32)
@@ -298,7 +301,7 @@ def test_launch_train_main_end_to_end(tmp_path):
 
 def test_launch_train_refuses_mesh_and_missing_gpu(tmp_path):
     from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="13"):
+    with pytest.raises(NotImplementedError, match="9b"):
         launch_train.main(["--smoke", "--device", "cpu", "--data-mesh", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -45,6 +45,9 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve import slotify as tslotify  # noqa: E402
 from repro_torch.serve.cache import write_slot  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 ARCH = "rwkv6-7b"
 F32, BF16 = "float32", "bfloat16"

@@ -32,6 +32,9 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.models import (ModelOptions, decode_step,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.serve import ServeEngine, synthetic_requests  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)

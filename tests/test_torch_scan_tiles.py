@@ -40,6 +40,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import mamba_ssm as tmamba  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rwkv6 as trwkv  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 F32, BF16 = "float32", "bfloat16"
 CSRC = Path(trwkv.__file__).resolve().parent.parent / "csrc"

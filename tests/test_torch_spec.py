@@ -40,6 +40,9 @@ from repro_torch.models import (ModelOptions, decode_step,  # noqa: E402
                                 serve_verify_step, serve_verify_step_paged)
 from repro_torch.serve import (DraftProposer, Request,  # noqa: E402
                                ServeEngine, SlotState, synthetic_requests)
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)

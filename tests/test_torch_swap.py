@@ -33,6 +33,9 @@ from repro_torch.models import (ModelOptions, decode_step,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.serve import (PreemptionPolicy, Request,  # noqa: E402
                                ServeEngine, SlotScheduler, synthetic_requests)
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)

@@ -48,6 +48,9 @@ from repro_torch.serve.paging import (HostBlockStore, SwapStream,  # noqa: E402
 from repro_torch.serve.scheduler import BudgetTuner  # noqa: E402
 from repro_torch.serve.telemetry import (validate_events,  # noqa: E402
                                          validate_spans)
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 CFG = get_config("tinyllama-1.1b").smoke()
 # two pattern positions, two blocks of them: four layers, L = 2 a group

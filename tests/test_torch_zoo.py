@@ -29,6 +29,9 @@ from repro_torch.models import ModelOptions as TOpts  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import slotify as tslotify  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 ATOL = 1e-4
 TOPTS = TOpts(attn_impl="ref", dtype=torch.float32)

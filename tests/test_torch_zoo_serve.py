@@ -24,6 +24,9 @@ from repro_torch.core import L3_NSS, LinkageConfig, preset  # noqa: E402
 from repro_torch.models import (ModelOptions, decode_step,  # noqa: E402
                                 init_params, prefill)
 from repro_torch.serve import ServeEngine, synthetic_requests  # noqa: E402
+from torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
 
 OPTS = ModelOptions(attn_impl="ref", dtype=torch.float32)
 MAX_LEN = 48

@@ -50,6 +50,8 @@
     python3 chip_smoke.py mesh    # the build, the kernels at the mesh's
                                   # local shapes, the unsharded paths, the
                                   # mesh phase
+    python3 chip_smoke.py mesh-train  # the build, the kernels at the
+                                  # training mesh's local shapes, MT1-MT3
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero before the result line):
@@ -311,6 +313,25 @@ non-zero before the result line):
    run's K/V writes). The kernel phase
    holds rows 1-6b at the mesh's local shapes (labels ``mesh``). Two
    ranks sharing a card measure correctness, not tensor-parallel speed.
+13. training over a mesh, the last phase (``mesh_train_phase``):
+   full-width tinyllama-1.1b in fp32, TR1's data, the ranks of both
+   meshes at once on the one card over gloo. MT1:
+   ``build_sharded_train_step`` at 2x1 (FSDP, 2 of the 4 sequences a
+   rank) and 1x2 (Megatron, HQ 16, HKV 2 a rank) over MAIN_BLOCKS (8)
+   layers against the unsharded kernel path from one seed (TR2's
+   tolerances: step 1's loss, gradient norm and every piece's gradient;
+   3 steps' losses within 10 x lr), flash and its backward 8 launches a
+   rank a step, rmsnorm 17, the last step profiled; MT3: the launcher's
+   rank entry (what ``--data-mesh 2`` runs in each rank) in the 2x1
+   ranks at 2 layers, a failure at step 3 replayed from the step-2
+   checkpoint, every rank's final state equal to the clean run's
+   (sha256); MT2: the clean run's step-2 checkpoint (saved at 2x1,
+   gathered, rank 0 writing) restored onto 1x2 and one device bit for
+   bit, 1x2 training on from it within 10 x lr of 2x1. The kernel phase
+   and the backward's cases hold rmsnorm, flash and its backward at the
+   training mesh's local shapes (labels ``mesh train``). Logged: a
+   rank's seconds a step, device busy, peak memory and bytes to each
+   kind of collective.
 
 Kernel times: ``ms`` is CUDA-event time per call over back-to-back calls
 (at the main path's small shapes that is the host's launch cost);
@@ -889,6 +910,11 @@ def make_cases(gen, dtype):
     paged_prefill_case("mesh 1x2: paged prefill q (4,24,16,64) starts "
                        "(0,8,24,40)", SLOTS, CHUNK_W, NB, BS, 16, 2, 64,
                        (0, 8, 24, 40))
+    # the training mesh's local shapes: 2 of the 4 sequences a rank at
+    # 2x1, HQ 16 and HKV 2 a rank at 1x2 (rows replicated over "model")
+    rms_case("mesh train 2x1: rows (2,1024,2048)", (2, 1024, 2048))
+    flash_case("mesh train 2x1: q (2,1024,32,64) HKV=4", 2, 1024, 32, 4, 64)
+    flash_case("mesh train 1x2: q (4,1024,16,64) HKV=2", 4, 1024, 16, 2, 64)
     for kvd in ("int8", "fp8"):
         paged_decode_quant_case("mesh 1x2: paged decode q (4,16,64) pools "
                                 "(22,16,2,64)", kvd, SLOTS, NB, BS, 16, 2,
@@ -4469,6 +4495,9 @@ FLASH_BWD_CASES = (
     ("ragged S 129", 2, 129, 28, 4, 128, 0),
     ("ragged dh 80 window 100", 2, 333, 32, 8, 80, 100),
     ("ragged dh 112 S 100", 1, 100, 16, 2, 112, 0),
+    # the training mesh's local shapes (checked, not timed)
+    ("mesh train 2x1", 2, 1024, 32, 4, 64, 0),
+    ("mesh train 1x2", 4, 1024, 16, 2, 64, 0),
 )
 #: max |kernel - plain| of dq, dk, dv over the largest |grad| of the three
 #: (at least 1): fp32 sums in another order; a bf16 kernel rounds its
@@ -4643,7 +4672,7 @@ def flash_bwd_phase(gen):
                    "geometry": geo and geo._asdict(),
                    "shape": f"q ({B},{S},{HQ},{dh}), kv ({B},{S},{HKV},"
                             f"{dh}), window {window}"}
-            if not label.startswith("ragged"):
+            if not label.startswith(("ragged", "mesh")):
                 b_ms, b_by = bound(nbytes(q, k, v, o, do, q, k, v),
                                    10.0 * dh * pairs, dtype)
                 qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -5047,6 +5076,362 @@ def train_phases(gen, rows=None):
     return rows, counts, summary
 
 
+# ---------------------------------------------------------------------------
+# training over a (data, model) mesh (MT1-MT3)
+# ---------------------------------------------------------------------------
+
+#: MT1: full-width tinyllama-1.1b cut to MT_LAYERS layers, fp32, TR1's
+#: data (4 x 1,024 tokens), lr 1e-3, L2 with the shortcut's kernels; the
+#: sharded step at 2x1 and 1x2 against the unsharded kernel path from one
+#: seed over MT_STEPS steps, gated by TR2_TOL
+MT_LAYERS, MT_STEPS = MAIN_BLOCKS, 3
+#: MT3: the launcher's rank entry (what ``--data-mesh 2`` runs in each
+#: rank) in the 2x1 ranks, ret_byp_shortcut read every call, TR3's form
+#: shorter: 2 layers, 4 steps, a checkpoint at step 2, a failure at step 3
+#: on every rank. MT2 restores the clean run's step-2 checkpoint (saved
+#: at 2x1) onto 1x2, which trains on to step 4, and onto one device
+MT3_LAYERS, MT3_STEPS, MT3_CKPT, MT3_FAIL = TR3_LAYERS, 4, 2, 3
+#: the kernels' launches a rank a forward and backward on the mesh
+MT_LAUNCHES = {"flash_attention": MT_LAYERS,
+               "flash_attention_bwd": MT_LAYERS,
+               "rmsnorm": 2 * MT_LAYERS + 1}
+
+
+def _file_equal(path, step, full) -> bool:
+    """Whether a checkpoint's arrays equal ``full``'s leaves bit for bit
+    (read leaf by leaf)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    with np.load(f"{path}/step_{step:08d}/arrays.npz") as z:
+        for i, x in enumerate(tree.leaves(full)):
+            a = torch.from_numpy(z[f"leaf_{i}"]).to(x.device)
+            if a.dtype != x.dtype or not torch.equal(a, x):
+                return False
+    return True
+
+
+def _mt3_launch(ckpt_dir, fail=()) -> dict:
+    """The launcher's flags for MT3 (``launch/train.py: run``'s dict):
+    --data-mesh 2, the checkpoints under ``ckpt_dir``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dict(
+        arch=dataclasses.replace(get_config(TRAIN_ARCH),
+                                 num_blocks=MT3_LAYERS),
+        preset="ret_byp_shortcut", steps=MT3_STEPS, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, lr=TRAIN_LR, smoke=False, scale=1.0,
+        ckpt_dir=ckpt_dir, ckpt_every=MT3_CKPT, nss_steps=4, sync_every=1,
+        data_mesh=2, device="cuda", report_json=None, fail_at=fail,
+        digest=True)
+
+
+def _mt3_rank(mesh, ckpt_dir):
+    """MT3 in a 2x1 rank: the launcher's rank entry, clean (its
+    checkpoints under ``ckpt_dir``/clean, MT2's) and with a failure, each
+    rank's losses, restarts and final state's sha256."""
+    import os
+
+    from repro_torch.launch import train as launch_train
+    out = {}
+    for name, fail in (("clean", ()), ("failed", (MT3_FAIL,))):
+        t = time.perf_counter()
+        rep = launch_train.train_rank(mesh, _mt3_launch(
+            os.path.join(ckpt_dir, name), fail))
+        out[name] = dict(rep, seconds=time.perf_counter() - t)
+    return out
+
+
+def _mt2_rank(mesh, ckpt_dir):
+    """MT2 in a 1x2 rank: the MT3 clean run's step-MT3_CKPT checkpoint
+    (saved at 2x1), once committed, restored onto this mesh under the
+    launcher's configuration, gathered and held against the file (rank
+    0), then trained on to step MT3_STEPS."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import build_sharded_train_step, init_train_state
+    from repro_torch.data import DataConfig, Pipeline, stage
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding.placement import train_shard
+    from repro_torch.sharding.rules import gather
+    deadline = time.monotonic() + 300
+    while ckpt.latest_step(ckpt_dir) != MT3_CKPT:
+        if time.monotonic() > deadline:
+            raise TimeoutError("MT2: no checkpoint from the 2x1 mesh")
+        time.sleep(0.5)
+    kw = _mt3_launch(ckpt_dir)
+    cfg, lk, opts, ocfg = launch_train._setup(kw)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    like = init_train_state(cfg, ocfg, gen, "cuda")
+    fn, sspecs, bspecs = build_sharded_train_step(cfg, opts, ocfg, lk, mesh,
+                                                  like, TRAIN_BATCH)
+    pieces = train_shard(cfg, like, mesh, TRAIN_BATCH).state
+    del like
+    state = ckpt.restore(ckpt_dir, MT3_CKPT, pieces, sspecs, mesh)
+    del pieces
+    full = gather(state, sspecs, mesh)
+    out = {"restored_equal": (_file_equal(ckpt_dir, MT3_CKPT, full)
+                              if mesh.rank == 0 else None)}
+    del full
+    pipe = Pipeline(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ))
+    out["resumed_losses"] = []
+    for i in range(MT3_CKPT, MT3_STEPS):
+        state, m = fn(state, stage(pipe.batch_at(i), "cuda", bspecs, mesh))
+        out["resumed_losses"].append(float(m["loss"]))
+    out["resumed_step"] = int(state.step)
+    return out
+
+
+def _mesh_train_rank(mesh, ckpt_dir):
+    """One rank of ``mesh_train_phase`` (``spawn``'s entry, in a process
+    of its own): MT1 on this mesh (the unsharded kernel path first, on
+    this rank: step 1's loss and gradient, this rank's pieces of it kept,
+    then MT_STEPS in-place steps; then the sharded step from the same
+    init: step 1's gradient held against those pieces, then applied, and
+    the steps after), then MT3 at 2x1 and MT2 at 1x2."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.core import (L2_BYP, LinkageConfig,
+                                  build_sharded_train_step, make_train_step)
+    from repro_torch.data import stage
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, loss_fn
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import shard, shard_leaf, spec_leaves
+    kernel = ModelOptions(attn_impl="kernel", scan_impl="ref",
+                          dtype=torch.float32, fused_norm=True)
+    lk = LinkageConfig(level=L2_BYP, shortcut=True)
+    cfg, ocfg, state, pipe = _train_state(MT_LAYERS, TRAIN_STEPS)
+    fn, sspecs, bspecs = build_sharded_train_step(cfg, kernel, ocfg, lk,
+                                                  mesh, state, TRAIN_BATCH)
+    pieces = shard(state, sspecs, mesh)
+    raw = [pipe.batch_at(i) for i in range(MT_STEPS)]
+    out = {"mesh": mesh.describe(), "rank": mesh.rank,
+           "backend": mesh.backend, "device": str(mesh.device)}
+
+    # the unsharded kernel path, on this rank
+    live = [p.detach().requires_grad_(True)
+            for p in tree.leaves(state.params)]
+    loss, _ = loss_fn(tree.unflatten(state.params, live),
+                      stage(raw[0], "cuda"), cfg, kernel)
+    grads = torch.autograd.grad(loss, live)
+    del live
+    out["ref_loss"] = float(loss.detach())
+    out["ref_grad_norm"] = math.sqrt(sum(float(g.double().square().sum())
+                                         for g in grads))
+    want = [shard_leaf(g, sp, mesh, mesh.coords)
+            for g, sp in zip(grads, spec_leaves(sspecs.params))]
+    del grads, loss
+    step = make_train_step(cfg, kernel, ocfg, inplace=True)
+    out["ref_losses"] = []
+    for b in raw:
+        state, m = step(state, stage(b, "cuda"))
+        out["ref_losses"].append(float(m["loss"]))
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    # the sharded step from the same init
+    batches = [stage(b, "cuda", bspecs, mesh) for b in raw]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    comm.reset_traffic()
+    out["losses"], out["step_s"] = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prof = None
+        if i == MT_STEPS - 1:     # the last step profiled: device busy
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        g, m = fn.grads(pieces.params, b)
+        if i == 0:
+            out["loss"] = float(m["loss"])
+            out["grad_norm"] = float(adamw.global_norm(g, sspecs.params,
+                                                       mesh))
+            out["max_rel_grad_diff"] = max(
+                float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for a, w in zip(tree.leaves(g), want))
+            del want
+        pieces, m = fn.apply(pieces, g, m)
+        del g
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            ev = _device_events(prof)
+            out["busy_s"] = sum(us for _, us in ev.values()) / 1e6
+            out["cuda_records"] = sum(n for n, _ in ev.values())
+    out["launches"] = ops.launch_counts()
+    out["traffic"] = comm.traffic()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del pieces, batches
+    torch.cuda.empty_cache()
+    mt = os.path.join(ckpt_dir, "mt3")
+    if mesh.describe() == "2x1":
+        out["mt3"] = _mt3_rank(mesh, mt)
+    else:
+        out["mt2"] = _mt2_rank(mesh, os.path.join(mt, "clean"))
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase():
+    """Training over a (data, model) mesh: full-width tinyllama-1.1b,
+    fp32, the ranks of both meshes on the one H100 at once over gloo (a
+    correctness run: ranks sharing a card, and every collective through
+    host memory, measure no tensor-parallel or data-parallel speed).
+
+    MT1  at 2x1 (FSDP and data parallelism: 2 of the 4 sequences a rank)
+         and 1x2 (Megatron tensor parallelism, HQ 16, HKV 2 a rank, and
+         FSDP's one-piece case), ``build_sharded_train_step`` at L2 with
+         the flash and rmsnorm kernels against the unsharded kernel path
+         from the same seed and batches, MT_LAYERS layers: step 1's loss,
+         the whole gradient's norm (``adamw.global_norm`` over the
+         pieces), every piece's max |dgrad| over its max |grad| (TR2_TOL),
+         then MT_STEPS steps' losses within 10 x lr. Every rank launches
+         flash forward and backward MT_LAYERS times a step and rmsnorm
+         2 MT_LAYERS + 1.
+    MT3  the launcher's rank entry (``launch/train.py: train_rank``, what
+         ``--data-mesh 2`` runs in each rank) in the 2x1 ranks at
+         MT3_LAYERS layers, ret_byp_shortcut read every call, MT3_STEPS
+         steps, a checkpoint at step MT3_CKPT, clean and with a failure at
+         step MT3_FAIL on every rank: one restart, the losses replayed
+         bit for bit and each rank's final state's sha256 equal to the
+         clean run's.
+    MT2  the clean MT3 run's step-MT3_CKPT checkpoint (the 2x1 state,
+         gathered, rank 0 writing) restored onto 1x2 (the gathered pieces
+         equal to the file bit for bit) and onto one device here (equal
+         to the file bit for bit); 1x2 trains on from it to step
+         MT3_STEPS: its losses finite, below the last loss before the
+         save, and within 10 x lr of the uninterrupted 2x1 run's.
+
+    Logged: each rank's seconds a step (the last step profiled: device
+    busy and idle share), peak memory and the bytes it handed each kind
+    of collective a step. Returns the launch counts by (mesh, rank)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch.mesh import spawn
+    _release()
+    t_start = time.time()
+    tol = TR2_TOL
+    failed, counts, ranks, errors = [], {}, {}, []
+    d = tempfile.mkdtemp(prefix="repro_torch_mt_")
+
+    def run(spec):
+        t0 = time.time()
+        try:
+            ranks[spec] = spawn(_mesh_train_rank, spec, "cuda", (d,),
+                                deadline_s=420)
+        except Exception as e:      # re-raised below
+            errors.append(e)
+        log(f"MT {spec.replace(',', 'x')}: spawn {time.time() - t0:.1f} s")
+    try:
+        # both meshes at once: 1x2 restores 2x1's checkpoint once committed
+        threads = [threading.Thread(target=run, args=(spec,))
+                   for spec in ("2,1", "1,2")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        # MT2 on one device, here
+        mt2_dir = f"{d}/mt3/clean"
+        _, _, like, _ = _train_state(MT3_LAYERS, MT3_STEPS)
+        one = ckpt.restore(mt2_dir, MT3_CKPT, like)
+        one_equal = _file_equal(mt2_dir, MT3_CKPT, one)
+        one_step = int(one.step)
+        del like, one
+        _release()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for spec, rs in ranks.items():
+        mname = spec.replace(",", "x")
+        log(f"MT1 {mname}: backend {rs[0]['backend']}, devices "
+            f"{[r['device'] for r in rs]}")
+        for r in rs:
+            per = {k: v / MT_STEPS for k, v in sorted(r["launches"].items())}
+            traffic = {k: v / MT_STEPS
+                       for k, v in sorted(r["traffic"].items())}
+            counts[f"{mname} rank {r['rank']}"] = r["launches"]
+            diffs = [abs(a - b) for a, b in zip(r["losses"], r["ref_losses"])]
+            log(f"MT1 {mname} rank {r['rank']}: step 1 loss {r['loss']!r} "
+                f"(unsharded {r['ref_loss']!r}), grad norm "
+                f"{r['grad_norm']!r} (unsharded {r['ref_grad_norm']!r}), "
+                f"max |dgrad| / max |grad| {r['max_rel_grad_diff']!r}; "
+                f"losses {r['losses']} (unsharded {r['ref_losses']}, |d| "
+                f"{diffs}); s a step {r['step_s']} (the last profiled: "
+                f"device busy {r['busy_s']!r} s, {r['cuda_records']} CUDA "
+                f"records; idle share against step 2's unprofiled wall "
+                f"{max(0.0, 1 - r['busy_s'] / r['step_s'][1])!r}); peak "
+                f"memory "
+                f"{r['peak_memory_bytes'] / 1e9:.3f} GB; launches a step "
+                f"{per}; bytes a step to the collectives {traffic}")
+            if (abs(r["loss"] - r["ref_loss"]) > tol["loss"]
+                    or abs(r["grad_norm"] - r["ref_grad_norm"])
+                    > tol["grad_norm"] * r["ref_grad_norm"]
+                    or r["max_rel_grad_diff"] > tol["grad"]
+                    or max(diffs) > tol["losses"]
+                    or not all(map(math.isfinite, r["losses"]))):
+                failed.append(f"MT1 {mname} rank {r['rank']}: outside "
+                              f"{tol}")
+            for k, n in MT_LAUNCHES.items():
+                if r["launches"].get(k, 0) != n * MT_STEPS:
+                    failed.append(f"MT1 {mname} rank {r['rank']}: {k} "
+                                  f"launched {r['launches'].get(k)} times "
+                                  f"over {MT_STEPS} steps, want {n} a step")
+    for r in ranks["2,1"]:
+        clean, fail = r["mt3"]["clean"], r["mt3"]["failed"]
+        want = clean["losses"][:MT3_FAIL] + clean["losses"][
+            MT3_FAIL // MT3_CKPT * MT3_CKPT:]
+        log(f"MT3 rank {r['rank']}: clean {clean['seconds']:.1f} s, losses "
+            f"{clean['losses']}, sha256 {clean['state_sha256']}; failed "
+            f"{fail['seconds']:.1f} s, restarts {fail['restarts']}, losses "
+            f"{fail['losses']}, sha256 {fail['state_sha256']}; peak memory "
+            f"{clean['peak_mem_gb']!r} / {fail['peak_mem_gb']!r} GB; "
+            f"launches {clean['launches']}; bytes to the collectives "
+            f"{clean['traffic']}")
+        counts[f"MT3 rank {r['rank']}"] = clean["launches"]
+        if (fail["restarts"] != 1 or fail["losses"] != want
+                or fail["state_sha256"] != clean["state_sha256"]):
+            failed.append(f"MT3 rank {r['rank']}: restarts "
+                          f"{fail['restarts']}, losses {fail['losses']} "
+                          f"against {want}, sha256 differ")
+    clean = ranks["2,1"][0]["mt3"]["clean"]["losses"]
+    after, before = clean[MT3_CKPT:], clean[MT3_CKPT - 1]
+    mt2 = {"restored_equal": ranks["1,2"][0]["mt2"]["restored_equal"],
+           "one_device_equal": one_equal, "one_device_step": one_step,
+           "resumed_losses": [r["mt2"]["resumed_losses"]
+                              for r in ranks["1,2"]],
+           "2x1_losses_after": after, "last_before_save": before}
+    log(f"MT2: {mt2}")
+    for r in ranks["1,2"]:
+        rl = r["mt2"]["resumed_losses"]
+        if (not mt2["restored_equal"] or not one_equal
+                or one_step != MT3_CKPT
+                or r["mt2"]["resumed_step"] != MT3_STEPS
+                or not all(map(math.isfinite, rl)) or max(rl) >= before
+                or max(abs(a - b) for a, b in zip(rl, after))
+                > tol["losses"]):
+            failed.append(f"MT2 rank {r['rank']}: {mt2}")
+    log(f"mesh train phase: {time.time() - t_start:.1f} s (ranks sharing "
+        "one card over gloo measure correctness, not parallel speed)")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return counts
+
+
 def launch_log():
     """The instantiations of the kernels with dynamic shared memory beside
     ptxas's lines: for paged prefill each (query type, pool type, padded
@@ -5256,6 +5641,10 @@ def main() -> int:
         phase(kernel_phase, gen, "mesh")
         phase(mesh_phase)
         return 0
+    if sys.argv[1:] == ["mesh-train"]:
+        phase(kernel_phase, gen, "mesh train")
+        phase(mesh_train_phase)
+        return 0
     if sys.argv[1:] == ["bwd"]:
         phase(flash_bwd_phase, gen)
         return 0
@@ -5293,6 +5682,7 @@ def main() -> int:
     mamba_counts = phase(mamba_phases)
     zoo_counts = phase(zoo_phase)
     _, train_counts, _ = phase(train_phases, gen, bwd_rows)
+    mesh_train_counts = phase(mesh_train_phase)
     records["moe_route"] = route_rows
     records["flash_attention_bwd"] = bwd_rows
     records["rwkv_scan"] = rwkv_rows
@@ -5311,7 +5701,9 @@ def main() -> int:
                **{f"fleet {n}": c for n, c in fleet_counts.items()},
                **{f"zoo {n}": c for n, c in zoo_counts.items()},
                **{f"mesh {n}": c for n, c in mesh_counts.items()},
-               "train TR1": train_counts}
+               "train TR1": train_counts,
+               **{f"mesh train {n}": c
+                  for n, c in mesh_train_counts.items()}}
     home = {"rmsnorm": "slotted open", "flash_attention": "slotted open",
             "slot_decode": "slotted open", "paged_decode": "paged A",
             "paged_prefill": "paged B", "paged_decode_quant": "paged C",

@@ -7,8 +7,12 @@ checkpoint that ``latest_step`` picks up. bfloat16, which numpy lacks, is
 stored as its uint16 bits.
 
 ``restore`` puts the arrays on the device of the state it is given, in
-that state's dtypes. Elastic restore onto another mesh waits for
-training over a mesh (ROADMAP entry 9b).
+that state's dtypes. A sharded state is saved as its full logical arrays
+(``save(..., specs, mesh)``: gathered over the mesh, written by rank 0
+alone), so the files are the unsharded layout, and ``restore(...,
+specs, mesh)`` keeps this rank's pieces of them under the *current*
+mesh, whatever mesh wrote them: the elastic restore (JAX
+``ckpt.py:94-118``).
 """
 from __future__ import annotations
 
@@ -42,11 +46,18 @@ def _decode(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None
-         ) -> str:
-    """Atomically write a checkpoint for ``step``. Returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None,
+         specs=None, mesh=None) -> str:
+    """Atomically write a checkpoint for ``step``. Returns its path. With
+    ``specs`` (and ``mesh``), ``state`` is this rank's pieces: every rank
+    calls this, the full arrays are gathered, and rank 0 writes them."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if specs is not None:
+        from repro_torch.sharding.rules import gather
+        state = gather(state, specs, mesh)
+        if mesh.rank != 0:
+            return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
     try:
         arrays, dtypes = {}, {}
@@ -84,10 +95,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, state_like):
+def restore(ckpt_dir: str, step: int, state_like, specs=None, mesh=None):
     """The checkpoint of ``step`` in the structure of ``state_like`` (a
     tree of tensors), each leaf on its ``state_like`` leaf's device and in
-    its dtype."""
+    its dtype. With ``specs`` (and ``mesh``), ``state_like`` holds this
+    rank's pieces, and each full array read is cut to this rank's piece
+    on the host before it moves."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, "COMMIT")):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -97,10 +110,22 @@ def restore(ckpt_dir: str, step: int, state_like):
     if len(meta["dtypes"]) != len(like):
         raise ValueError(f"checkpoint {path} holds {len(meta['dtypes'])} "
                          f"leaves; the state has {len(like)}")
+    cut = [None] * len(like)
+    if specs is not None:
+        from repro_torch.sharding.rules import shard_leaf, spec_leaves
+        cut = spec_leaves(specs)
+
+    def load(i, x):
+        t = _decode(z[f"leaf_{i}"], meta["dtypes"][f"leaf_{i}"])
+        if cut[i] is not None:
+            t = shard_leaf(t, cut[i], mesh, mesh.coords)
+        if tuple(t.shape) != tuple(x.shape):
+            raise ValueError(f"checkpoint {path} leaf {i}: shape "
+                             f"{tuple(t.shape)}, the state's "
+                             f"{tuple(x.shape)}")
+        return t.to(device=x.device, dtype=x.dtype)
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        out = [_decode(z[f"leaf_{i}"], meta["dtypes"][f"leaf_{i}"])
-               .to(device=x.device, dtype=x.dtype)
-               for i, x in enumerate(like)]
+        out = [load(i, x) for i, x in enumerate(like)]
     return tree.unflatten(state_like, out)
 
 

@@ -17,9 +17,10 @@ and returns a new one.
 Under a serving mesh each rank runs the same programs on its shard: the
 model layers issue their tensor-parallel collectives
 (``ModelOptions.tp``), and the KV backends merge the slots and broadcast
-the host-built operands. As in JAX (``step.py:358-359``) a mesh needs a
-linked level: L0 with a mesh raises ``ValueError``. The sharded training
-step waits for ROADMAP entry 9b.
+the host-built operands. Under a training mesh each rank runs
+``ShardedTrainStep`` on its pieces of the state (FSDP over "data",
+Megatron over "model"). As in JAX (``step.py:358-359``) a mesh needs a
+linked level: L0 with a mesh raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -146,8 +147,15 @@ def build_train_step(cfg: ArchConfig, opts: ModelOptions,
     on the device and returns the last step's alone)."""
     linkage.validate()
     micro = make_train_step(cfg, opts, ocfg, inplace=linkage.donate)
+    return LinkedStep(fn=_linked(micro, linkage), linkage=linkage)
+
+
+def _linked(micro: Callable, linkage: LinkageConfig) -> Callable:
+    """``micro`` at ``linkage``'s level: itself, or at L3 one microstep a
+    leading index of the batch with every microstep's loss stacked as
+    "loss_steps"."""
     if linkage.level != L3_NSS:
-        return LinkedStep(fn=micro, linkage=linkage)
+        return micro
 
     def fused(state, batch_k):
         losses = []
@@ -156,22 +164,180 @@ def build_train_step(cfg: ArchConfig, opts: ModelOptions,
                                            batch_k.items()})
             losses.append(metrics["loss"])
         return state, dict(metrics, loss_steps=torch.stack(losses))
-    return LinkedStep(fn=fused, linkage=linkage)
+    return fused
 
 
-def build_sharded_train_step(*args, **kwargs):
-    """JAX's ``build_sharded_train_step`` (``step.py:128-175``) shards the
-    training state over a mesh; the port's mesh serves only so far."""
-    raise NotImplementedError("the sharded training step is not ported "
-                              "yet: ROADMAP entry 9b (training over a mesh)")
+#: the loss metrics of a sharded step, means over the data axis
+_LOSS_KEYS = ("loss", "ce", "moe_aux")
+
+
+class ShardedTrainStep:
+    """One rank's training step over a (data, model) mesh
+    (``build_sharded_train_step``): ``(state pieces, batch rows) ->
+    (state pieces, metrics)``, at the linkage level's shape (L3: the
+    batch's leading index runs the microsteps). Each microstep:
+
+      1. gathers the FSDP dimension of every parameter over "data", all
+         at once (a broadcast from each data rank of its pieces of a
+         dtype, flattened): the rank then holds the model-local
+         parameters whole, so its peak memory holds them, their
+         gradients and the flat reduce buffer (each of the model-local
+         size) beside the pieces, the moments and the activations;
+      2. runs the forward and backward at the local widths (``ModelOptions
+         .tp``: Megatron's collectives over "model", which autograd sees;
+         the flash and rmsnorm ``Function``s at the local shapes);
+      3. sums the whole ``wk``/``wv`` gradients over "model" where the
+         KV heads do not split, then reduces every gradient as a mean
+         over "data" (one all-reduce of the flattened gradients a dtype;
+         this rank keeps its FSDP piece);
+      4. clips by the whole gradient's norm (``adamw.global_norm`` over
+         the pieces) and runs AdamW on the pieces: in place at L2+,
+         functional at L1.
+
+    The loss metrics are the global batch's (the mean over "data": every
+    data rank holds as many sequences, and as many MoE routing groups), so
+    every rank returns the same metrics. ``grads`` is steps 1-3 alone,
+    ``apply`` step 4."""
+
+    def __init__(self, opts: ModelOptions, ocfg: adamw.AdamWConfig,
+                 linkage: LinkageConfig, layout):
+        from repro_torch.sharding.rules import spec_leaves
+        self.layout, self.ocfg, self.linkage = layout, ocfg, linkage
+        self.opts = dataclasses.replace(opts, tp=layout.tp)
+        self.specs = spec_leaves(layout.specs.params)
+        data = layout.data
+        # each leaf's FSDP dimension (None: whole over "data")
+        self.fsdp_dim = [next((d for d, dim in enumerate(spec)
+                               if dim == "data"), None)
+                         if data.size > 1 else None for spec in self.specs]
+        self._fn = _linked(self._micro, linkage)
+
+    def __call__(self, state, batch):
+        return self._fn(state, batch)
+
+    def _by_dtype(self, tensors, fsdp_only: bool):
+        """{dtype: [leaf index, ...]} (of the FSDP-cut leaves alone when
+        ``fsdp_only``)."""
+        out: Dict[torch.dtype, list] = {}
+        for i, t in enumerate(tensors):
+            if not fsdp_only or self.fsdp_dim[i] is not None:
+                out.setdefault(t.dtype, []).append(i)
+        return out
+
+    def _gather(self, pieces):
+        data = self.layout.data
+        full = list(pieces)
+        for idx in self._by_dtype(pieces, True).values():
+            flat = torch.cat([pieces[i].reshape(-1) for i in idx])
+            every = data.all_gather(flat, 0).view(data.size, -1)
+            off = 0
+            for i in idx:
+                p, n = pieces[i], pieces[i].numel()
+                full[i] = torch.cat([every[r, off:off + n].view(p.shape)
+                                     for r in range(data.size)],
+                                    self.fsdp_dim[i])
+                off += n
+        return full
+
+    def _reduce(self, grads):
+        """The mean over "data" of each full gradient, this rank's FSDP
+        piece of it (the whole of a leaf not cut over "data"). Frees
+        ``grads``' entries as it goes."""
+        data = self.layout.data
+        n = data.size
+        if n == 1:
+            return grads
+        out = list(grads)
+        for idx in self._by_dtype(grads, False).values():
+            shapes = [grads[i].shape for i in idx]
+            flat = data.sum_(torch.cat([grads[i].reshape(-1) for i in idx]))
+            for i in idx:
+                grads[i] = None
+            off = 0
+            for i, shape in zip(idx, shapes):
+                g = flat[off:off + shape.numel()].view(shape)
+                off += shape.numel()
+                d = self.fsdp_dim[i]
+                if d is not None:
+                    k = shape[d] // n
+                    g = g.narrow(d, data.index * k, k)
+                out[i] = (g / n).contiguous()
+        return out
+
+    def grads(self, params, batch):
+        """(this rank's pieces of the gradient of the global batch's mean
+        loss, {"loss", "ce", "moe_aux"} of the global batch)."""
+        lay = self.layout
+        live = [f.detach().requires_grad_(True)
+                for f in self._gather(tree.leaves(params))]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree.unflatten(params, live), batch,
+                                    lay.local_cfg, self.opts)
+            grads = list(torch.autograd.grad(loss, live, allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, live)]
+        del live, loss
+        model = lay.tp.comm
+        for g, summed in zip(grads, lay.model_summed):
+            if summed:
+                model.sum_(g)
+        out = self._reduce(grads)
+        m = torch.stack([metrics[k].detach().float().reshape(())
+                         for k in _LOSS_KEYS])
+        m = lay.data.sum_(m) / lay.data.size
+        return (tree.unflatten(params, out),
+                {k: m[i] for i, k in enumerate(_LOSS_KEYS)})
+
+    def apply(self, state: TrainState, grads, metrics):
+        """Step 4: AdamW on the pieces with ``grads``' pieces (from
+        ``grads``): (new state, the step's metrics)."""
+        lay = self.layout
+        inplace = self.linkage.donate
+        new_params, new_opt, om = adamw.update(
+            self.ocfg, grads, state.opt, state.params, inplace=inplace,
+            specs=lay.specs.params, mesh=lay.mesh)
+        step = state.step.add_(1) if inplace else state.step + 1
+        return TrainState(new_params, new_opt, step), {**metrics, **om}
+
+    def _micro(self, state: TrainState, batch):
+        return self.apply(state, *self.grads(state.params, batch))
+
+
+def build_sharded_train_step(cfg: ArchConfig, opts: ModelOptions,
+                             ocfg: adamw.AdamWConfig,
+                             linkage: LinkageConfig, mesh, state_like,
+                             global_batch: int, ep_resident: bool = False
+                             ) -> Tuple[ShardedTrainStep, Any, Any]:
+    """The training step over ``mesh`` (JAX ``step.py:128-175``): returns
+    (fn, state_specs, batch_specs). ``fn`` is this rank's
+    ``ShardedTrainStep``; ``state_specs`` the ``TrainState`` of specs its
+    state is cut by (``sharding.placement.train_shard`` cuts it), and
+    ``batch_specs`` the batch's (``data.stage(..., specs, mesh)`` stages
+    this rank's rows; at L3 with a leading microstep dimension).
+    ``state_like`` may hold ``meta`` tensors: only its structure and
+    shapes are read, as JAX reads ``ShapeDtypeStruct``s. L0 raises
+    ``ValueError``, as ``check_mesh_linkage`` does for serving; MoE, Mamba
+    and RWKV layers at a model axis > 1 raise ``NotImplementedError``
+    (ROADMAP entry 9c). Wrap ``fn`` in ``LinkedStep`` for the linkage's
+    return mode."""
+    from repro_torch.sharding.placement import train_layout
+    linkage.validate()
+    check_mesh_linkage(linkage, True)
+    layout = train_layout(cfg, mesh, state_like, global_batch,
+                          ep_resident=ep_resident)
+    bspecs = layout.batch_specs
+    if linkage.level == L3_NSS:
+        bspecs = {k: (None,) + tuple(v) for k, v in bspecs.items()}
+    return (ShardedTrainStep(opts, ocfg, linkage, layout),
+            layout.specs, bspecs)
 
 
 def check_mesh_linkage(linkage: LinkageConfig, sharded: bool) -> None:
-    """Serving over a mesh (``sharded``: a rank's program has ``opts.tp``
-    set, an engine or a launcher has a mesh) needs a linked level, as in
-    JAX, whose eager L0 cannot carry shardings."""
+    """Serving or training over a mesh (``sharded``: a rank's program has
+    ``opts.tp`` set, an engine or a launcher has a mesh) needs a linked
+    level, as in JAX, whose eager L0 cannot carry shardings."""
     if sharded and linkage.level == L0_EAGER:
-        raise ValueError("mesh serving needs a jitted linkage level")
+        raise ValueError("a mesh needs a jitted linkage level (L1-L3)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,11 +78,20 @@ class Pipeline:
         return {key: np.stack([b[key] for b in bs]) for key in bs[0]}
 
 
-def stage(batch: Dict[str, np.ndarray], device="cuda"
-          ) -> Dict[str, torch.Tensor]:
+def stage(batch: Dict[str, np.ndarray], device="cuda", specs=None,
+          mesh=None) -> Dict[str, torch.Tensor]:
     """Host -> device copy of a batch (the "copy into the pinned stack"),
     each array as a tensor of its dtype on ``device`` (``cuda`` unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). With ``specs`` (a spec an array, as
+    ``build_sharded_train_step`` returns them) and ``mesh``, this rank's
+    rows alone (JAX ``pipeline.py:78-82``): every rank of a data row its
+    share, or the whole batch where the spec replicates it."""
+    from repro_torch.sharding.rules import shard_leaf
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+
+    def put(k, v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if specs is not None:
+            t = shard_leaf(t, specs[k], mesh, mesh.coords)
+        return t.to(device)
+    return {k: put(k, v) for k, v in batch.items()}

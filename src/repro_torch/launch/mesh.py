@@ -144,12 +144,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
-                   device=None) -> Mesh:
+                   device="cuda") -> Mesh:
     """The mesh over the initialised ``torch.distributed`` world (one rank
-    a position), with one process group per axis line. Every rank calls
-    this, in the same order, since every rank takes part in making each
-    group."""
+    a position), with one process group per axis line, computing on
+    ``device`` (``cuda`` unless the caller asks for the CPU). Every rank
+    calls this, in the same order, since every rank takes part in making
+    each group."""
     import torch.distributed as dist
+    from repro_torch import resolve_device
+    device = resolve_device(device)
     shape = mesh_shape(data, model, pod).shape
     probe = Mesh(shape)
     if not dist.is_initialized() or dist.get_world_size() != probe.size:
@@ -169,14 +172,13 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
             group = dist.new_group(line)
             if rank in line:
                 comms[axis] = AxisComm(group, shape[axis], coords[axis],
-                                       line[0])
+                                       line[0], line)
     world = AxisComm(dist.group.WORLD, probe.size, rank, 0)
-    return Mesh(shape, coords, comms, world,
-                device=device if device is not None else "cpu",
+    return Mesh(shape, coords, comms, world, device=device,
                 backend=dist.get_backend())
 
 
-def make_serve_mesh(spec, device=None) -> Optional[Mesh]:
+def make_serve_mesh(spec, device="cuda") -> Optional[Mesh]:
     """The serving mesh of a ``--mesh data,model`` flag over the live
     world; None when the spec is single-device."""
     parsed = parse_mesh_spec(spec)
@@ -232,20 +234,24 @@ def _rank_main(rank: int, entry: Callable, shape: Tuple[int, int],
         dist.destroy_process_group()
 
 
-def spawn(entry: Callable, mesh_spec, device="cpu", args: Sequence = (), *,
-          timeout_s: float = 120.0,
+def spawn(entry: Callable, mesh_spec, device="cuda", args: Sequence = (),
+          *, timeout_s: float = 120.0,
           deadline_s: Optional[float] = None) -> list:
     """Run ``entry(mesh, *args)`` on every rank of a ``data,model`` mesh
-    and return the ranks' results in rank order. ``entry`` and ``args``
-    must pickle (a module-level function). ``timeout_s`` bounds each
-    collective; past ``deadline_s`` (None: no bound) the ranks are killed
-    and this raises ``TimeoutError``. A rank that raises ends the others
-    and re-raises here."""
+    on ``device`` (``cuda`` unless the caller asks for the CPU; ``cuda``
+    without a GPU raises here, before any rank starts) and return the
+    ranks' results in rank order. ``entry`` and ``args`` must pickle (a
+    module-level function). ``timeout_s`` bounds each collective; past
+    ``deadline_s`` (None: no bound) the ranks are killed and this raises
+    ``TimeoutError``. A rank that raises ends the others and re-raises
+    here."""
     import torch.multiprocessing as mp
+    from repro_torch import resolve_device
     parsed = parse_mesh_spec(mesh_spec)
     if parsed is None:
         raise ValueError(f"spawn needs a mesh of more than one rank (got "
                          f"{mesh_spec!r})")
+    device = resolve_device(device)
     world = parsed[0] * parsed[1]
     backend = choose_backend(device, world)
     with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:

@@ -14,11 +14,12 @@ in ``repro_torch.kernels.ops``, which launch the Hopper kernels for CUDA
 tensors and run their plain versions for CPU tensors); ``scan_impl`` does
 the same for the MoE router and the Mamba and RWKV recurrences.
 
-Under tensor parallelism (``ModelOptions.tp``, mesh serving) the layers
-run at the rank's local head counts and ``d_ff`` (the ``cfg`` they are
-given), and the row-parallel ``wo`` products end in one all-reduce over
-the model axis (``repro_torch.sharding.comm``); without it nothing
-changes. JAX's ``constrain_acts`` (``layers.py:65-75``), which pins
+Under tensor parallelism (``ModelOptions.tp``, a serving or training
+mesh) the layers run at the rank's local head counts and ``d_ff`` (the
+``cfg`` they are given), and the row-parallel ``wo`` products end in one
+all-reduce over the model axis (``repro_torch.sharding.comm``); under
+training the inputs of the column-parallel projections sum their
+gradients over it too. Without it nothing changes. JAX's ``constrain_acts`` (``layers.py:65-75``), which pins
 activations' shardings for GSPMD, has no counterpart: here every tensor
 already lives where the rank computes it.
 
@@ -60,7 +61,7 @@ class ModelOptions:
     remat: bool = False                 # recompute each block in backward
     logit_chunk: int = 0                # 0 = whole-seq logits, else chunked
     norm_bf16_grad: bool = False        # RMSNorm dx in the activation dtype
-    # ---- mesh serving: this rank's tensor parallelism over "model"
+    # ---- a mesh: this rank's tensor parallelism over "model"
     # (``repro_torch.sharding.comm.TensorParallel``); None on one device
     tp: Any = None
 
@@ -285,9 +286,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def _qkv(params, x, cfg: ArchConfig, opts: ModelOptions):
     """The column-parallel projections: under tensor parallelism ``cfg``
     holds the local head counts (and a rank whose KV heads do not split
-    holds ``wk``/``wv`` whole, ``serve_shard``)."""
+    holds ``wk``/``wv`` whole, ``serve_shard``); under training the
+    input's gradient is summed over the model axis (``enter``)."""
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if opts.tp is not None:
+        x = opts.tp.enter(x, opts.tp.heads)
     q = x @ params["wq"].to(x.dtype)
     k = x @ params["wk"].to(x.dtype)
     v = x @ params["wv"].to(x.dtype)
@@ -740,6 +744,8 @@ def mlp(params: Params, x: torch.Tensor,
         opts: ModelOptions = ModelOptions()) -> torch.Tensor:
     """The SwiGLU MLP; under tensor parallelism ``wi``/``wg`` hold this
     rank's slice of ``d_ff`` and ``wo`` is row-parallel."""
+    if opts.tp is not None:
+        x = opts.tp.enter(x, opts.tp.ff)
     h = (torch.nn.functional.silu(x @ params["wg"].to(x.dtype))
          * (x @ params["wi"].to(x.dtype)))
     y = h @ params["wo"].to(x.dtype)

@@ -138,9 +138,11 @@ def unembed_logits(params: Params, h: torch.Tensor, cfg: ArchConfig,
     """fp32 logits; under tensor parallelism ``lm_head`` holds this rank's
     vocab columns, assembled whole on every rank
     (``TensorParallel.logits``)."""
+    tp = opts.tp if opts is not None else None
+    if tp is not None:
+        h = tp.enter(h, tp.vocab is not None)
     w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
     logits = (h @ w.to(h.dtype)).float()
-    tp = opts.tp if opts is not None else None
     return logits if tp is None else tp.logits(logits)
 
 
@@ -288,9 +290,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         # ids and sums each id's rows in a fixed order, so a step repeats
         # bit for bit (the driver's exact recovery rests on it). Serving
         # keeps indexing: a dead slot's id may be -1, which F.embedding
-        # refuses.
-        h = torch.nn.functional.embedding(inputs.long(),
-                                          params["embed"]).to(opts.dtype)
+        # refuses. A vocab-parallel table goes through ``TensorParallel``.
+        h = (embed(params, inputs, cfg, opts)
+             if opts.tp is not None and opts.tp.vocab is not None else
+             torch.nn.functional.embedding(inputs.long(),
+                                           params["embed"]).to(opts.dtype))
     B, S = labels.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     h, aux = train_backbone(params, h, cfg, opts, positions, xctx)
@@ -301,11 +305,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                              f"length {S}")
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(0, S, c):
-            logits = unembed_logits(params, h[:, i:i + c], cfg)
+            logits = unembed_logits(params, h[:, i:i + c], cfg, opts)
             total = total + _xent(logits, labels[:, i:i + c]).sum()
         ce = total / (B * S)
     else:
-        ce = _xent(unembed_logits(params, h, cfg), labels).mean()
+        ce = _xent(unembed_logits(params, h, cfg, opts), labels).mean()
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
 

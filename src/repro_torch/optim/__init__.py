@@ -1,8 +1,8 @@
-"""The optimizer of the port (``src/repro/optim``): AdamW from scratch.
-``optim/compress.py`` (gradient compression for the data-parallel
-all-reduce) waits for training over a mesh, ROADMAP entry 9b."""
+"""The optimizer of the port (``src/repro/optim``): AdamW from scratch,
+and the int8-compressed data-parallel reduce (``compress``)."""
+from repro_torch.optim import compress
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, global_norm,
                                      init, schedule_lr, update)
 
-__all__ = ["AdamWConfig", "AdamWState", "global_norm", "init", "schedule_lr",
-           "update"]
+__all__ = ["AdamWConfig", "AdamWState", "compress", "global_norm", "init",
+           "schedule_lr", "update"]

@@ -59,14 +59,29 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32, summed leaf by
-    leaf in tree order as JAX's Python ``sum`` does."""
-    total = None
-    for g in tree.leaves(grads):
-        sq = torch.sum(torch.square(g.float()))
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    leaf in tree order as JAX's Python ``sum`` does.
+
+    With ``specs`` (and ``mesh``) ``grads`` holds this rank's pieces of a
+    sharded gradient, and this is the norm of the whole gradient: each
+    piece's squares counted once (a piece replicated over an axis only on
+    index 0 of that axis), then summed over every rank."""
+    if specs is None:
+        total = None
+        for g in tree.leaves(grads):
+            sq = torch.sum(torch.square(g.float()))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    from repro_torch.sharding.rules import spec_axes, spec_leaves
+    leaves = tree.leaves(grads)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g, spec in zip(leaves, spec_leaves(specs)):
+        cut = spec_axes(spec)
+        if all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in cut):
+            total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(mesh.world.sum_(total))
 
 
 def init(cfg: AdamWConfig, params) -> AdamWState:
@@ -80,12 +95,16 @@ def init(cfg: AdamWConfig, params) -> AdamWState:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
-           inplace: bool = False
+           inplace: bool = False, specs=None, mesh=None
            ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step (``adamw.py:63-96``): (new params, new state,
-    {"grad_norm", "lr"}). ``grads`` has the params' structure."""
+    {"grad_norm", "lr"}). ``grads`` has the params' structure. With
+    ``specs`` (the params' spec tree) and ``mesh``, every tree holds this
+    rank's pieces: the clip reads the whole gradient's norm, and the rest
+    is elementwise, piece by piece; a piece keeps its leaf's ``ndim``, so
+    weight decay still falls on the matrices alone."""
     count = state.count + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip > 0 else None)
     lr = schedule_lr(cfg, count)

@@ -17,8 +17,18 @@ hands the saver is a device copy taken before dispatch; at L3 it stages
 ``nss_steps`` batches at a time; under ret_async it reads the metrics
 only every ``linkage.sync_every`` calls, and at the end those of the
 last call if it has not read them (JAX's driver reads them again).
-Elastic restore onto another mesh waits for multi-device (ROADMAP module
-13).
+
+Over a mesh (``mesh``, with the sharded step's ``state_specs`` and
+``batch_specs``) every rank runs this loop in lockstep, making the same
+collectives in the same order: each stages its batch rows; a
+checkpoint's snapshot is gathered over the mesh (a fresh copy: the full
+logical arrays) and rank 0's saver alone writes it; before a restore
+rank 0 waits for its saver, and the ranks take rank 0's latest committed
+step (``Mesh.agree``, then a barrier), never listing the directory each
+while rank 0 may be writing; each restores its pieces under the current
+specs. A failure must reach every rank at the same step (a
+``FailureInjector`` a rank, the same steps): a rank that fails alone
+leaves the others in a collective until the group's timeout.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from repro_torch import tree
 from repro_torch.core.coprocess import AsyncCheckpointer
 from repro_torch.core.linkage import L3_NSS, LinkageConfig
 from repro_torch.data.pipeline import Pipeline, stage
+from repro_torch.sharding.rules import gather
 
 
 @dataclasses.dataclass
@@ -57,6 +68,8 @@ class DriverReport:
     #: microsteps ("loss_steps"), else the loss it read; ``losses`` keeps
     #: JAX's one loss a read
     step_losses: List[float] = dataclasses.field(default_factory=list)
+    #: the state after the last step (this rank's pieces over a mesh)
+    state: Any = None
 
 
 class FailureInjector:
@@ -85,14 +98,17 @@ def _read(report: DriverReport, metrics: Dict[str, torch.Tensor]) -> None:
 
 def train(step_fn: Callable, state, pipeline: Pipeline,
           linkage: LinkageConfig, dcfg: DriverConfig,
-          injector: Optional[FailureInjector] = None) -> DriverReport:
+          injector: Optional[FailureInjector] = None, *,
+          batch_specs=None, state_specs=None, mesh=None) -> DriverReport:
     """Run ``total_steps`` optimizer steps with full fault handling.
 
     ``step_fn(state, batch) -> (state, metrics)``; at L3 the batch carries
     a leading ``nss_steps`` dim and one call advances ``nss_steps`` steps.
-    Batches are staged on the device of the state's step counter.
-    """
+    Batches are staged on the device of the state's step counter. Over a
+    mesh, ``state`` is this rank's pieces and ``step_fn`` the sharded
+    step (``build_sharded_train_step``: its specs)."""
     report = DriverReport()
+    writes = mesh is None or mesh.rank == 0
     saver = AsyncCheckpointer(
         lambda host_state, step: (ckpt.save(dcfg.ckpt_dir, step, host_state),
                                   ckpt.prune(dcfg.ckpt_dir, dcfg.keep_ckpts)))
@@ -109,15 +125,21 @@ def train(step_fn: Callable, state, pipeline: Pipeline,
             # ---- stage the batch (PrefetchWorker in examples; direct here)
             raw = (pipeline.stacked_at(step, k) if linkage.level == L3_NSS
                    else pipeline.batch_at(step))
-            batch = stage(raw, device)
+            batch = stage(raw, device, batch_specs, mesh)
 
             # ---- checkpoint BEFORE dispatch; at L2+ the step updates the
             # state in place, so the saver gets its own device copy (freed
-            # once the host copy is made)
+            # once the host copy is made); over a mesh the gathered full
+            # arrays are that copy, but for the leaves no axis cuts
             if step % dcfg.ckpt_every == 0 and step > 0:
-                snap = (tree.tree_map(torch.clone, state) if linkage.donate
-                        else state)
-                saver.submit(snap, step)
+                snap = (state if mesh is None
+                        else gather(state, state_specs, mesh))
+                if linkage.donate:
+                    snap = tree.tree_map(
+                        lambda a, b: a.clone() if a is b else a, snap, state)
+                if writes:
+                    saver.submit(snap, step)
+                del snap
 
             t0 = time.perf_counter()
             try:
@@ -140,10 +162,17 @@ def train(step_fn: Callable, state, pipeline: Pipeline,
                     raise
                 # restore from the latest commit and replay the stream
                 saver.wait()         # every submitted snapshot is committed
-                latest = ckpt.latest_step(dcfg.ckpt_dir)
+                latest = (ckpt.latest_step(dcfg.ckpt_dir) if writes
+                          else None)
+                if mesh is not None:
+                    latest = mesh.agree([-1 if latest is None
+                                         else latest])[0]
+                    mesh.world.barrier()
+                    latest = None if latest < 0 else latest
                 if latest is None:
                     raise
-                state = ckpt.restore(dcfg.ckpt_dir, latest, state)
+                state = ckpt.restore(dcfg.ckpt_dir, latest, state,
+                                     state_specs, mesh)
                 step = latest
                 continue
 
@@ -158,6 +187,7 @@ def train(step_fn: Callable, state, pipeline: Pipeline,
             step += k
             report.steps_run += k
 
+        report.state = state
         # final sync (RET mode may have outstanding metrics)
         if pending_metrics is not None:
             report.final_metrics = _host(pending_metrics)

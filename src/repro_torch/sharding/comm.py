@@ -1,4 +1,4 @@
-"""Collectives of the port's mesh serving: the one place they are issued.
+"""Collectives of the port's meshes: the one place they are issued.
 
 ``AxisComm`` runs collectives over one mesh axis (the ranks that share
 every other coordinate). Every collective is built from ``all_reduce``
@@ -6,48 +6,108 @@ and ``broadcast``, the two that gloo takes for CUDA tensors as well as
 CPU ones, so the same code runs over gloo (ranks on the CPU, or sharing
 one card) and over NCCL (a card a rank). An axis of size 1 is the
 identity: no call reaches ``torch.distributed``, and the single-device
-path computes bit for bit what it computed before.
+path computes bit for bit what it computed before. Every collective adds
+the bytes of the tensor it is given to a per-process count by kind
+(``traffic``), which the training mesh and the compressed reduce log.
 
 ``TensorParallel`` is what the model layers read (``ModelOptions.tp``):
 Megatron-style tensor parallelism over the "model" axis. Column-parallel
 projections (``wq``/``wk``/``wv`` and their biases, ``wi``/``wg``) need
-no collective: each rank computes its heads or its slice of ``d_ff``.
-Row-parallel ones (attention's and the MLP's ``wo``) end in one
+no collective forward: each rank computes its heads or its slice of
+``d_ff``. Row-parallel ones (attention's and the MLP's ``wo``) end in one
 ``all_reduce``. The vocab-parallel embedding zeroes the ids outside the
 rank's rows and sums; the vocab-parallel ``lm_head`` writes the rank's
 slice of the logits into zeros and sums, which is exact (every other
 entry adds zero).
+
+Under training autograd must see those sums (Megatron's "f" and "g"):
+``enter`` is the identity forward and a sum over "model" backward, at
+the input of each column-parallel block (every rank's share of the
+input's gradient added up); ``row_parallel`` and the embedding's sum are
+a sum forward and the identity backward; the logits' ``place`` passes
+back the rank's slice of the incoming gradient. Without grad (serving)
+each is the in-place collective it was, so serving's outputs do not
+move.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+
+#: bytes handed to each kind of collective in this process
+_TRAFFIC: Dict[str, int] = collections.Counter()
+
+
+def traffic() -> Dict[str, int]:
+    """Bytes of the tensors handed to each kind of collective in this
+    process since the last ``reset_traffic`` ("all_reduce", "broadcast";
+    what one rank sends or receives through the call, not what the
+    backend moves inside it)."""
+    return dict(_TRAFFIC)
+
+
+def reset_traffic() -> None:
+    _TRAFFIC.clear()
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    _TRAFFIC[kind] += t.numel() * t.element_size()
 
 
 class AxisComm:
     """Collectives over one process group: ``size`` ranks, this one at
     ``index``; ``src`` is the global rank of index 0 (the broadcast
-    root)."""
+    root) and ``ranks`` the global rank of every index."""
 
     def __init__(self, group=None, size: int = 1, index: int = 0,
-                 src: int = 0):
+                 src: int = 0, ranks: Optional[Sequence[int]] = None):
         self.group, self.size, self.index, self.src = group, size, index, src
+        self.ranks = (tuple(ranks) if ranks is not None
+                      else tuple(range(src, src + size)))
+
+    def _reduce_(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        if self.size > 1:
+            import torch.distributed as dist
+            _count("all_reduce", t)
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, op),
+                            group=self.group)
+        return t
 
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the axis, in place (``t`` contiguous)."""
+        return self._reduce_(t, "SUM")
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over the axis, in place."""
+        return self._reduce_(t, "MAX")
+
+    def broadcast_(self, t: torch.Tensor, index: int = 0) -> torch.Tensor:
+        """Index ``index``'s ``t`` on every rank of the axis, in place."""
         if self.size > 1:
             import torch.distributed as dist
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+            _count("broadcast", t)
+            dist.broadcast(t, src=self.ranks[index], group=self.group)
         return t
 
-    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
-        """Index 0's ``t`` on every rank of the axis, in place."""
+    def barrier(self) -> None:
         if self.size > 1:
             import torch.distributed as dist
-            dist.broadcast(t, src=self.src, group=self.group)
-        return t
+            dist.barrier(group=self.group)
+
+    def all_gather(self, local: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every index's ``local`` (equal shapes) concatenated along
+        ``dim`` in index order, on every rank: one broadcast from each
+        index, so every piece arrives bit for bit."""
+        if self.size == 1:
+            return local
+        local = local.contiguous()
+        parts = [self.broadcast_(local if i == self.index
+                                 else torch.empty_like(local), i)
+                 for i in range(self.size)]
+        return torch.cat(parts, dim)
 
     def place(self, local: torch.Tensor, full_len: int,
               dim: int = 0) -> torch.Tensor:
@@ -62,6 +122,52 @@ class AxisComm:
         out = torch.zeros(shape, dtype=local.dtype, device=local.device)
         out.narrow(dim, self.index * n, n).copy_(local)
         return self.sum_(out)
+
+
+def _tracked(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's "f": the identity forward, the gradient summed over the
+    axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.sum_(g.contiguous().clone()), None
+
+
+class _Sum(torch.autograd.Function):
+    """Megatron's "g": a sum over the axis forward, the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, y, comm):
+        return comm.sum_(y.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Place(torch.autograd.Function):
+    """``AxisComm.place`` forward; backward, this rank's slice of the
+    incoming gradient (the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, local, comm, full_len, dim):
+        ctx.comm, ctx.dim, ctx.n = comm, dim, local.shape[dim]
+        return comm.place(local, full_len, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.comm.index * ctx.n, ctx.n), None, None,
+                None)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -86,10 +192,20 @@ class TensorParallel:
     vocab_size: int = 0
     kv_heads: Optional[slice] = None
 
+    def enter(self, x: torch.Tensor, split: bool) -> torch.Tensor:
+        """The input of a column-parallel block (``split``: its output
+        dimension is split): its gradient summed over the axis."""
+        if split and self.comm.size > 1 and _tracked(x):
+            return _Enter.apply(x, self.comm)
+        return x
+
+    def _sum(self, y: torch.Tensor) -> torch.Tensor:
+        return _Sum.apply(y, self.comm) if _tracked(y) else self.comm.sum_(y)
+
     def row_parallel(self, y: torch.Tensor, split: bool) -> torch.Tensor:
         """The output of a row-parallel product, summed over the axis
         (``split``: the product's inner dimension is split)."""
-        return self.comm.sum_(y) if split else y
+        return self._sum(y) if split and self.comm.size > 1 else y
 
     def kv_view(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The KV heads (along ``dim``) this rank's queries attend to."""
@@ -107,11 +223,18 @@ class TensorParallel:
         # a negative id reads from the end, as indexing the whole table does
         ids = torch.where(ids < 0, ids + self.vocab_size, ids)
         mine = (ids >= lo) & (ids < hi)
-        rows = table[torch.where(mine, ids - lo, 0)]
-        return self.comm.sum_(rows * mine[..., None].to(rows.dtype))
+        # F.embedding: its CUDA backward sums each row's gradients in a
+        # fixed order (the rows read are the indexing's, bit for bit)
+        rows = torch.nn.functional.embedding(torch.where(mine, ids - lo, 0),
+                                             table)
+        return self._sum(rows * mine[..., None].to(rows.dtype))
 
     def logits(self, local: torch.Tensor) -> torch.Tensor:
-        """The full logits from this rank's vocab columns."""
+        """The full logits from this rank's vocab columns (whose input went
+        through ``enter``)."""
         if self.vocab is None:
             return local
-        return self.comm.place(local, self.vocab_size, local.dim() - 1)
+        dim = local.dim() - 1
+        if _tracked(local):
+            return _Place.apply(local, self.comm, self.vocab_size, dim)
+        return self.comm.place(local, self.vocab_size, dim)

@@ -1,10 +1,11 @@
-"""Where one rank's share of a sharded serving engine lives: its weights,
-its configuration at local widths, its slot rows, and the collectives of
-each axis (JAX ``serve/cache.py:236-290`` and ``core/step.py:261-278``,
-which let ``jit`` place the same things by the partition rules).
+"""Where one rank's share of a sharded serving engine or training state
+lives: its weights, its configuration at local widths, its slot rows or
+batch rows, and the collectives of each axis (JAX ``serve/cache.py:
+236-290`` and ``core/step.py:128-175, 261-278``, which let ``jit`` place
+the same things by the partition rules).
 
 ``serve_shard(cfg, params, mesh, n_slots)`` resolves ``ArchSharding``'s
-decisions for one rank:
+decisions for one serving rank:
 
   weights   cut by ``serve_param_specs``: column-parallel ``wq``/``wk``/
             ``wv``/``wi``/``wg`` (and biases), row-parallel ``wo``,
@@ -22,9 +23,19 @@ decisions for one rank:
             this rank computes ``rows`` only, and the programs' tokens are
             merged over the data axis; otherwise replicated.
 
+``train_layout(cfg, mesh, state_like, global_batch)`` resolves them for
+one training rank, and ``train_shard`` also cuts a full ``TrainState``:
+the parameters and both AdamW moments by ``param_specs`` (FSDP over
+"data" on the dimension the rule names, tensor parallelism over
+"model"; a dimension the axis does not divide stays whole, where JAX's
+sharding pads it), the batch by ``train_batch_specs``. Where the KV heads do not
+split, ``wk``/``wv`` (and their biases) are whole over "model" here too,
+and their gradients are summed over it (``model_summed``): every rank
+uses only its own heads of them.
+
 MoE (expert parallelism), Mamba and RWKV layers at model > 1 raise
 ``NotImplementedError`` naming ROADMAP entry 9c; data-only meshes serve
-every servable config.
+and train every config.
 """
 from __future__ import annotations
 
@@ -33,7 +44,8 @@ from typing import Any
 
 from repro_torch.configs.base import ATTN, DENSE, SWA, ArchConfig
 from repro_torch.sharding.comm import AxisComm, TensorParallel
-from repro_torch.sharding.rules import ArchSharding, shard, tp_size
+from repro_torch.sharding.rules import (P, ArchSharding, _piece, _zip_specs,
+                                        shard, tp_size)
 
 
 def _entry_9c(what: str) -> NotImplementedError:
@@ -137,14 +149,94 @@ def serve_shard(cfg: ArchConfig, params, mesh, n_slots: int) -> ServeShard:
     if sh.serve_slot_axis(n_slots) is not None and data.size > 1:
         n = n_slots // data.size
         rows = slice(data.index * n, (data.index + 1) * n)
-    specs = sh.serve_param_specs(params)
-    if tp.kv_heads is not None:
-        # every KV head computed on every rank: wk/wv (and biases) whole
-        for layer in specs["layers"]:
-            mixer = layer["mixer"]
-            for k in ("wk", "wv", "bk", "bv"):
-                if k in mixer:
-                    mixer[k] = (None,) * len(mixer[k])
+    specs = _whole_kv(sh.serve_param_specs(params), sh)
     local = shard(params, specs, mesh)
     return ServeShard(mesh, sh, cfg, local_config(cfg, sh), tp, data, rows,
                       local, n_slots)
+
+
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def _every_kv_head(sh: ArchSharding) -> bool:
+    """Every KV head computed on every rank: the query heads split over
+    "model" and the KV heads do not (``TensorParallel.kv_heads``)."""
+    return tp_size(sh.mesh) > 1 and sh.tp_heads and not sh.tp_kv
+
+
+def _whole_kv(specs, sh: ArchSharding):
+    """Where every KV head is computed on every rank, ``wk``/``wv`` and
+    their biases whole over "model" (their other entries, FSDP's,
+    kept)."""
+    if _every_kv_head(sh):
+        for layer in specs["layers"]:
+            mixer = layer["mixer"]
+            for k in _KV_LEAVES:
+                if k in mixer:
+                    mixer[k] = P(*(None if d == "model" else d
+                                   for d in mixer[k]))
+    return specs
+
+
+@dataclasses.dataclass
+class TrainShard:
+    """One rank's share of a sharded training run (``train_layout``,
+    ``train_shard``). ``specs`` is the state's spec tree (a
+    ``TrainState`` of specs), ``batch_specs`` the batch's; ``model_summed``
+    holds, in ``repro_torch.tree.leaves`` order of the parameters, whether
+    a leaf's gradient is summed over "model" (whole ``wk``/``wv``)."""
+    mesh: Any
+    local_cfg: ArchConfig      # at this rank's widths
+    tp: TensorParallel         # ModelOptions.tp
+    data: AxisComm             # the batch's axis
+    specs: Any
+    batch_specs: Any
+    model_summed: list
+    state: Any = None          # this rank's pieces (``train_shard``)
+
+
+def _fit(leaf, spec, mesh):
+    """``spec`` less the axes of a dimension they do not divide: that
+    dimension stays whole over them (JAX's sharding would pad it)."""
+    return P(*(dim if leaf.shape[d] % _piece(mesh, mesh.coords, dim)[0] == 0
+               else None for d, dim in enumerate(spec)))
+
+
+def train_layout(cfg: ArchConfig, mesh, state_like, global_batch: int, *,
+                 ep_resident: bool = False) -> TrainShard:
+    """Resolve the partition rules for this rank of ``mesh`` over a
+    ``TrainState`` (only its structure and shapes are read: ``meta``
+    tensors will do). Raises ``NotImplementedError`` for what model > 1
+    does not train yet."""
+    from repro_torch import tree
+    from repro_torch.core.step import TrainState
+    from repro_torch.optim.adamw import AdamWState
+    sh = ArchSharding(cfg, mesh, ep_resident=ep_resident)
+    model = mesh.comm("model") if "model" in mesh.axis_names else AxisComm()
+    tp = tensor_parallel(cfg, sh, model)
+    pspecs = _zip_specs(lambda leaf, spec: _fit(leaf, spec, mesh),
+                        state_like.params,
+                        _whole_kv(sh.param_specs(state_like.params), sh))
+    specs = TrainState(params=pspecs,
+                       opt=AdamWState(count=P(), mu=pspecs, nu=pspecs),
+                       step=P())
+    summed = tree.tree_map(lambda _: False, state_like.params)
+    if _every_kv_head(sh):
+        for layer in summed["layers"]:
+            for k in _KV_LEAVES:
+                if k in layer["mixer"]:
+                    layer["mixer"][k] = True
+    data = mesh.comm("data") if "data" in mesh.axis_names else AxisComm()
+    return TrainShard(mesh, local_config(cfg, sh), tp, data, specs,
+                      sh.train_batch_specs(global_batch),
+                      tree.leaves(summed))
+
+
+def train_shard(cfg: ArchConfig, state, mesh, global_batch: int, *,
+                ep_resident: bool = False) -> TrainShard:
+    """``train_layout`` with this rank's pieces of the full ``state`` (on
+    this rank's device; the full one may be freed after)."""
+    out = train_layout(cfg, mesh, state, global_batch,
+                       ep_resident=ep_resident)
+    out.state = shard(state, out.specs, mesh)
+    return out

@@ -16,8 +16,9 @@ and chain specs describe the host tier's per-group (L, ...) tensors, which
 the port keeps in JAX's layout, and are JAX's exactly.
 
 ``shard`` cuts a full tree into one rank's pieces (JAX's ``named`` +
-``jax.device_put``), ``unshard`` puts every rank's pieces back together,
-and ``host_to_mesh`` places a host tree on this rank's device, cut by its
+``jax.device_put``), ``unshard`` puts every rank's pieces back together
+in one process, ``gather`` does so collectively inside the ranks, and
+``host_to_mesh`` places a host tree on this rank's device, cut by its
 specs. A mesh is anything with ``axis_names`` and a ``shape`` mapping
 (``repro_torch.launch.mesh.Mesh``); ``shard`` also reads its ``coords``.
 """
@@ -374,12 +375,29 @@ def _piece(mesh, coords: Dict[str, int], dim) -> Tuple[int, int]:
 
 def _zip_specs(fn, tree, specs):
     """``fn(leaf, spec)`` over a tree and its spec tree (specs are leaves
-    of the spec tree)."""
+    of the spec tree; NamedTuples such as ``TrainState`` are nodes)."""
     if isinstance(tree, dict):
         return {k: _zip_specs(fn, tree[k], specs[k]) for k in tree}
     if isinstance(tree, (list, tuple)) and not _is_spec(specs):
-        return type(tree)(_zip_specs(fn, x, s) for x, s in zip(tree, specs))
+        out = [_zip_specs(fn, x, s) for x, s in zip(tree, specs)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(
+            out)
     return fn(tree, specs)
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree in the order ``repro_torch.tree.leaves``
+    visits the leaves of its tree (dicts by sorted key)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if _is_spec(specs):
+        return [specs]
+    return [x for sub in specs for x in spec_leaves(sub)]
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec cuts over."""
+    return tuple(a for dim in spec for a in _axes(dim))
 
 
 def shard_leaf(leaf: torch.Tensor, spec: Spec, mesh,
@@ -432,9 +450,22 @@ def unshard(pieces: Sequence[Any], specs, mesh):
                     for k in spec_tree}
         if _is_spec(spec_tree):
             return put(spec_tree, *trees)
-        return type(trees[0])(walk(s, *xs)
-                              for s, *xs in zip(spec_tree, *trees))
+        out = [walk(s, *xs) for s, *xs in zip(spec_tree, *trees)]
+        kind = type(trees[0])
+        return kind(*out) if hasattr(trees[0], "_fields") else kind(out)
     return walk(specs, *pieces)
+
+
+def gather(tree, specs, mesh):
+    """The full tree from this rank's pieces, on every rank: each cut
+    dimension gathered over its axes (a collective: every rank of the
+    mesh calls it with the same specs), innermost axis first."""
+    def full(leaf, spec):
+        for d, dim in enumerate(spec):
+            for a in reversed(_axes(dim)):
+                leaf = mesh.comm(a).all_gather(leaf, d)
+        return leaf
+    return _zip_specs(full, tree, specs)
 
 
 def host_to_mesh(tree, specs=None, mesh=None, device="cpu"):

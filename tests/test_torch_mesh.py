@@ -388,3 +388,18 @@ def test_mesh_recurrent_and_moe(runs, arch):
         assert "entry 9c" in r[f"refuse/{arch}"]["message"]
     name = f"recurrent/{arch}"
     assert sharded["2x1"][0][name]["streams"] == ref[name]["streams"]
+
+
+def _never_runs(mesh):
+    raise AssertionError("a rank started")
+
+
+def test_spawn_defaults_to_the_card():
+    """``spawn`` runs its ranks on ``cuda`` unless asked for the CPU, and
+    resolves the device before it starts any rank: without a GPU it
+    raises at once."""
+    import inspect
+    assert inspect.signature(spawn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            spawn(_never_runs, "2,1")

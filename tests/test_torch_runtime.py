@@ -300,10 +300,26 @@ def test_launch_train_main_end_to_end(tmp_path):
 
 
 def test_launch_train_refuses_mesh_and_missing_gpu(tmp_path):
+    """``--data-mesh 3`` on the CPU over a global batch of 4, which does
+    not divide: every rank trains the whole batch (``batch_spec``'s
+    fallback), and the losses are the one-device launch's. Without a GPU
+    the default device raises, with a mesh before any rank starts."""
     from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="9b"):
-        launch_train.main(["--smoke", "--device", "cpu", "--data-mesh", "2"])
+    reports = {}
+    for mesh in ("3", "0"):
+        path = str(tmp_path / f"r{mesh}.json")
+        launch_train.main(["--smoke", "--device", "cpu", "--data-mesh", mesh,
+                           "--steps", "2", "--global-batch", "4",
+                           "--seq-len", "16", "--ckpt-dir",
+                           str(tmp_path / f"ck{mesh}"), "--report-json",
+                           path])
+        with open(path) as f:
+            reports[mesh] = json.load(f)
+    assert reports["3"]["mesh"] == "3x1" and len(reports["3"]["ranks"]) == 3
+    np.testing.assert_allclose(reports["3"]["losses"],
+                               reports["0"]["losses"], rtol=1e-5)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            launch_train.main(["--smoke", "--steps", "1",
-                               "--ckpt-dir", str(tmp_path)])
+        for mesh in ("0", "2"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                launch_train.main(["--smoke", "--steps", "1", "--data-mesh",
+                                   mesh, "--ckpt-dir", str(tmp_path)])

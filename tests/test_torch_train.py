@@ -624,9 +624,28 @@ def test_ret_async_returns_none_until_sync():
 
 
 def test_l0_rejects_shortcut_and_sharded_step_names_its_item():
+    """L0 refuses the shortcut, and a mesh (``ValueError``, as JAX's
+    eager level carries no shardings); at L2 the sharded step builds over
+    a mesh's shape alone from ``meta`` tensors and returns JAX's specs:
+    FSDP over "data" on the rule's dimension, Megatron over "model", the
+    batch's rows over "data" (at L3 behind a microstep dimension)."""
+    from repro_torch.launch.mesh import mesh_shape
     with pytest.raises(ValueError):
         build_train_step(TCFG, TOPTS, TOCFG,
                          LinkageConfig(level=L0_EAGER, shortcut=True))
-    with pytest.raises(NotImplementedError, match="9b"):
+    like = tree.tree_map(lambda t: t.to("meta"), _tstate())
+    mesh = mesh_shape(2, 2)
+    with pytest.raises(ValueError, match="jitted linkage"):
         build_sharded_train_step(TCFG, TOPTS, TOCFG,
-                                 LinkageConfig(level=L2_BYP))
+                                 LinkageConfig(level=L0_EAGER), mesh, like, 4)
+    fn, specs, bspecs = build_sharded_train_step(
+        TCFG, TOPTS, TOCFG, LinkageConfig(level=L2_BYP), mesh, like, 4)
+    mixer = specs.params["layers"][0]["mixer"]
+    assert mixer["wq"] == ("data", "model") and mixer["wo"] == ("model",
+                                                                 "data")
+    assert specs.opt.mu is specs.params and specs.step == ()
+    assert specs.params["embed"] == ("model", "data")
+    assert bspecs["inputs"] == ("data", None) and callable(fn)
+    _, _, b3 = build_sharded_train_step(
+        TCFG, TOPTS, TOCFG, LinkageConfig(level=L3_NSS), mesh, like, 4)
+    assert b3["labels"] == (None, "data", None)

@@ -50,6 +50,9 @@
     python3 chip_smoke.py mesh    # the build, the kernels at the mesh's
                                   # local shapes, the unsharded paths, the
                                   # mesh phase
+    python3 chip_smoke.py mesh-zoo  # the build, the zoo's kernels at a
+                                  # 1x2 rank's local shapes, MZ1-MZ3, MZT
+                                  # and FLM
     python3 chip_smoke.py mesh-train  # the build, the kernels at the
                                   # training mesh's local shapes, MT1-MT3
 
@@ -146,7 +149,7 @@ non-zero before the result line):
    library time null. The router also runs
    at jamba's shapes (N 4 and 32, D 4096, E 16, k 2).
 4. path — the main paths through their entry points, full-width
-   tinyllama-1.1b cut to MAIN_BLOCKS (8) of its 22 layers (as in phases
+   tinyllama-1.1b cut to MAIN_BLOCKS (6) of its 22 layers (as in phases
    5-9 and 12: the run stays inside its time limit) with the port's
    seeded init, ``nss_shortcut``, 8
    requests each: slotted ``--load open`` and ``--load seq``; paged path A
@@ -251,12 +254,13 @@ non-zero before the result line):
    come from the path phase.
 10. the model zoo's remainder, the last phase (``zoo_phase``): each
    config at its published widths, one at a time, seeded init, depth cut
-   only where 80 GB forces it: Z1 qwen2-7b (28 layers, fp32, QKV biases
-   drawn nonzero) and Z6 mistral-large-123b (8 of 88 layers, bf16)
-   through the paged engine as path A; Z2 h2o-danube-1.8b (24 layers,
-   fp32) slotted, 2 requests of 4,128 + 32 and 2 of 32 + 32 (the
-   4,096-token window rolls at admission and binds at decode); Z5
-   mixtral-8x7b (16 of 32 layers, bf16) and Z7 kimi-k2-1t-a32b (1 of 61
+   where 80 GB or the run's time limit forces it: Z1 qwen2-7b (8 of 28
+   layers, fp32, QKV biases drawn nonzero) and Z6 mistral-large-123b (8
+   of 88 layers, bf16) through the paged engine as path A; Z2
+   h2o-danube-1.8b (8 of 24 layers, fp32) slotted, 2 requests of 4,128 +
+   32 and 2 of 32 + 32 (the 4,096-token window rolls at admission and
+   binds at decode); Z5 mixtral-8x7b (8 of 32 layers, bf16) and Z7
+   kimi-k2-1t-a32b (1 of 61
    layers, bf16) slotted; Z3 llama-3.2-vision-11b (40 layers, fp32, every
    cross-attention gate 1.0) and Z4 musicgen-medium (48 layers, fp32,
    frame embeddings) at model level, as the engine refuses both. Gated:
@@ -291,7 +295,7 @@ non-zero before the result line):
    at lr 1e-3, every step's loss finite and the last below the first,
    flash and its backward 22 launches a step; TR2
    (``train_compare_phase``): the kernel path against the plain path
-   over MAIN_BLOCKS (8) layers (step 1's loss, gradient norm and every
+   over MAIN_BLOCKS (6) layers (step 1's loss, gradient norm and every
    parameter's gradient; 4 steps' losses within 10 x lr), one step and
    one AdamW update profiled; TR3 (``train_recovery_phase``): the
    driver cut to 2 layers, a failure injected at step 6, the losses
@@ -300,8 +304,8 @@ non-zero before the result line):
 12. serving over a mesh, after the fleet (``mesh_phase``): full-width
    tinyllama-1.1b in fp32 over 1x2 (tensor parallel: HQ 16, HKV 2 a
    rank) and 2x1 (slots over data: 2 slot rows a rank), one spawn
-   (``repro_torch.launch.mesh.spawn``) a mesh, both ranks on the one
-   card over gloo; the slotted path and paths A and C (C at 1x2 only)
+   (``repro_torch.launch.mesh.spawn``) whose two ranks build both
+   meshes in turn, on the one card over gloo; the slotted path and paths A and C (C at 1x2 only)
    through ``run_engine`` in every rank; every request finished, every
    kernel of each path launched on every rank, the KV bytes per shard
    halved where the heads or the slot rows split, the streams at both
@@ -313,15 +317,31 @@ non-zero before the result line):
    run's K/V writes). The kernel phase
    holds rows 1-6b at the mesh's local shapes (labels ``mesh``). Two
    ranks sharing a card measure correctness, not tensor-parallel speed.
+12b. the zoo over a mesh, after the serving mesh (``mesh_zoo_phase``;
+   ROADMAP entry 9c): moonshot-v1-16b-a3b (MZ1, 2 of 48 layers: bf16
+   slotted, fp32 path A), jamba-v0.1-52b (MZ2, the first 5
+   layers of its block, fp32) and rwkv6-7b (MZ3, 8 of 32 layers, fp32)
+   at published widths over 1x2, their experts, Mamba channels and RWKV
+   heads split over "model", each rank building its weights in turn;
+   every request finished, every kernel launched on every rank and the
+   model's own (moe_route, mamba_scan, rwkv_scan) as often as unsharded,
+   the streams equal to the unsharded paths' (slotted: or parting only
+   at near ties, within twice 2e-3 in fp32 and twice bf16's own
+   |dlogit| from f32 in bf16), the teacher-forced kernel path (the
+   unsharded run's routing replayed) within 2e-3; MZT: moonshot training (2
+   layers) at 1x2 and at 2x1 with ``ep_resident`` against the unsharded
+   kernel path (TR2's tolerances); FLM: the fleet launcher's rank entry
+   at 1x2, 2 replicas, the unsharded fleet's streams. The kernel rows at
+   a rank's local shapes carry labels ``mesh zoo``.
 13. training over a mesh, the last phase (``mesh_train_phase``):
    full-width tinyllama-1.1b in fp32, TR1's data, the ranks of both
    meshes at once on the one card over gloo. MT1:
    ``build_sharded_train_step`` at 2x1 (FSDP, 2 of the 4 sequences a
-   rank) and 1x2 (Megatron, HQ 16, HKV 2 a rank) over MAIN_BLOCKS (8)
+   rank) and 1x2 (Megatron, HQ 16, HKV 2 a rank) over MT_LAYERS (4)
    layers against the unsharded kernel path from one seed (TR2's
    tolerances: step 1's loss, gradient norm and every piece's gradient;
-   3 steps' losses within 10 x lr), flash and its backward 8 launches a
-   rank a step, rmsnorm 17, the last step profiled; MT3: the launcher's
+   3 steps' losses within 10 x lr), flash and its backward 4 launches a
+   rank a step, rmsnorm 9, the last step profiled; MT3: the launcher's
    rank entry (what ``--data-mesh 2`` runs in each rank) in the 2x1
    ranks at 2 layers, a failure at step 3 replayed from the step-2
    checkpoint, every rank's final state equal to the clean run's
@@ -344,6 +364,7 @@ per-kernel JSON record. Exits non-zero without a GPU.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -363,7 +384,7 @@ TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 # MAIN_BLOCKS of its 22 layers so that the whole run stays well inside its
 # time limit (each engine run's host time grows with the depth)
 ARCH, PRESET = "tinyllama-1.1b", "nss_shortcut"
-MAIN_BLOCKS = 8
+MAIN_BLOCKS = 6
 # the MoE path: full-width moonshot-v1-16b-a3b in bf16, the same traffic
 MOE_ARCH = "moonshot-v1-16b-a3b"
 # the RWKV path: full-width rwkv6-7b in fp32, the same traffic
@@ -546,6 +567,18 @@ def bound(n_bytes: int, n_ops: float, dtype) -> tuple:
     t_mem = n_bytes / MEM_BPS * 1e3
     t_ops = n_ops / PEAK_OPS[str(dtype)] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def rwkv_scan_ops(B, S, nh, hd) -> float:
+    """The RWKV-6 recurrence's operations: 5 hd^2 + 5 hd a token and
+    head."""
+    return B * S * nh * (5.0 * hd * hd + 5.0 * hd)
+
+
+def mamba_scan_ops(B, S, di, ds) -> float:
+    """The selective scan's operations: 7 a (token, channel, state), plus
+    dt·x a (token, channel)."""
+    return 7.0 * B * S * di * ds + B * S * di
 
 
 def check_close(name, got, want, dtype) -> float:
@@ -1460,8 +1493,8 @@ def rwkv_scan_phase(gen, refused_ok=False):
                   for what, got, want in (("y", y, wy), ("state", st, ws)))
         slow = 3 if S > PROMPT else 50       # the plain loop over S
         row = _scan_row("rwkv_scan", label, dtype, call, plain, err,
-                        nbytes(*ins, y, st),
-                        B * S * nh * (5.0 * hd * hd + 5.0 * hd), slow)
+                        nbytes(*ins, y, st), rwkv_scan_ops(B, S, nh, hd),
+                        slow)
         if udtype != dtype:
             row["u_dtype"] = str(udtype)
         _log_row("rwkv_scan", row)
@@ -1543,8 +1576,8 @@ def mamba_scan_phase(gen, refused_ok=False):
             elems = B * S * di * ds
             slow = 3 if S > PROMPT else 50   # the plain loop over S
             row = _scan_row("mamba_scan", label, dtype, call, plain, err,
-                            nbytes(*ins, y, h), 7.0 * elems + B * S * di,
-                            slow)
+                            nbytes(*ins, y, h),
+                            mamba_scan_ops(B, S, di, ds), slow)
             if "ms" in row:
                 row["sfu_exp_ms"] = elems / SFU_EXP_PER_S * 1e3
             _log_row("mamba_scan", row)
@@ -1605,21 +1638,23 @@ def _tile_row(kernel, shape, name, chosen, want, call):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def last_streams(out: dict):
+def last_streams(out: dict, fleet: bool = False):
     """While open, ``out["streams"]`` holds the token streams of the last
-    ``ServeEngine.run`` (a launcher's timed run follows its warm one)."""
-    from repro_torch.serve import ServeEngine
-    run = ServeEngine.run
+    ``ServeEngine.run`` (``fleet``: ``FleetEngine.run``; a launcher's timed
+    run follows its warm one)."""
+    from repro_torch.serve import FleetEngine, ServeEngine
+    kind = FleetEngine if fleet else ServeEngine
+    run = kind.run
 
     def spy(self, requests, **kw):
         comps, wall = run(self, requests, **kw)
         out["streams"] = {c.rid: c.tokens.tolist() for c in comps}
         return comps, wall
-    ServeEngine.run = spy
+    kind.run = spy
     try:
         yield out
     finally:
-        ServeEngine.run = run
+        kind.run = run
 
 
 def path_phase():
@@ -3251,11 +3286,29 @@ def _mesh_rank(mesh, paths, teacher):
     return out
 
 
+def _over(mesh, spec):
+    """``mesh`` itself for a 1x2 spec, else a ``spec`` mesh over the same
+    live world, built by every rank in the same order (one spawn serves
+    both shapes: a rank process starts once)."""
+    from repro_torch.launch.mesh import make_host_mesh, parse_mesh_spec
+    if spec == "1,2":
+        return mesh
+    return make_host_mesh(*parse_mesh_spec(spec), device=mesh.device)
+
+
+def _mesh_ranks(mesh, jobs):
+    """One rank of ``mesh_phase``'s spawn: for each (spec, paths,
+    teacher), ``_mesh_rank`` over that mesh shape of the world."""
+    return {spec: _mesh_rank(_over(mesh, spec), paths, teacher)
+            for spec, paths, teacher in jobs}
+
+
 def mesh_phase(base=None, tol: float = 2e-3):
     """Serving over a (data, model) mesh, full-width tinyllama-1.1b in fp32,
     ``nss_shortcut``, the main paths' traffic (4 slots, prompt 32, gen 32,
-    max_len 72, 8 open-load requests). One spawn a mesh
-    (``repro_torch.launch.mesh.spawn``), both ranks on the one card over
+    max_len 72, 8 open-load requests). One spawn
+    (``repro_torch.launch.mesh.spawn``) whose two ranks run the 1x2 mesh,
+    then the 2x1 mesh over the same world, both on the one card over
     gloo: two ranks sharing a card measure correctness, not tensor-parallel
     speed.
 
@@ -3297,6 +3350,7 @@ def mesh_phase(base=None, tol: float = 2e-3):
     from repro_torch.launch import mesh_cases
     from repro_torch.launch.mesh import spawn
     from repro_torch.launch.serve import run_engine
+    from repro_torch.serve import synthetic_requests
 
     t_start = time.time()
     common = dict(n_slots=SLOTS, prompt_len=PROMPT, gen_len=GEN,
@@ -3347,19 +3401,34 @@ def mesh_phase(base=None, tol: float = 2e-3):
     fmt = float(np.abs(ref[FLIP_CASE] - ref["paged"]).max())
     log(f"mesh: unsharded references done at {time.time() - t_start:.1f} s;"
         f" int8 against fp32 pools (fmt): max |dlogit| {fmt:.3e}")
+    reqs = synthetic_requests(REQUESTS, PROMPT, GEN, main_config().vocab_size,
+                              seed=0, rate=25.0, shared_prefix_len=SHARED)
+    prompts_c = {r.rid: r.prompt.tolist() for r in reqs}
+
+    def tie_logits(prompt, history):
+        # path C's near ties: the unsharded kernel path over int8 pools
+        case = dict(name="tie", kind="teacher", preset=PRESET, prompt=prompt,
+                    feed=history, backend="paged", kv_dtype="int8",
+                    max_len=MAX_LEN, block_size=BS,
+                    overrides=(("num_blocks", MAIN_BLOCKS),))
+        return mesh_cases.run_case(case, None, smoke=False,
+                                   device="cuda")["logits"][len(history)]
 
     counts = {}
+    t0 = time.time()
+    jobs = [(spec, [(n, dict(arch=main_config(), preset_name=PRESET,
+                             **common, **path_kw[n])) for n in names],
+             teacher if spec == "1,2" else [])
+            for spec, names in MESH_PATHS.items()]
+    spawned = spawn(_mesh_ranks, "1,2", "cuda", (jobs,), deadline_s=600)
+    log(f"mesh: one spawn of 2 ranks for {', '.join(MESH_PATHS)}, "
+        f"{time.time() - t0:.1f} s")
     for spec, names in MESH_PATHS.items():
-        t0 = time.time()
         mname = spec.replace(",", "x")
-        paths = [(n, dict(arch=main_config(), preset_name=PRESET, **common,
-                          **path_kw[n])) for n in names]
-        ranks = spawn(_mesh_rank, spec, "cuda",
-                      (paths, teacher if spec == "1,2" else []),
-                      deadline_s=420)
+        ranks = [r[spec] for r in spawned]
         log(f"mesh {mname}: {len(ranks)} ranks, backend "
             f"{ranks[0]['backend']}, devices "
-            f"{[r['device'] for r in ranks]}, spawn {time.time() - t0:.1f} s")
+            f"{[r['device'] for r in ranks]}")
         flip = None
         for name in ranks[0]["teacher"]:
             worst = max(float(np.abs(rank["teacher"][name]["logits"]
@@ -3421,46 +3490,35 @@ def mesh_phase(base=None, tol: float = 2e-3):
                 raise AssertionError(f"mesh {mname} {n}: streams differ from "
                                      f"the unsharded path: {agree}")
             _near_ties(f"mesh {mname} {n}", streams, base_streams,
-                       dict(path_kw[n], **common), 2 * fmt)
+                       prompts_c, tie_logits, 2 * fmt)
+            mesh_cases._MODELS.clear()
+            _release()
         log(f"mesh {mname} done at {time.time() - t_start:.1f} s")
     log(f"mesh phase: {time.time() - t_start:.1f} s (two ranks sharing one "
         "card over gloo measure correctness, not tensor-parallel speed)")
     return counts
 
 
-def _near_ties(label, got, want, kw, bound):
-    """Where the streams ``got`` part from ``want`` (path C's, ``kw`` its
-    ``run_engine`` arguments): at each request's first differing token,
-    the unsharded kernel path over int8 pools, teacher-forced over the
-    request's prompt and the common history, gives the logits of both
-    tokens; raises where their gap exceeds ``bound``. Prints each gap."""
-    from repro_torch.launch import mesh_cases
-    from repro_torch.serve import synthetic_requests
-    reqs = synthetic_requests(kw["requests"], kw["prompt_len"],
-                              kw["gen_len"], main_config().vocab_size,
-                              seed=0, rate=25.0,
-                              shared_prefix_len=kw["shared_prefix_len"])
-    prompts = {r.rid: r.prompt.tolist() for r in reqs}
+def _near_ties(label, got, want, prompts, logits, bound):
+    """Where the streams ``got`` part from the unsharded path's ``want``:
+    at each request's first differing token j, ``logits(prompt,
+    history)``, the unsharded kernel path teacher-forced over the
+    request's prompt and the common history ``want[rid][:j]``, gives token
+    j's logits row, and so both tokens' logits; raises where their gap
+    exceeds ``bound``, or where no stream parts. Prints each gap."""
     gaps = []
     for rid in sorted(want):
         a, b = got[rid], want[rid]
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if j is None:
             continue
-        case = dict(name="tie", kind="teacher", preset=PRESET,
-                    prompt=prompts[rid], feed=b[:j], backend="paged",
-                    kv_dtype=kw["kv_dtype"], max_len=MAX_LEN, block_size=BS,
-                    overrides=(("num_blocks", MAIN_BLOCKS),))
-        lg = mesh_cases.run_case(case, None, smoke=False,
-                                 device="cuda")["logits"][j]
+        lg = logits(prompts[rid], b[:j])
         gap = float(lg[b[j]] - lg[a[j]])
         gaps.append(abs(gap))
         log(f"{label}: request {rid} parts at token {j} of {len(b)} "
             f"(unsharded {b[j]}, mesh {a[j]}): logit gap {gap:.3e} on the "
             f"unsharded kernel path (top logit {float(lg.max()):.4g}; bound "
             f"{bound:.3e})")
-    mesh_cases._MODELS.clear()
-    _release()
     if not gaps or max(gaps) > bound:
         raise AssertionError(f"{label}: streams part at gaps {gaps}, bound "
                              f"{bound}")
@@ -3476,6 +3534,595 @@ def _release():
     torch.cuda.empty_cache()
     log(f"device memory allocated after release: "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+
+# ---------------------------------------------------------------------------
+# the zoo over a mesh: MoE, Mamba and RWKV split over a model axis of 2
+# ---------------------------------------------------------------------------
+
+#: MZ1-MZ3: (label, arch, depth cut, dtype, engine paths), each at its
+#: published widths over 1x2, its experts, Mamba channels or RWKV heads
+#: split over "model": moonshot 2 of 48 layers (32 experts a rank) in
+#: bf16, slotted, and in fp32, paged path A (a prefix-shared MoE prefill
+#: routes its suffix alone, which no teacher-forced path replays, so path
+#: A's streams are held equal, which fp32 alone keeps: in bf16 a rank's
+#: partial sums round otherwise than the unsharded sums); in fp32, jamba
+#: the first MZ_JAMBA_LAYERS layers of its block (4 Mamba layers, 2 of
+#: them MoE, held equal slotted, and the attention layer; di 4,096 a
+#: rank) and rwkv6-7b 8 of 32 layers (32 heads a rank)
+MZ_JAMBA_LAYERS = 5
+MZ = (("MZ1", MOE_ARCH, 2, "bf16", ("slotted",)),
+      ("MZ1 fp32", MOE_ARCH, 2, "fp32", ("A",)),
+      ("MZ2", MAMBA_ARCH, MZ_JAMBA_LAYERS, "fp32", ("slotted",)),
+      ("MZ3", RWKV_ARCH, 8, "fp32", ("slotted",)))
+#: their traffic: closed load, so the schedule (and each kernel's
+#: launches) is the same on every rank and unsharded; 4 requests of
+#: prompt 32 and 16 new tokens; the teacher-forced check 8 decode steps
+MZ_REQUESTS, MZ_GEN, MZ_STEPS = 4, 16, 8
+MZ_MAX_LEN = PROMPT + MZ_GEN + 8
+#: the kernel each zoo model brings to the mesh, and every kernel its
+#: paths must launch on every rank
+MZ_KERNEL = {MOE_ARCH: "moe_route", MAMBA_ARCH: "mamba_scan",
+             RWKV_ARCH: "rwkv_scan"}
+MZ_WANT = {(MOE_ARCH, "slotted"): ("moe_route", "rmsnorm", "flash_attention",
+                                   "slot_decode"),
+           (MOE_ARCH, "A"): ("moe_route", "rmsnorm", "flash_attention",
+                             "paged_decode"),
+           (MAMBA_ARCH, "slotted"): ("mamba_scan", "moe_route", "rmsnorm",
+                                     "flash_attention", "slot_decode"),
+           (RWKV_ARCH, "slotted"): ("rwkv_scan", "rmsnorm")}
+#: MZT: moonshot cut to 2 layers, fp32, TR1's 4 sequences at 256 tokens,
+#: 2 steps, against the unsharded kernel path (TR2_TOL)
+MZT_LAYERS, MZT_SEQ, MZT_STEPS = 2, 256, 2
+
+
+def depth_config(arch, blocks):
+    """``arch`` at its published widths, ``blocks`` blocks deep."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_blocks=blocks)
+
+
+def mz_config(arch, cut):
+    """``arch`` at its published widths cut in depth: ``cut`` layers
+    (jamba: the first ``cut`` layers of its one block)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if arch != MAMBA_ARCH:
+        return depth_config(arch, cut)
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, block_pattern=cfg.block_pattern[:cut],
+                               num_blocks=1)
+
+
+def _mz_path_kw(name):
+    return {"slotted": {},
+            "A": dict(kv="paged", block_size=BS,
+                      shared_prefix_len=SHARED)}[name]
+
+
+def _mz_serve_kw(cfg, dtype, name):
+    """``run_engine``'s arguments for one MZ path."""
+    return dict(arch=cfg, preset_name=PRESET, n_slots=SLOTS,
+                prompt_len=PROMPT, gen_len=MZ_GEN, requests=MZ_REQUESTS,
+                load="closed", smoke=False, device="cuda", dtype=dtype,
+                **_mz_path_kw(name))
+
+
+def _mz_opts(dtype="fp32"):
+    """The kernel path's options (the shortcut preset's), activations in
+    ``dtype`` over the model's parameters."""
+    from repro_torch.launch import mesh_cases
+    from repro_torch.launch.serve import DTYPES
+    return mesh_cases.options(PRESET, DTYPES[dtype])[1]
+
+
+def _mz_teacher(cfg, params, opts, prompt, feed, routes):
+    """Prefill then MZ_STEPS slotted decode steps fed ``feed``: the logits
+    (numpy). ``routes``: None (no MoE layer), an empty list (the routing
+    recorded into it) or a record (replayed)."""
+    from repro_torch.launch import mesh_cases
+    import torch
+    dev = params["embed"].device
+    case = dict(backend="slotted", max_len=MZ_MAX_LEN)
+    toks = torch.as_tensor(prompt, dtype=torch.int32)[None].to(dev)
+    fed = [torch.tensor([t], dtype=torch.int32, device=dev) for t in feed]
+    with (mesh_cases.routing(routes, replay=bool(routes))
+          if routes is not None else contextlib.nullcontext()):
+        return mesh_cases._teacher_run(cfg, params, case, opts, toks, fed,
+                                       slice(None))["logits"]
+
+
+def _mz_tie_logits(cfg, params, opts, prompt, history):
+    """Token ``len(history)``'s logits row on the unsharded kernel path,
+    teacher-forced over ``prompt`` and ``history`` (its routing its
+    own)."""
+    import numpy as np
+    return np.asarray(_mz_teacher(cfg, params, opts, prompt, history,
+                                  [] if cfg.moe is not None else None),
+                      np.float32)[len(history)]
+
+
+def _route_flips(a, b):
+    """(differing, all) token rows of two routing records of one forward
+    sequence (``mesh_cases.routing``'s (gates, idx) a MoE layer call)
+    whose sets of chosen experts differ."""
+    diff = total = 0
+    for (_, ia), (_, ib) in zip(a, b):
+        k = ia.shape[-1]
+        sa = ia.reshape(-1, k).sort(-1).values
+        sb = ib.reshape(-1, k).sort(-1).values
+        diff += int((sa != sb).any(-1).sum())
+        total += sa.shape[0]
+    return diff, total
+
+
+def _mz_params(cfg, dtype):
+    import torch
+    from repro_torch.launch.serve import DTYPES
+    from repro_torch.models import init_params
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda", param_dtype=DTYPES[dtype])
+
+
+def _mz_rank_model(mesh, job):
+    """One zoo model in a 1x2 rank: each engine path through
+    ``serve_rank`` (``run_engine`` over this rank's shard, built in turn),
+    then the teacher-forced kernel path over this rank's shard, the
+    unsharded run's routing replayed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.serve import serve_rank
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.placement import serve_shard
+    out = {"paths": {}}
+    for name in job["paths"]:
+        comm.reset_traffic()
+        t = time.time()
+        with last_streams({}) as got:
+            res = serve_rank(mesh, _mz_serve_kw(job["cfg"], job["dtype"],
+                                                name))
+        out["paths"][name] = dict(res, streams=got["streams"],
+                                  seconds=time.time() - t,
+                                  traffic=comm.traffic())
+        torch.cuda.empty_cache()
+
+    def build():
+        params = _mz_params(job["cfg"], job["dtype"])
+        sh = serve_shard(job["cfg"], params, mesh, 1)
+        del params
+        torch.cuda.empty_cache()
+        return sh
+    sh = mesh.in_turn(build)
+    opts = dataclasses.replace(_mz_opts(), tp=sh.tp)
+    out["teacher"] = _mz_teacher(sh.local_cfg, sh.params, opts, job["prompt"],
+                                 job["feed"], job["routes"])
+    del sh
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mzt_setup():
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.optim import AdamWConfig
+    cfg = depth_config(MOE_ARCH, MZT_LAYERS)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=MZT_STEPS)
+    return cfg, ocfg, Pipeline(cfg, DataConfig(TRAIN_BATCH, MZT_SEQ))
+
+
+def _mzt_rank(mesh, ep):
+    """MZT in a rank: moonshot cut to MZT_LAYERS layers, fp32, over this
+    mesh (``ep``: ``ep_resident``). In turn, each rank builds the seeded
+    full state, runs the unsharded kernel path (step 1's loss and
+    gradient, this rank's pieces of it kept; MZT_STEPS steps' losses) and
+    keeps its pieces of the initial state; then the sharded step from
+    those pieces: step 1's loss, gradient norm and every piece's gradient
+    against the unsharded ones, then MZT_STEPS steps."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.core import (L2_BYP, LinkageConfig,
+                                  build_sharded_train_step, init_train_state,
+                                  make_train_step)
+    from repro_torch.data import stage
+    from repro_torch.kernels import ops
+    from repro_torch.models import ModelOptions, loss_fn
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import shard, shard_leaf, spec_leaves
+    kernel = ModelOptions(attn_impl="kernel", scan_impl="ref",
+                          dtype=torch.float32, fused_norm=True)
+    lk = LinkageConfig(level=L2_BYP, shortcut=True)
+    cfg, ocfg, pipe = _mzt_setup()
+    raw = [pipe.batch_at(i) for i in range(MZT_STEPS)]
+
+    def reference():
+        state = init_train_state(cfg, ocfg, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        fn, sspecs, bspecs = build_sharded_train_step(
+            cfg, kernel, ocfg, lk, mesh, state, TRAIN_BATCH, ep_resident=ep)
+        pieces = shard(state, sspecs, mesh)
+        live = [p.detach().requires_grad_(True)
+                for p in tree.leaves(state.params)]
+        loss, _ = loss_fn(tree.unflatten(state.params, live),
+                          stage(raw[0], "cuda"), cfg, kernel)
+        grads = torch.autograd.grad(loss, live)
+        del live
+        ref = {"loss": float(loss.detach()),
+               "grad_norm": math.sqrt(sum(float(g.double().square().sum())
+                                          for g in grads))}
+        want = [shard_leaf(g, sp, mesh, mesh.coords)
+                for g, sp in zip(grads, spec_leaves(sspecs.params))]
+        del grads, loss
+        step = make_train_step(cfg, kernel, ocfg, inplace=True)
+        ref["losses"] = []
+        for b in raw:
+            state, m = step(state, stage(b, "cuda"))
+            ref["losses"].append(float(m["loss"]))
+        del state, step, m
+        torch.cuda.empty_cache()
+        return fn, sspecs, bspecs, pieces, want, ref
+
+    fn, sspecs, bspecs, pieces, want, ref = mesh.in_turn(reference)
+    out = {"ref": ref, "mesh": mesh.describe(), "rank": mesh.rank}
+    batches = [stage(b, "cuda", bspecs, mesh) for b in raw]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    comm.reset_traffic()
+    out["losses"], out["step_s"] = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g, m = fn.grads(pieces.params, b)
+        if i == 0:
+            out["loss"], out["moe_aux"] = float(m["loss"]), float(
+                m["moe_aux"])
+            out["grad_norm"] = float(adamw.global_norm(g, sspecs.params,
+                                                       mesh))
+            errs = [float((a - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+                    for a, w in zip(tree.leaves(g), want)]
+            out["max_rel_grad_diff"] = max(errs)
+            router = [e for e, (p, _) in zip(errs, _leaf_paths(pieces.params))
+                      if p.endswith("router")]
+            out["router_rel_grad_diff"] = max(router)
+            del want
+        pieces, m = fn.apply(pieces, g, m)
+        del g
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t)
+    out["launches"] = ops.launch_counts()
+    out["traffic"] = comm.traffic()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del pieces, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_paths(params):
+    """(path, leaf) of a parameter tree in ``tree.leaves`` order."""
+    from repro_torch.sharding.rules import _map_with_path
+    out = []
+    _map_with_path(lambda p, leaf: out.append(("/".join(p), leaf)), params)
+    return out
+
+
+def _mesh_zoo_rank(mesh, jobs, flm):
+    """One rank of ``mesh_zoo_phase``'s spawn: MZ1-MZ3, MZT
+    (``tp_experts``), FLM through the fleet launcher's rank entry (what
+    ``launch/fleet.py --mesh 1,2`` runs in each rank), then MZT with
+    ``ep_resident`` over a 2x1 mesh of the same two ranks."""
+    import torch
+    from repro_torch.launch.fleet import fleet_rank
+    out = {"zoo": {}, "backend": mesh.backend, "device": str(mesh.device)}
+    for job in jobs:
+        t = time.time()
+        out["zoo"][job["label"]] = dict(_mz_rank_model(mesh, job),
+                                        seconds=time.time() - t)
+    t = time.time()
+    out["mzt"] = dict(_mzt_rank(mesh, False), seconds=time.time() - t)
+    t = time.time()
+    with last_streams({}, fleet=True) as got:
+        res = fleet_rank(mesh, flm)
+    out["flm"] = dict(res, streams=got["streams"], seconds=time.time() - t)
+    torch.cuda.empty_cache()
+    t = time.time()
+    out["mzt_ep"] = dict(_mzt_rank(_over(mesh, "2,1"), True),
+                         seconds=time.time() - t)
+    return out
+
+
+def mesh_zoo_kernel_rows(gen):
+    """The zoo's kernels at a 1x2 rank's local shapes against their plain
+    versions (labels ``mesh zoo``): ``mamba_scan`` at jamba's admission
+    with di 4,096 (1,32,4096,16), ``rwkv_scan`` at rwkv6-7b's with 32 heads
+    (1,32,32,64), fp32, within 1e-4; the router, whole on every rank, at
+    moonshot's decode rows (bf16) and jamba's (fp32) through
+    ``check_route``. Each timed (CUDA events, kernel and plain version)
+    beside its bound."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+    for kernel, label, args, call, plain, n_ops in (
+            ("mamba_scan", "mesh zoo: admission (1,32,4096,16)",
+             mamba_inputs(gen, 1, PROMPT, 4096, 16, f32), ops.mamba_scan,
+             ref.mamba_scan_ref, mamba_scan_ops(1, PROMPT, 4096, 16)),
+            ("rwkv_scan", "mesh zoo: admission (1,32,32,64)",
+             rwkv_inputs(gen, 1, PROMPT, 32, 64, f32, f32), ops.rwkv_scan,
+             ref.rwkv_scan_ref, rwkv_scan_ops(1, PROMPT, 32, 64))):
+        got, want = call(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max(check_close(f"{kernel} [{label}] {what}", g, w, f32)
+                  for what, g, w in zip(("y", "state"), got, want))
+        b_ms, b_by = bound(nbytes(*args, *got), n_ops, "torch.float32")
+        row = {"label": label, "dtype": str(f32), "max_abs_err": err,
+               "ms": cuda_ms(lambda: call(*args)),
+               "plain_ms": cuda_ms(lambda: plain(*args), iters=20),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        _log_row(kernel, row)
+        rows[kernel] = [row]
+    rows["moe_route"] = []
+    for label, D, E, k, dtype in (
+            ("mesh zoo: moonshot decode x (4,2048) router (2048,64) k=6",
+             2048, 64, 6, bf16),
+            ("mesh zoo: jamba decode x (4,4096) router (4096,16) k=2", 4096,
+             16, 2, f32)):
+        x = torch.randn(SLOTS, D, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(D, E, generator=gen, device="cuda") * 0.02).to(dtype)
+        got, want = ops.moe_route(x, w, k), ref.moe_route_ref(x, w, k)
+        torch.cuda.synchronize()
+        err, _, _ = check_route(f"moe_route [{label}]", got, want, x, w, k,
+                                False)
+        b_ms, b_by = bound(nbytes(x, w, *got), 2.0 * SLOTS * D * E,
+                           str(dtype))
+        row = {"label": label, "dtype": str(dtype), "max_abs_err": err,
+               "ms": cuda_ms(lambda: ops.moe_route(x, w, k)),
+               "plain_ms": cuda_ms(lambda: ref.moe_route_ref(x, w, k)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        _log_row("moe_route", row)
+        rows["moe_route"].append(row)
+    return rows
+
+
+def mesh_zoo_phase(gen, tol: float = 2e-3):
+    """The zoo's MoE, Mamba and RWKV models over a mesh (ROADMAP entry
+    9c), every rank's pieces only on the card (built in turn: one full
+    copy at a time), both ranks on the one H100 over gloo (correctness,
+    not tensor-parallel speed). Each model's unsharded reference runs
+    first in this process and is freed before the next one.
+
+    MZ1-MZ3  (``MZ``) at 1x2: each engine path through ``run_engine`` in
+         every rank, closed load, MZ_REQUESTS requests of PROMPT + MZ_GEN;
+         every request finished, every kernel of the path launched on
+         every rank, the model's own kernel (``MZ_KERNEL``) as many times
+         a rank as unsharded, the KV bytes per shard below the unsharded
+         path's (the RWKV token shifts stay whole), the streams equal to
+         the unsharded path's (slotted: or parting only at near ties,
+         ``_near_ties`` on the unsharded kernel path at the model's
+         precision, gap <= 2 x ``tol`` in fp32 and <= 2 x ``fmt`` in
+         bf16, ``fmt`` the largest |dlogit| between its bf16 and f32
+         activations); the teacher-forced kernel path (prefill + MZ_STEPS
+         slotted decode steps, float32 activations over the model's
+         parameters, the unsharded run's routing replayed) within ``tol``
+         of the unsharded kernel path.
+    MZT  moonshot cut to 2 layers at 1x2 (``tp_experts``) and at 2x1 with
+         ``ep_resident``: step 1's loss and gradient norm within TR2_TOL
+         of the unsharded kernel path, every piece's gradient (the router
+         among them) within TR2_TOL["grad"] of its max, MZT_STEPS steps'
+         losses within 10 x lr.
+    FLM  the fleet launcher's rank entry at 1x2, tinyllama-1.1b cut to
+         MAIN_BLOCKS layers, 2 colocated replicas: every request finished,
+         the streams equal to the unsharded fleet's.
+
+    The kernel rows at the ranks' local shapes come first
+    (``mesh_zoo_kernel_rows``). Printed: seconds, tokens/s, peak memory a
+    rank and bytes to each kind of collective, beside the card's name
+    and power limit. Returns (launch counts by case, kernel rows)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.fleet import run_fleet_engine
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import run_engine
+    from repro_torch.serve import synthetic_requests
+
+    t_start = time.time()
+    smi = nvidia_smi()
+    rows = mesh_zoo_kernel_rows(gen)
+    rng = np.random.default_rng(3)
+    jobs, refs = [], {}
+    for label, arch, cut, dtype, paths in MZ:
+        cfg = mz_config(arch, cut)
+        base = {}
+        for name in paths:
+            ops.reset_launch_counts()
+            with last_streams({}) as got:
+                rep = run_engine(**_mz_serve_kw(cfg, dtype, name))
+            base[name] = (rep, got["streams"], ops.launch_counts())
+            _release()
+        prompt = rng.integers(0, cfg.vocab_size, PROMPT).tolist()
+        feed = rng.integers(0, cfg.vocab_size, MZ_STEPS).tolist()
+        routes = [] if cfg.moe is not None else None
+        params = _mz_params(cfg, dtype)
+        logits = _mz_teacher(cfg, params, _mz_opts(), prompt, feed, routes)
+        # the near-tie bound: fp32 streams part only within twice ``tol``;
+        # bf16 ones within twice ``fmt``, the largest |dlogit| between the
+        # unsharded kernel path's bf16 and f32 activations (each its own
+        # routing): the format's own size, as the mesh phase's path C
+        # measures int8's
+        fmt = None
+        if dtype != "fp32":
+            own_routes = None if routes is None else []
+            own = _mz_teacher(cfg, params, _mz_opts(dtype), prompt, feed,
+                              own_routes)
+            fmt = float(np.abs(np.asarray(own, np.float32) - logits).max())
+            flips = ("" if routes is None else "; (token, layer) expert "
+                     "choices that differ: %d of %d (not gated)"
+                     % _route_flips(routes, own_routes))
+            log(f"mesh zoo {label}: {dtype} against f32 activations on the "
+                f"unsharded kernel path (fmt): max |dlogit| {fmt:.3e}"
+                + flips)
+        del params
+        _release()
+        jobs.append(dict(label=label, arch=arch, cfg=cfg, dtype=dtype,
+                         paths=paths, prompt=prompt, feed=feed,
+                         routes=routes))
+        refs[label] = (base, logits, 2 * (tol if fmt is None else fmt))
+        log(f"mesh zoo {label} ({arch}, {cfg.num_layers} layers, {dtype}): "
+            f"unsharded references done at {time.time() - t_start:.1f} s")
+    flm = dict(arch=main_config(), preset_name=PRESET, replicas=2,
+               n_slots=SLOTS, prompt_len=PROMPT, gen_len=MZ_GEN,
+               requests=MZ_REQUESTS, load="closed", kv="paged",
+               block_size=BS, shared_prefix_len=SHARED, smoke=False,
+               device="cuda")
+    ops.reset_launch_counts()
+    with last_streams({}, fleet=True) as got:
+        flm_rep = run_fleet_engine(**flm)
+    flm_ref = (flm_rep, got["streams"], ops.launch_counts())
+    _release()
+    log(f"mesh zoo FLM: the unsharded fleet done at "
+        f"{time.time() - t_start:.1f} s")
+
+    t0 = time.time()
+    ranks = spawn(_mesh_zoo_rank, "1,2", "cuda", (jobs, flm),
+                  deadline_s=900)
+    log(f"mesh zoo 1x2: {len(ranks)} ranks, backend {ranks[0]['backend']}, "
+        f"devices {[r['device'] for r in ranks]}, spawn "
+        f"{time.time() - t0:.1f} s")
+    counts = {}
+    for job in jobs:
+        label = job["label"]
+        base, want, tie_bound = refs[label]
+        worst = max(float(np.abs(r["zoo"][label]["teacher"] - want).max())
+                    for r in ranks)
+        log(f"mesh zoo {label} teacher-forced (kernels, f32 activations, "
+            f"prefill + {MZ_STEPS} slotted decode steps"
+            + (", routing replayed" if job["routes"] is not None else "")
+            + f") 1x2 vs unsharded: max |dlogit| {worst:.3e} (tolerance "
+            f"{tol}; logit scale {float(np.abs(want).max()):.4g})")
+        if not worst <= tol:
+            raise AssertionError(f"mesh zoo {label} teacher-forced: logits "
+                                 f"differ by {worst}")
+        for name in job["paths"]:
+            base_rep, base_streams, base_counts = base[name]
+            for r, rank in enumerate(ranks):
+                got = rank["zoo"][label]["paths"][name]
+                rep = got["report"]
+                c = counts[f"{label} {name} rank {r}"] = got["launches"]
+                if (rep["requests"] != MZ_REQUESTS
+                        or rep["total_tokens"] != MZ_REQUESTS * MZ_GEN):
+                    raise AssertionError(
+                        f"mesh zoo {label} {name} rank {r}: "
+                        f"{rep['requests']} requests, {rep['total_tokens']} "
+                        "tokens")
+                for k in MZ_WANT[job["arch"], name]:
+                    if c.get(k, 0) < 1:
+                        raise AssertionError(f"mesh zoo {label} {name} rank "
+                                             f"{r}: kernel {k} never "
+                                             "launched")
+                k = MZ_KERNEL[job["arch"]]
+                if c.get(k) != base_counts.get(k):
+                    raise AssertionError(
+                        f"mesh zoo {label} {name} rank {r}: {k} launched "
+                        f"{c.get(k)} times, unsharded {base_counts.get(k)}")
+                ratio = rep["kv_bytes_per_shard"] / base_rep[
+                    "kv_bytes_per_shard"]
+                if not ratio < 1:
+                    raise AssertionError(
+                        f"mesh zoo {label} {name} rank {r}: KV bytes per "
+                        f"shard {rep['kv_bytes_per_shard']}, unsharded "
+                        f"{base_rep['kv_bytes_per_shard']}")
+                log(f"mesh zoo {label} {name} rank {r} [{smi}]: launches "
+                    f"{c} (unsharded {k} {base_counts.get(k)}); KV bytes per "
+                    f"shard {rep['kv_bytes_per_shard']} (unsharded "
+                    f"{base_rep['kv_bytes_per_shard']}, ratio {ratio:.6f}); "
+                    f"peak memory {got['peak_memory_bytes'] / 1e9:.3f} GB; "
+                    f"tokens/s {rep['tokens_per_s']:.6g} (unsharded "
+                    f"{base_rep['tokens_per_s']:.6g}); {got['seconds']:.1f} "
+                    f"s; bytes to collectives {got['traffic']}")
+            streams = ranks[0]["zoo"][label]["paths"][name]["streams"]
+            if any(r["zoo"][label]["paths"][name]["streams"] != streams
+                   for r in ranks):
+                raise AssertionError(f"mesh zoo {label} {name}: the ranks' "
+                                     "streams differ")
+            agree = _agreement(streams, base_streams)
+            log(f"mesh zoo {label} {name}: streams vs the unsharded path: "
+                f"{agree}")
+            if streams != base_streams:
+                if name != "slotted":
+                    # a prefix-shared MoE prefill routes its suffix alone
+                    # (capacity over fewer tokens): no teacher-forced
+                    # prefill replays it, so path A must agree
+                    raise AssertionError(f"mesh zoo {label} {name}: streams "
+                                         f"differ: {agree}")
+                cfg = job["cfg"]
+                reqs = synthetic_requests(MZ_REQUESTS, PROMPT, MZ_GEN,
+                                          cfg.vocab_size, seed=0)
+                params = _mz_params(cfg, job["dtype"])
+                _near_ties(f"mesh zoo {label} {name}", streams, base_streams,
+                           {r.rid: r.prompt.tolist() for r in reqs},
+                           functools.partial(_mz_tie_logits, cfg, params,
+                                             _mz_opts(job["dtype"])),
+                           tie_bound)
+                del params
+                _release()
+        secs = max(r["zoo"][label]["seconds"] for r in ranks)
+        log(f"mesh zoo {label}: {secs:.1f} s in the ranks")
+
+    for mname, key in (("1x2 tp_experts", "mzt"),
+                       ("2x1 ep_resident", "mzt_ep")):
+        for r, rank in enumerate(ranks):
+            got = rank[key]
+            ref = got["ref"]
+            counts[f"MZT {mname} rank {r}"] = got["launches"]
+            log(f"mesh zoo MZT {mname} rank {r} [{smi}]: loss "
+                f"{got['loss']:.7g} (unsharded {ref['loss']:.7g}), aux "
+                f"{got['moe_aux']:.7g}, grad norm {got['grad_norm']:.7g} "
+                f"(unsharded {ref['grad_norm']:.7g}), max |dgrad|/max|grad| "
+                f"{got['max_rel_grad_diff']:.3e} (router "
+                f"{got['router_rel_grad_diff']:.3e}), losses {got['losses']} "
+                f"(unsharded {ref['losses']}); step s {got['step_s']}; peak "
+                f"memory {got['peak_memory_bytes'] / 1e9:.3f} GB; bytes to "
+                f"collectives {got['traffic']}; launches {got['launches']}; "
+                f"{got['seconds']:.1f} s")
+            bad = []
+            for k in ("loss", "grad_norm"):
+                if not abs(got[k] - ref[k]) <= TR2_TOL[k] * abs(ref[k]):
+                    bad.append(k)
+            if not got["max_rel_grad_diff"] <= TR2_TOL["grad"]:
+                bad.append("grad")
+            if not all(abs(a - b) <= TR2_TOL["losses"] for a, b in
+                       zip(got["losses"], ref["losses"])):
+                bad.append("losses")
+            if got["launches"].get("flash_attention_bwd", 0) < 1:
+                bad.append("flash_attention_bwd launches")
+            if bad:
+                raise AssertionError(f"mesh zoo MZT {mname} rank {r}: {bad}")
+
+    flm_rep, flm_streams, flm_counts = flm_ref
+    for r, rank in enumerate(ranks):
+        got = rank["flm"]
+        rep = got["report"]
+        counts[f"FLM rank {r}"] = got["launches"]
+        log(f"mesh zoo FLM rank {r} [{smi}]: {rep['requests']} requests, "
+            f"{rep['total_tokens']} tokens, mesh {rep.get('mesh')}, handoffs "
+            f"{rep['fleet_handoffs']}; launches {got['launches']}; peak "
+            f"memory {got['peak_memory_bytes'] / 1e9:.3f} GB; tokens/s "
+            f"{rep['tokens_per_s']:.6g} (unsharded "
+            f"{flm_rep['tokens_per_s']:.6g}); {got['seconds']:.1f} s")
+        if (rep["requests"] != MZ_REQUESTS or rep.get("mesh") != "1x2"
+                or got["streams"] != flm_streams):
+            raise AssertionError(
+                f"mesh zoo FLM rank {r}: {rep['requests']} requests, mesh "
+                f"{rep.get('mesh')}, streams "
+                f"{_agreement(got['streams'], flm_streams)}")
+    log(f"mesh zoo phase: {time.time() - t_start:.1f} s [{smi}] (two ranks "
+        "sharing one card over gloo measure correctness, not "
+        "tensor-parallel speed)")
+    return counts, rows
 
 
 def moe_path_phase():
@@ -4106,12 +4753,13 @@ def mamba_phases(check: bool = True):
 # ---------------------------------------------------------------------------
 
 #: (path, arch, blocks kept or None for all, dtype, what runs): every path
-#: at its config's published widths; depth cut only where 80 GB forces it
-ZOO = (("Z1", "qwen2-7b", None, "fp32", "paged"),
-       ("Z2", "h2o-danube-1.8b", None, "fp32", "window"),
+#: at its config's published widths; depth cut where 80 GB or the run's
+#: time limit forces it
+ZOO = (("Z1", "qwen2-7b", 8, "fp32", "paged"),
+       ("Z2", "h2o-danube-1.8b", 8, "fp32", "window"),
        ("Z3", "llama-3.2-vision-11b", None, "fp32", "xattn"),
        ("Z4", "musicgen-medium", None, "fp32", "embeds"),
-       ("Z5", "mixtral-8x7b", 16, "bf16", "slotted"),
+       ("Z5", "mixtral-8x7b", 8, "bf16", "slotted"),
        ("Z6", "mistral-large-123b", 8, "bf16", "paged"),
        ("Z7", "kimi-k2-1t-a32b", 1, "bf16", "slotted"))
 #: Z2: requests of 4,128 prompt tokens (past danube's 4,096-token window)
@@ -4140,7 +4788,7 @@ def zoo_model(arch, blocks, dtype):
     cfg = dataclasses.replace(full, num_blocks=blocks) if blocks else full
     size = cfg.param_count() * _zoo_dtype(dtype).itemsize
     log(f"zoo {arch}: full width, {cfg.num_layers} of {full.num_layers} "
-        f"layers ({'depth cut: 80 GB' if blocks else 'full depth'}), "
+        f"layers ({'depth cut' if blocks else 'full depth'}), "
         f"{cfg.param_count() / 1e9:.4f} B of {full.param_count() / 1e9:.4f} "
         f"B parameters, {size / 1e9:.2f} GB in {dtype}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4404,11 +5052,11 @@ def zoo_window_phase(path, cfg, params, tol: float = ZOO_TOL):
 def zoo_phase():
     """Paths Z1-Z7: each config of the zoo's remainder at its published
     widths on the card, one at a time (the last one's tensors released
-    first): Z1 qwen2-7b (28 layers, fp32, nonzero QKV biases, G 7) and Z6
+    first): Z1 qwen2-7b (8 of 28 layers, fp32, nonzero QKV biases, G 7) and Z6
     mistral-large-123b (8 of 88 layers, bf16, G 12, D 12288) through the
-    paged engine as path A; Z2 h2o-danube-1.8b (24 layers, fp32, dh 80)
+    paged engine as path A; Z2 h2o-danube-1.8b (8 of 24 layers, fp32, dh 80)
     through the slotted engine with prompts past its 4,096-token window,
-    and the window check (``zoo_window_phase``); Z5 mixtral-8x7b (16 of
+    and the window check (``zoo_window_phase``); Z5 mixtral-8x7b (8 of
     32 layers, bf16, E 8, k 2) and Z7 kimi-k2-1t-a32b (1 of 61 layers,
     bf16, E 384, k 8, dh 112) through the slotted engine; Z3
     llama-3.2-vision-11b (40 layers, fp32, every ``xgate`` set to 1.0:
@@ -4480,9 +5128,9 @@ TR2_LAYERS, TR2_STEPS, TR2_RUN = MAIN_BLOCKS, 4, 8
 TR2_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad": 1e-3,
            "losses": 10 * TRAIN_LR}
 #: TR3: full width cut to 2 layers (a checkpoint of 2.6 GB: params and
-#: two moments), L2 with the shortcut, 12 steps, a checkpoint every 4, a
+#: two moments), L2 with the shortcut, 8 steps, a checkpoint every 4, a
 #: failure injected at step 6
-TR3_LAYERS, TR3_STEPS, TR3_CKPT, TR3_FAIL = 2, 12, 4, 6
+TR3_LAYERS, TR3_STEPS, TR3_CKPT, TR3_FAIL = 2, 8, 4, 6
 #: the backward kernel's cases: label, B, S, HQ, HKV, dh, window (all
 #: causal); the train path's shape first
 FLASH_BWD_CASES = (
@@ -5084,7 +5732,7 @@ def train_phases(gen, rows=None):
 #: data (4 x 1,024 tokens), lr 1e-3, L2 with the shortcut's kernels; the
 #: sharded step at 2x1 and 1x2 against the unsharded kernel path from one
 #: seed over MT_STEPS steps, gated by TR2_TOL
-MT_LAYERS, MT_STEPS = MAIN_BLOCKS, 3
+MT_LAYERS, MT_STEPS = 4, 3
 #: MT3: the launcher's rank entry (what ``--data-mesh 2`` runs in each
 #: rank) in the 2x1 ranks, ret_byp_shortcut read every call, TR3's form
 #: shorter: 2 layers, 4 steps, a checkpoint at step 2, a failure at step 3
@@ -5641,6 +6289,9 @@ def main() -> int:
         phase(kernel_phase, gen, "mesh")
         phase(mesh_phase)
         return 0
+    if sys.argv[1:] == ["mesh-zoo"]:
+        phase(mesh_zoo_phase, gen)
+        return 0
     if sys.argv[1:] == ["mesh-train"]:
         phase(kernel_phase, gen, "mesh train")
         phase(mesh_train_phase)
@@ -5674,6 +6325,7 @@ def main() -> int:
     mesh_counts = phase(mesh_phase, {
         "slotted": (rep, slot_streams),
         **{n: (paged[n][0], paged[n][2]) for n in "AC"}})
+    mesh_zoo_counts, mesh_zoo_rows = phase(mesh_zoo_phase, gen)
     route_rows = phase(route_phase, gen)
     rwkv_rows = phase(rwkv_scan_phase, gen)
     mamba_rows = phase(mamba_scan_phase, gen)
@@ -5701,6 +6353,7 @@ def main() -> int:
                **{f"fleet {n}": c for n, c in fleet_counts.items()},
                **{f"zoo {n}": c for n, c in zoo_counts.items()},
                **{f"mesh {n}": c for n, c in mesh_counts.items()},
+               **{f"mesh zoo {n}": c for n, c in mesh_zoo_counts.items()},
                "train TR1": train_counts,
                **{f"mesh train {n}": c
                   for n, c in mesh_train_counts.items()}}
@@ -5792,6 +6445,8 @@ def main() -> int:
         if jamba:     # at the Mamba path's shapes, in its dtype (fp32)
             out[-1]["jamba"] = [{k: v for k, v in r.items() if k != "dtype"}
                                 for r in jamba]
+        if name in mesh_zoo_rows:   # at a 1x2 rank's local shapes
+            out[-1]["mesh_zoo"] = mesh_zoo_rows[name]
         if name in ("rwkv_scan", "mamba_scan"):
             out[-1].update({k: main_row[k] for k in (
                 "device_mean_ms", "cold_device_ms", "cold_device_mean_ms")})

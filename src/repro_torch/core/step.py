@@ -186,10 +186,15 @@ class ShardedTrainStep:
       2. runs the forward and backward at the local widths (``ModelOptions
          .tp``: Megatron's collectives over "model", which autograd sees;
          the flash and rmsnorm ``Function``s at the local shapes);
-      3. sums the whole ``wk``/``wv`` gradients over "model" where the
-         KV heads do not split, then reduces every gradient as a mean
-         over "data" (one all-reduce of the flattened gradients a dtype;
-         this rank keeps its FSDP piece);
+      3. sums over "model" the gradients of the whole pieces each rank
+         computes only in part (``wk``/``wv`` where the KV heads do not
+         split, the MoE router, the RWKV token-shift mixes), then reduces
+         every gradient as a mean over "data" (one all-reduce of the
+         flattened gradients a dtype; this rank keeps its FSDP piece);
+         an ``ep_resident`` expert piece is left out of that reduce: the
+         all-to-all's backward already brought it every rank's tokens
+         (each data row's once from every model rank), so it is divided
+         by the mesh size instead;
       4. clips by the whole gradient's norm (``adamw.global_norm`` over
          the pieces) and runs AdamW on the pieces: in place at L2+,
          functional at L1.
@@ -217,9 +222,11 @@ class ShardedTrainStep:
 
     def _by_dtype(self, tensors, fsdp_only: bool):
         """{dtype: [leaf index, ...]} (of the FSDP-cut leaves alone when
-        ``fsdp_only``)."""
+        ``fsdp_only``; never the resident expert pieces)."""
         out: Dict[torch.dtype, list] = {}
         for i, t in enumerate(tensors):
+            if self.layout.resident[i]:
+                continue
             if not fsdp_only or self.fsdp_dim[i] is not None:
                 out.setdefault(t.dtype, []).append(i)
         return out
@@ -245,9 +252,12 @@ class ShardedTrainStep:
         ``grads``' entries as it goes."""
         data = self.layout.data
         n = data.size
-        if n == 1:
-            return grads
         out = list(grads)
+        for i, res in enumerate(self.layout.resident):
+            if res:
+                out[i] = grads[i] / self.layout.mesh.size
+        if n == 1:
+            return out
         for idx in self._by_dtype(grads, False).values():
             shapes = [grads[i].shape for i in idx]
             flat = data.sum_(torch.cat([grads[i].reshape(-1) for i in idx]))
@@ -316,10 +326,12 @@ def build_sharded_train_step(cfg: ArchConfig, opts: ModelOptions,
     this rank's rows; at L3 with a leading microstep dimension).
     ``state_like`` may hold ``meta`` tensors: only its structure and
     shapes are read, as JAX reads ``ShapeDtypeStruct``s. L0 raises
-    ``ValueError``, as ``check_mesh_linkage`` does for serving; MoE, Mamba
-    and RWKV layers at a model axis > 1 raise ``NotImplementedError``
-    (ROADMAP entry 9c). Wrap ``fn`` in ``LinkedStep`` for the linkage's
-    return mode."""
+    ``ValueError``, as ``check_mesh_linkage`` does for serving. Every
+    layer family trains at a model axis > 1: MoE experts split over
+    "model" (or, with ``ep_resident``, over every rank, resident, their
+    tokens moved by an all-to-all), Mamba's inner width and RWKV's heads
+    split; the scans train on their plain versions. Wrap ``fn`` in
+    ``LinkedStep`` for the linkage's return mode."""
     from repro_torch.sharding.placement import train_layout
     linkage.validate()
     check_mesh_linkage(linkage, True)

@@ -10,6 +10,8 @@ prefix-affinity router, with optional prefill/decode disaggregation
       # a prefix prefilled by either replica warms both through the
       # shared host-tier prefix store
   python -m repro_torch.launch.fleet --device cpu                # off the card
+  python -m repro_torch.launch.fleet --mesh 1,2 --replicas 2
+      # every replica over one data x model mesh of spawned ranks
 
 Every replica serves from one copy of the weights on the device. The
 report is ``fleet_report``: percentiles over the pooled completions,
@@ -17,9 +19,13 @@ counters summed across replicas, the handoff and shared-store totals, and
 the per-replica breakdown under ``per_replica``. Runs on ``cuda`` unless
 ``--device cpu`` is given; the CLI serves the smoke model, as the JAX
 launcher does (``run_fleet_engine(..., smoke=False)`` serves the published
-widths); ``--scale S`` widens it as the serve launcher does. A
-per-replica ``--mesh`` raises ``NotImplementedError`` naming ROADMAP entry
-9c.
+widths); ``--scale S`` widens it as the serve launcher does.
+
+``--mesh data,model`` runs every replica over one mesh of ``data x
+model`` rank processes (``repro_torch.launch.mesh.spawn``, as the serve
+launcher's ``--mesh``): each rank holds its shard of the weights and its
+own shared host tier over its KV heads, and rank 0 reports (the mesh under
+"mesh", every rank's launches and peak memory under ``ranks``).
 """
 from __future__ import annotations
 
@@ -46,43 +52,58 @@ def run_fleet_engine(arch, preset_name: str, *, replicas: int = 2,
                      device="cuda", dtype="fp32"):
     """Run a request workload through a ``FleetEngine``; returns the fleet
     report dict. ``arch`` is a registered name or an ``ArchConfig``;
-    ``dtype`` ("fp32" or "bf16") is the activation and parameter dtype."""
+    ``dtype`` ("fp32" or "bf16") is the activation and parameter dtype.
+    ``mesh`` ("data,model") runs the fleet in that many rank processes
+    (``fleet_rank`` in each) and returns rank 0's report with every
+    rank's summary under ``ranks``; a ``Mesh`` (inside a rank) serves
+    this rank's shard."""
+    kw = dict(locals())
     from repro_torch.core import SamplingConfig
-    from repro_torch.launch.serve import _setup
+    from repro_torch.launch.serve import _free, _setup
     from repro_torch.serve import (FleetEngine, PreemptionPolicy, Telemetry,
                                    check_slice, fleet_report,
                                    synthetic_requests)
-    from repro_torch.serve.engine import _not_in_slice
 
-    from repro_torch.launch.mesh import parse_mesh_spec
     check_slice(kv=kv, kv_dtype=kv_dtype)
-    if parse_mesh_spec(mesh) is not None:
-        raise _not_in_slice("a per-replica --mesh", "9c")
     if requests < 1:
         raise ValueError("need --requests >= 1")
-    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
-                                   scale=scale, seed=seed,
-                                   gen_len=gen_len,
-                                   decode_steps=decode_steps, device=device,
-                                   dtype=dtype)
+    if isinstance(mesh, str) or mesh is None:
+        from repro_torch.launch.mesh import parse_mesh_spec
+        if parse_mesh_spec(mesh) is not None:
+            return _spawn_fleet(kw)
+        mesh = None                           # "" or "1,1": one device
+    lead = mesh is None or mesh.rank == 0     # the rank that reports
     max_len = prompt_len + gen_len + 8
     sampling = SamplingConfig(temperature=temperature, top_k=top_k,
                               seed=seed)
     tel = None
-    if trace or metrics:
+    if lead and (trace or metrics):
         tel = Telemetry(trace=bool(trace),
                         const_labels={"backend": kv, "preset": preset_name,
                                       "replicas": str(replicas)})
-    fleet = FleetEngine(
-        cfg, params, opts, lk, replicas=replicas,
-        prefill_replicas=disaggregate, n_slots=n_slots, max_len=max_len,
-        admit_cap=admit_cap or None,
-        shared_host_blocks=shared_host_blocks or None,
-        telemetry=tel, kv=kv, block_size=block_size,
-        num_blocks=num_blocks or None, sampling=sampling,
-        chunked=chunked, chunk_budget=budget,
-        preempt=PreemptionPolicy(mode=preempt, victim=victim),
-        kv_dtype=kv_dtype, async_swap=async_swap)
+
+    def build():
+        cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
+                                       scale=scale, seed=seed,
+                                       gen_len=gen_len,
+                                       decode_steps=decode_steps,
+                                       device=mesh.device if mesh else device,
+                                       dtype=dtype)
+        fleet = FleetEngine(
+            cfg, params, opts, lk, replicas=replicas,
+            prefill_replicas=disaggregate, n_slots=n_slots, max_len=max_len,
+            admit_cap=admit_cap or None,
+            shared_host_blocks=shared_host_blocks or None,
+            telemetry=tel, kv=kv, block_size=block_size,
+            num_blocks=num_blocks or None, sampling=sampling,
+            chunked=chunked, chunk_budget=budget,
+            preempt=PreemptionPolicy(mode=preempt, victim=victim),
+            kv_dtype=kv_dtype, async_swap=async_swap, mesh=mesh)
+        del params            # a mesh rank keeps its shard only
+        _free(fleet.engines[0].device)
+        return cfg, fleet
+    # a mesh's ranks build in turn: one full copy of the weights at once
+    cfg, fleet = build() if mesh is None else mesh.in_turn(build)
 
     # warmup: one pass through every replica's programs (prefill cells the
     # serve step, decode cells the handoff import and decode), its prefix
@@ -119,6 +140,47 @@ def run_fleet_engine(arch, preset_name: str, *, replicas: int = 2,
     })
     if load == "open":
         rep["offered_rate_req_s"] = rate
+    return rep
+
+
+def fleet_rank(mesh, kw: dict) -> dict:
+    """One rank of a mesh fleet (``spawn``'s entry): ``run_fleet_engine``
+    with the keyword arguments ``kw`` over this rank's ``mesh``. Returns
+    its report, its kernel launches over the run (warmup included) and,
+    on CUDA, its peak device memory."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    rep = run_fleet_engine(**{**kw, "mesh": mesh})
+    return {"rank": mesh.rank, "coords": mesh.coords, "report": rep,
+            "launches": ops.launch_counts(),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None)}
+
+
+def _spawn_fleet(kw: dict) -> dict:
+    """A mesh fleet from outside the ranks: check what the ranks would
+    refuse, spawn them, and return rank 0's report with every rank's
+    summary under ``ranks``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import preset
+    from repro_torch.core.step import check_mesh_linkage
+    from repro_torch.launch.mesh import mesh_shape, parse_mesh_spec, spawn
+    from repro_torch.launch.serve import scaled_config
+    from repro_torch.sharding.placement import check_mesh
+    cfg = (get_config(kw["arch"]) if isinstance(kw["arch"], str)
+           else kw["arch"])
+    if kw["smoke"]:
+        cfg = scaled_config(cfg.smoke(), kw["scale"])
+    check_mesh(cfg, mesh_shape(*parse_mesh_spec(kw["mesh"])))
+    check_mesh_linkage(preset(kw["preset_name"]), True)
+    out = spawn(fleet_rank, kw["mesh"], kw["device"], (kw,))
+    rep = dict(out[0]["report"])
+    rep["ranks"] = [{k: o[k] for k in ("rank", "coords", "launches",
+                                       "peak_memory_bytes")} for o in out]
     return rep
 
 
@@ -174,8 +236,8 @@ def main(argv=None) -> int:
                    help="common prompt prefix (exercises the shared "
                         "cross-replica prefix store)")
     p.add_argument("--mesh", default="",
-                   help="per-replica serving mesh 'data,model' (ROADMAP "
-                        "entry 9c: raises unless single-device)")
+                   help="per-replica serving mesh 'data,model': every "
+                        "replica over one mesh of spawned ranks")
     p.add_argument("--rate", type=float, default=25.0)
     p.add_argument("--concurrency", type=int, default=0,
                    help="closed-loop outstanding requests "

@@ -126,6 +126,29 @@ class Mesh:
         t = torch.tensor(list(values), dtype=torch.int64, device=self.device)
         return self.world.broadcast_(t).tolist()
 
+    @property
+    def shares_card(self) -> bool:
+        """Whether every rank computes on one card: CUDA over gloo
+        (``spawn`` puts every gloo rank on the card it is given; NCCL
+        takes a card a rank)."""
+        return self.device.type == "cuda" and self.backend == "gloo"
+
+    def in_turn(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` on this rank. Where the ranks share a card
+        (``shares_card``), in its turn, rank 0 first, each rank once the
+        one before has returned (a world barrier a turn), so they build
+        full weights and cut them to their pieces one at a time: the card
+        holds one full copy at once. ``fn`` must issue no collective: the
+        other ranks wait at a barrier meanwhile."""
+        if not self.shares_card:
+            return fn()
+        out = None
+        for r in range(self.size):
+            if r == self.rank:
+                out = fn()
+            self.world.barrier()
+        return out
+
     def describe(self) -> str:
         """"1x2", as the JAX engine reports a mesh."""
         return "x".join(str(self.shape[a]) for a in self.axis_names)

@@ -5,8 +5,9 @@ so a caller can hold the sharded engine against the unsharded one.
 ``Mesh``) and runs in one process too (``mesh=None``). The model is a
 registered config (``smoke`` cut; a case's "overrides" replace fields)
 with the port's seeded init, built once per (arch, dtype) in each
-process, so every rank and the caller hold the same weights. A case is a
-dict:
+process, so every rank and the caller hold the same weights; a case's
+"weights" (a full parameter tree on the host, say JAX's converted by
+``convert.params_from_jax``) replace the init. A case is a dict:
 
   {"name", "kind": "serve", "preset", "requests", "engine": {...}}
         a ``ServeEngine`` run (closed load, or "load": "open"); returns
@@ -18,7 +19,12 @@ dict:
         prefill, then one decode step per token of ``feed`` (slotted, or
         paged through a permuted block table, whose last entry is also a
         paged chunk pass over the prompt's tail), the given tokens fed:
-        returns every step's logits (float32 numpy). Paged only, the
+        returns every step's logits (float32 numpy). The optional
+        "routes": "record" also returns the MoE layers' routing (each
+        ``layers._route`` output, in call order) under "routes"; such a
+        record in its place has the run route exactly so (the mesh's
+        ranks route over the whole router, as one device does). Paged
+        only, the
         optional "kv_writes": "record" also returns the run's K/V writes
         (the prefill's rows the pools start from, then each layer's write
         in call order) under "kv_writes"; such a record in its place has
@@ -27,9 +33,14 @@ dict:
         only the arithmetic differs (a code moves a whole step on an ulp).
   {"name", "kind": "raises", "preset", "engine": {...}}
         building the engine; returns the exception's type and message.
+  {"name", "kind": "fleet", "preset", "requests", "engine": {...}}
+        a ``FleetEngine`` run (its keyword arguments in "engine": replicas,
+        prefill_replicas, n_slots, max_len, kv, ...) over the mesh;
+        returns the streams, the handoffs and the utilization.
 
 Each result also holds the rank's kernel launches over the case
-(``ops.launch_counts``) and its KV bytes per shard.
+(``ops.launch_counts``) and its KV bytes per shard; a serve case also the
+bytes of its recurrent state leaves and of its expert weights.
 """
 from __future__ import annotations
 
@@ -81,6 +92,27 @@ def _kv_leaf_bytes(eng) -> Optional[int]:
     return None
 
 
+_STATE_LEAVES = ("conv", "ssm", "state")
+
+
+def _state_bytes(eng) -> dict:
+    """Bytes of the Mamba and RWKV state leaves on this rank, by name."""
+    out = {}
+    for g in eng.kv.cache:
+        for name in _STATE_LEAVES:
+            if name in g:
+                out[name] = out.get(name, 0) + g[name].numel() * g[
+                    name].element_size()
+    return out
+
+
+def _expert_bytes(params) -> int:
+    """Bytes of the MoE expert weights this rank holds."""
+    return sum(layer["mlp"][k].numel() * layer["mlp"][k].element_size()
+               for layer in params["layers"] if "router" in layer["mlp"]
+               for k in ("wi", "wg", "wo"))
+
+
 def _serve(cfg, params, case, mesh, **extra) -> dict:
     from repro_torch.core import SamplingConfig
     from repro_torch.kernels import ops
@@ -101,7 +133,44 @@ def _serve(cfg, params, case, mesh, **extra) -> dict:
             "pool_hwm": getattr(getattr(eng.kv, "pool", None), "hwm", None),
             "kv_leaf_bytes": _kv_leaf_bytes(eng),
             "kv_bytes_per_shard": u["kv_bytes_per_shard"],
+            "state_bytes": _state_bytes(eng),
+            "expert_bytes": _expert_bytes(eng.params),
             "launches": ops.launch_counts(), "_engine": eng}
+
+
+def _fleet(cfg, params, case, mesh) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FleetEngine
+    lk, opts = options(case["preset"], params["embed"].dtype,
+                       case.get("decode_steps", 0))
+    ops.reset_launch_counts()
+    fleet = FleetEngine(cfg, params, opts, lk, mesh=mesh, **case["engine"])
+    comps, _ = fleet.run(case["requests"], load=case.get("load", "closed"))
+    return {"streams": {c.rid: c.tokens.tolist() for c in comps},
+            "handoffs": fleet.handoffs, "util": fleet.utilization(),
+            "launches": ops.launch_counts()}
+
+
+@contextlib.contextmanager
+def routing(log: list, replay: bool):
+    """The MoE layers' routing steps (``layers._route``), in call order:
+    recorded into ``log`` (host tensors), or (``replay``) replaced by its
+    entries, so a second run routes exactly as the first one did."""
+    from repro_torch.models import layers
+    orig, recorded = layers._route, iter(log)
+
+    def route(router, xt, K, opts):
+        if replay:
+            return tuple(t.to(xt.device) for t in next(recorded))
+        out = orig(router, xt, K, opts)
+        log.append(tuple(t.cpu() for t in out))
+        return out
+
+    layers._route = route
+    try:
+        yield
+    finally:
+        layers._route = orig
 
 
 @contextlib.contextmanager
@@ -135,10 +204,6 @@ def _host(tensors) -> tuple:
 
 def _teacher(cfg, params, case, mesh) -> dict:
     """Teacher-forced logits (see the module docstring)."""
-    from repro_torch.models import (decode_step_paged, decode_step_slots,
-                                    prefill, serve_chunk_step_paged)
-    from repro_torch.serve import slotify
-    from repro_torch.serve.paging import init_paged_cache, scatter_kv
     _, opts = options(case["preset"], params["embed"].dtype)
     dev = params["embed"].device
     heads = slice(None)                   # this rank's KV heads
@@ -153,9 +218,25 @@ def _teacher(cfg, params, case, mesh) -> dict:
         opts = dataclasses.replace(opts, tp=sh.tp)
     prompt = torch.as_tensor(np.asarray(case["prompt"], np.int32))[None]
     prompt = prompt.to(dev)
-    P, max_len = prompt.shape[1], case["max_len"]
     feed = [torch.tensor([t], dtype=torch.int32, device=dev)
             for t in case["feed"]]
+    routes = case.get("routes")
+    log = routes if isinstance(routes, list) else []
+    with (routing(log, replay=routes != "record") if routes is not None
+          else contextlib.nullcontext()):
+        out = _teacher_run(cfg, params, case, opts, prompt, feed, heads)
+    if routes == "record":
+        out["routes"] = log
+    return out
+
+
+def _teacher_run(cfg, params, case, opts, prompt, feed, heads) -> dict:
+    from repro_torch.models import (decode_step_paged, decode_step_slots,
+                                    prefill, serve_chunk_step_paged)
+    from repro_torch.serve import slotify
+    from repro_torch.serve.paging import init_paged_cache, scatter_kv
+    dev = prompt.device
+    P, max_len = prompt.shape[1], case["max_len"]
     logits, cache = prefill(params, prompt, cfg, opts, max_len)
     out = [logits]
     if case["backend"] == "slotted":
@@ -216,11 +297,22 @@ def run_case(case: dict, mesh=None, *, smoke: bool = True,
     one device)."""
     from repro_torch.kernels import ops
     dev = mesh.device if mesh is not None else torch.device(device)
-    cfg, params = model(case.get("arch", "tinyllama-1.1b"), smoke=smoke,
-                        dtype=dtype, device=dev,
-                        overrides=case.get("overrides", ()))
+    if "weights" in case:
+        from repro_torch import tree
+        from repro_torch.configs import get_config
+        cfg = get_config(case.get("arch", "tinyllama-1.1b"))
+        cfg = dataclasses.replace(cfg.smoke() if smoke else cfg,
+                                  **dict(case.get("overrides", ())))
+        params = tree.tree_map(lambda t: torch.as_tensor(t).to(dev),
+                               case["weights"])
+    else:
+        cfg, params = model(case.get("arch", "tinyllama-1.1b"), smoke=smoke,
+                            dtype=dtype, device=dev,
+                            overrides=case.get("overrides", ()))
     kind = case["kind"]
-    if kind == "serve":
+    if kind == "fleet":
+        out = _fleet(cfg, params, case, mesh)
+    elif kind == "serve":
         out = _serve(cfg, params, case, mesh)
     elif kind == "warm":
         first = _serve(cfg, params, case, mesh)

@@ -90,9 +90,10 @@ rank runs on ``cuda:0``) or run on the CPU, NCCL when each owns a card.
 Rank 0 prints the report (its ``ranks`` list holds every rank's KV bytes,
 peak device memory and kernel launches) and writes the trace, metrics and
 prefix cache. Two ranks sharing one card measure correctness, not
-tensor-parallel speed. MoE, Mamba and RWKV models at a model axis > 1
-raise ``NotImplementedError`` (ROADMAP entry 9c) before any rank starts,
-and L0 (``--preset linux``) with a mesh raises ``ValueError``, as in JAX.
+tensor-parallel speed. MoE, Mamba and RWKV models split their experts,
+inner channels and heads over "model" (``repro_torch.sharding.
+placement``); L0 (``--preset linux``) with a mesh raises ``ValueError``
+before any rank starts, as in JAX.
 """
 from __future__ import annotations
 
@@ -214,11 +215,6 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
     lead = mesh is None or mesh.rank == 0     # the rank that reports
     sampling = SamplingConfig(temperature=temperature, top_k=top_k,
                               seed=seed)
-    cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
-                                   scale=scale, seed=seed, gen_len=gen_len,
-                                   decode_steps=decode_steps,
-                                   device=mesh.device if mesh else device,
-                                   dtype=dtype)
     max_len = prompt_len + gen_len + 8
 
     tel = None
@@ -240,18 +236,30 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
                         const_labels={"backend": kv, "preset": preset_name})
     warm_start = (prefix_cache if prefix_cache
                   and os.path.exists(prefix_cache) else None)
-    eng = ServeEngine(cfg, params, opts, lk, n_slots=n_slots, max_len=max_len,
-                      kv=kv, block_size=block_size,
-                      num_blocks=num_blocks or None, sampling=sampling,
-                      bucket_prompts=bucket_prompts, chunked=chunked,
-                      chunk_budget=budget, chunk_width=chunk_width,
-                      preempt=PreemptionPolicy(mode=preempt, victim=victim),
-                      host_blocks=host_blocks, async_swap=async_swap,
-                      warm_start=warm_start,
-                      ttft_slo_s=ttft_slo / 1e3 if ttft_slo > 0 else None,
-                      kv_dtype=kv_dtype, spec_decode=spec_decode,
-                      spec_width=spec_width, telemetry=tel, mesh=mesh)
-    del params                # a mesh rank keeps its shard only
+
+    def build():
+        cfg, lk, opts, params = _setup(arch, preset_name, smoke=smoke,
+                                       scale=scale, seed=seed,
+                                       gen_len=gen_len,
+                                       decode_steps=decode_steps,
+                                       device=mesh.device if mesh else device,
+                                       dtype=dtype)
+        eng = ServeEngine(
+            cfg, params, opts, lk, n_slots=n_slots, max_len=max_len, kv=kv,
+            block_size=block_size, num_blocks=num_blocks or None,
+            sampling=sampling, bucket_prompts=bucket_prompts,
+            chunked=chunked, chunk_budget=budget, chunk_width=chunk_width,
+            preempt=PreemptionPolicy(mode=preempt, victim=victim),
+            host_blocks=host_blocks, async_swap=async_swap,
+            warm_start=warm_start,
+            ttft_slo_s=ttft_slo / 1e3 if ttft_slo > 0 else None,
+            kv_dtype=kv_dtype, spec_decode=spec_decode,
+            spec_width=spec_width, telemetry=tel, mesh=mesh)
+        del params            # a mesh rank keeps its shard only
+        _free(eng.device)
+        return cfg, eng
+    # a mesh's ranks build in turn: one full copy of the weights at once
+    cfg, eng = build() if mesh is None else mesh.in_turn(build)
 
     # warmup: one request through prefill and one decode program, outside
     # the timed region (first launches load the kernel library and warm
@@ -292,7 +300,7 @@ def run_engine(arch, preset_name: str, *, n_slots: int = 4,
         "arch": cfg.name, "preset": preset_name, "load": load,
         "n_slots": n_slots, "prompt_len": prompt_len, "gen_len": gen_len,
         "decode_steps_per_program": eng.tokens_per_program,
-        "dtype": str(opts.dtype).removeprefix("torch."),
+        "dtype": str(eng.opts.dtype).removeprefix("torch."),
         "device": _device_name(eng.device),
     })
     if load == "open":
@@ -343,6 +351,13 @@ def _spawn_engine(kw: dict) -> dict:
                                        "kv_bytes_per_shard",
                                        "peak_memory_bytes")} for o in out]
     return rep
+
+
+def _free(dev: torch.device) -> None:
+    """Hand the caching allocator's free blocks back to the card (a mesh
+    rank that shares it, after freeing its full weights)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _device_name(dev: torch.device) -> str:

@@ -15,13 +15,21 @@ tensors and run their plain versions for CPU tensors); ``scan_impl`` does
 the same for the MoE router and the Mamba and RWKV recurrences.
 
 Under tensor parallelism (``ModelOptions.tp``, a serving or training
-mesh) the layers run at the rank's local head counts and ``d_ff`` (the
-``cfg`` they are given), and the row-parallel ``wo`` products end in one
-all-reduce over the model axis (``repro_torch.sharding.comm``); under
-training the inputs of the column-parallel projections sum their
-gradients over it too. Without it nothing changes. JAX's ``constrain_acts`` (``layers.py:65-75``), which pins
-activations' shardings for GSPMD, has no counterpart: here every tensor
-already lives where the rank computes it.
+mesh) the attention and MLP layers run at the rank's local head counts
+and ``d_ff`` (the ``cfg`` they are given), and the row-parallel ``wo``
+products end in one all-reduce over the model axis
+(``repro_torch.sharding.comm``); under training the inputs of the
+column-parallel projections sum their gradients over it too. The MoE,
+Mamba and RWKV layers read their local widths off ``tp`` and their
+weights: a MoE layer routes over every expert on every rank (capacity and
+the one-hots at the global E) and runs its own experts, its output summed
+over the axis; a Mamba layer runs its slice of the inner width, its
+``x_proj`` output summed both ways; an RWKV time mix runs its heads (the
+group norm per head stays local), the channel mix its slice of ``d_ff``.
+Without it nothing changes. JAX's ``constrain_acts``
+(``layers.py:65-75``), which pins activations' shardings for GSPMD, has
+no counterpart: here every tensor already lives where the rank computes
+it.
 
 Decode writes the new K/V (or the Mamba or RWKV state) into the cache
 tensors in place (the PyTorch counterpart of JAX buffer donation at
@@ -752,17 +760,24 @@ def mlp(params: Params, x: torch.Tensor,
     return y if opts.tp is None else opts.tp.row_parallel(y, opts.tp.ff)
 
 
-def rwkv_mix(params: Params, x: torch.Tensor,
-             shifted: torch.Tensor) -> torch.Tensor:
+def rwkv_mix(params: Params, x: torch.Tensor, shifted: torch.Tensor,
+             opts: ModelOptions = ModelOptions()) -> torch.Tensor:
     """RWKV channel mix (``layers.py:724``). ``shifted`` is x shifted right
-    one token."""
+    one token. Under tensor parallelism with ``d_ff`` split, ``wk`` holds
+    this rank's columns of it and ``wv`` its rows (row-parallel); ``wr``
+    is whole, so only the key mix enters the model axis."""
+    tp = opts.tp
     mk = params["mix_k"].to(x.dtype)
     mr = params["mix_r"].to(x.dtype)
     xk = x * mk + shifted * (1 - mk)
     xr = x * mr + shifted * (1 - mr)
+    if tp is not None:
+        xk = tp.enter(xk, tp.ff)
     k = torch.square(torch.relu(xk @ params["wk"].to(x.dtype)))
-    return (torch.sigmoid(xr @ params["wr"].to(x.dtype))
-            * (k @ params["wv"].to(x.dtype)))
+    kv = k @ params["wv"].to(x.dtype)
+    if tp is not None:
+        kv = tp.row_parallel(kv, tp.ff)
+    return torch.sigmoid(xr @ params["wr"].to(x.dtype)) * kv
 
 
 # ---------------------------------------------------------------------------
@@ -817,6 +832,10 @@ def _moe(params: Params, x: torch.Tensor, cfg: ArchConfig,
     """``moe``'s output, with the grouped tokens and the routing one-hots
     the aux loss reads."""
     mcfg = cfg.moe
+    tp = opts.tp
+    split = tp is not None and tp.experts is not None
+    if split:           # routing and dispatch: partial gradients on x
+        x = tp.enter(x, True)
     B, S, D = x.shape
     N = B * S
     E, K = mcfg.num_experts, mcfg.top_k
@@ -844,13 +863,42 @@ def _moe(params: Params, x: torch.Tensor, cfg: ArchConfig,
     comb = torch.einsum("gske,gskc,gsk->gsec", onehot.float(),
                         pos_oh.float(), gates).to(x.dtype)
 
+    if split:           # this rank's experts' slots
+        lo, hi = tp.experts
+        disp, comb = disp[:, :, lo:hi], comb[:, :, lo:hi]
     xe = torch.einsum("gsd,gsec->gecd", xt, disp)             # (G,E,C,D)
-    h = (torch.nn.functional.silu(
-        _expert_matmul(xe, params["wg"].to(x.dtype)))
-        * _expert_matmul(xe, params["wi"].to(x.dtype)))
-    ye = _expert_matmul(h, params["wo"].to(x.dtype))          # (G,E,C,D)
+    if tp is not None and tp.ep is not None:
+        ye = _experts_resident(params, xe, tp)
+    else:
+        ye = _experts(params, xe)
     y = torch.einsum("gecd,gsec->gsd", ye, comb)
+    if split:
+        y = tp.row_parallel(y, True)
     return y.reshape(B, S, D), xt, onehot
+
+
+def _experts(params: Params, xe: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts over their slots: (G,E,C,D) -> (G,E,C,D)."""
+    h = (torch.nn.functional.silu(
+        _expert_matmul(xe, params["wg"].to(xe.dtype)))
+        * _expert_matmul(xe, params["wi"].to(xe.dtype)))
+    return _expert_matmul(h, params["wo"].to(xe.dtype))
+
+
+def _experts_resident(params: Params, xe: torch.Tensor, tp) -> torch.Tensor:
+    """``ep_resident``: every expert's slots (G,E,C,D) go to the rank that
+    holds the expert (``tp.ep``: rank r holds experts [r·E/W, (r+1)·E/W)),
+    which runs every rank's slots of its experts at once, and come back
+    (the reverse exchange): (G,E,C,D). Every rank sends its own tokens,
+    model ranks of one data row the same ones."""
+    G, E, C, D = xe.shape
+    W = tp.ep.size
+    e = E // W
+    recv = tp.all_to_all(xe.permute(1, 0, 2, 3))               # (E,G,C,D)
+    rows = recv.reshape(W, e, G, C, D).permute(0, 2, 1, 3, 4)
+    ye = _experts(params, rows.reshape(W * G, e, C, D))        # (W·G,e,C,D)
+    back = ye.reshape(W, G, e, C, D).permute(0, 2, 1, 3, 4)
+    return tp.all_to_all(back.reshape(E, G, C, D)).permute(1, 0, 2, 3)
 
 
 def moe(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -879,6 +927,10 @@ def moe_with_aux(params: Params, x: torch.Tensor, cfg: ArchConfig,
     me = router_probs(params["router"], xt, opts).float().mean(dim=1)  # (G,E)
     frac = onehot.sum(dim=2).float().mean(dim=1)              # (G,E)
     aux = (me * frac).sum(-1).mean() * E * cfg.moe.router_aux_coef
+    if opts.tp is not None and opts.tp.experts is not None:
+        # every rank forms the whole aux loss, and the router's and x's
+        # gradients are summed over the model axis: count it once
+        aux = opts.tp.once(aux)
     return y, aux
 
 
@@ -887,17 +939,27 @@ def moe_with_aux(params: Params, x: torch.Tensor, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def _mamba_gates(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                 conv_state=None):
+                 conv_state=None, tp=None):
     """The computation before the scan (``layers.py:845``): in_proj split
     into xin and the gate z, the causal depthwise conv over ``conv_state``
     (zeros when None) followed by xin, summed in JAX's order over the
     d_conv taps, silu, x_proj split into the low-rank dt, B and C, dt =
     softplus(dt_lr @ dt_proj + dt_bias), all in x's dtype, and A =
     -exp(A_log) in float32. Returns (dt, A, Bv, Cv, xc, z, the new conv
-    state: the last d_conv - 1 rows of the padded *pre-conv* xin)."""
+    state: the last d_conv - 1 rows of the padded *pre-conv* xin).
+
+    Under tensor parallelism over the inner width (``tp.di``) every leaf
+    holds this rank's channels (``in_proj`` its channels of xin and of z):
+    the conv, dt and the scan's channels are local, and ``x_proj``, a
+    row-parallel product, is summed over the model axis both ways (its
+    dt, B and C feed this rank's channels again, whose gradients are
+    partial)."""
     mc = cfg.mamba
-    di = mc.expand * cfg.d_model
+    di = params["conv_w"].shape[1]                  # this rank's channels
     dt_rank = max(cfg.d_model // 16, 1)
+    split = tp is not None and tp.di is not None
+    if split:
+        x = tp.enter(x, True)
     B, S, _ = x.shape
     xin, z = (x @ params["in_proj"].to(x.dtype)).split(di, dim=-1)
     w = params["conv_w"].to(x.dtype)                        # (d_conv, di)
@@ -911,6 +973,8 @@ def _mamba_gates(params: Params, x: torch.Tensor, cfg: ArchConfig,
         xc = xc + xp[:, i:i + S] * w[i]
     xc = torch.nn.functional.silu(xc)
     proj = xc @ params["x_proj"].to(x.dtype)
+    if split:
+        proj = tp.sum_both(proj)
     dt_lr, Bv, Cv = proj.split([dt_rank, mc.d_state, mc.d_state], dim=-1)
     dt = torch.nn.functional.softplus(dt_lr @ params["dt_proj"].to(x.dtype)
                                       + params["dt_bias"].to(x.dtype))
@@ -927,12 +991,13 @@ def _mamba_discretize(x, dt, A, Bv):
 
 
 def _mamba_out(params: Params, y: torch.Tensor, xc: torch.Tensor,
-               z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+               z: torch.Tensor, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The D skip and the silu(z) gate around the scan, then out_proj
-    (``layers.py:943-945``)."""
+    (``layers.py:943-945``; row-parallel over the inner width)."""
     y = (y + xc.float() * params["D"]).to(x.dtype)
     y = y * torch.nn.functional.silu(z)
-    return y @ params["out_proj"].to(x.dtype)
+    out = y @ params["out_proj"].to(x.dtype)
+    return out if tp is None else tp.row_parallel(out, tp.di is not None)
 
 
 def mamba(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -940,31 +1005,34 @@ def mamba(params: Params, x: torch.Tensor, cfg: ArchConfig,
     """Full-sequence Mamba-1 layer (``layers.py:939``). Under ``scan_impl
     == "kernel"`` the scan is the kernel wrapper; under "ref" its plain
     version. Returns (the output, the scan's final state (B,di,ds) f32, the
-    conv state (B,d_conv-1,di) in x's dtype): the serving prefill's
-    (``transformer.py:741-752``)."""
-    dt, A, Bv, Cv, xc, z, conv_state = _mamba_gates(params, x, cfg)
+    conv state (B,d_conv-1,di) in x's dtype, di this rank's channels): the
+    serving prefill's (``transformer.py:741-752``)."""
+    dt, A, Bv, Cv, xc, z, conv_state = _mamba_gates(params, x, cfg,
+                                                    tp=opts.tp)
     if opts.scan_impl == "kernel":
         from repro_torch.kernels import ops as kops
         y, h_last = kops.mamba_scan(xc, dt, A, Bv.contiguous(),
                                     Cv.contiguous())
     else:
         y, h_last = mamba_scan_ref(xc, dt, A, Bv, Cv)
-    return _mamba_out(params, y, xc, z, x), h_last, conv_state
+    return _mamba_out(params, y, xc, z, x, opts.tp), h_last, conv_state
 
 
 def mamba_decode(params: Params, x: torch.Tensor, cache: Params,
-                 cfg: ArchConfig) -> torch.Tensor:
+                 cfg: ArchConfig, tp=None) -> torch.Tensor:
     """One-token Mamba step (``layers.py:948``), plain PyTorch in both
-    packages. cache: {"conv": (B,d_conv-1,di), "ssm": (B,di,ds) f32, ...};
-    both are updated in place, every row at its own step."""
+    packages. cache: {"conv": (B,d_conv-1,di), "ssm": (B,di,ds) f32, ...}
+    (di this rank's channels under ``tp``); both are updated in place,
+    every row at its own step."""
     dt, A, Bv, Cv, xc, z, new_conv = _mamba_gates(params, x, cfg,
-                                                  conv_state=cache["conv"])
+                                                  conv_state=cache["conv"],
+                                                  tp=tp)
     a, bx = _mamba_discretize(xc, dt, A, Bv)
     h = cache["ssm"] * a[:, 0] + bx[:, 0]                    # (B,di,ds)
     y = torch.einsum("bdn,bn->bd", h, Cv[:, 0].float())[:, None]
     cache["conv"].copy_(new_conv)
     cache["ssm"].copy_(h)
-    return _mamba_out(params, y, xc, z, x)
+    return _mamba_out(params, y, xc, z, x, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -972,13 +1040,19 @@ def mamba_decode(params: Params, x: torch.Tensor, cache: Params,
 # ---------------------------------------------------------------------------
 
 def _rwkv_gates(params: Params, x: torch.Tensor, shifted: torch.Tensor,
-                cfg: ArchConfig):
+                cfg: ArchConfig, tp=None):
     """The token-shift mixes and the projections (``layers.py:991``): r, k,
-    v (B,S,nh,hd) and the gate g (B,S,D) in x's dtype, and the decay w =
-    exp(-exp(wlog)) in (0, 1), float32, wlog formed in x's dtype."""
-    d = cfg.d_model
+    v (B,S,nh,hd) and the gate g (B,S,nh·hd) in x's dtype, and the decay
+    w = exp(-exp(wlog)) in (0, 1), float32, wlog formed in x's dtype. nh
+    is this rank's heads (``u``'s rows): under tensor parallelism over the
+    heads (``tp.rwkv``) every projection is column-parallel, so x and the
+    shifted x enter the model axis (the mixes' gradients, partial, are
+    summed over it by the training step)."""
     hd = cfg.rwkv_head_dim
-    nh = d // hd
+    nh = params["u"].shape[0]                        # this rank's heads
+    if tp is not None:
+        split = tp.rwkv is not None
+        x, shifted = tp.enter(x, split), tp.enter(shifted, split)
     B, S, _ = x.shape
 
     def mix(name):
@@ -996,19 +1070,19 @@ def _rwkv_gates(params: Params, x: torch.Tensor, shifted: torch.Tensor,
 
 
 def _rwkv_out(params: Params, y: torch.Tensor, g: torch.Tensor,
-              x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+              x: torch.Tensor, cfg: ArchConfig, tp=None) -> torch.Tensor:
     """Per-head group norm of the f32 recurrence output (the population
     variance, as ``jnp.var``), the gate, the output projection
-    (``layers.py:1073``)."""
+    (``layers.py:1073``; row-parallel over the heads)."""
     B, S, _ = x.shape
-    d = cfg.d_model
     hd = cfg.rwkv_head_dim
-    yh = y.reshape(B, S, d // hd, hd)
+    yh = y.reshape(B, S, -1, hd)
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + 1e-5)
-    y = yh.reshape(B, S, d) * params["ln_scale"]
-    return (y.to(x.dtype) * g) @ params["wo"].to(x.dtype)
+    y = yh.reshape(B, S, -1) * params["ln_scale"]
+    out = (y.to(x.dtype) * g) @ params["wo"].to(x.dtype)
+    return out if tp is None else tp.row_parallel(out, tp.rwkv is not None)
 
 
 def rwkv(params: Params, x: torch.Tensor, shifted: torch.Tensor,
@@ -1016,27 +1090,27 @@ def rwkv(params: Params, x: torch.Tensor, shifted: torch.Tensor,
     """Full-sequence RWKV-6 time mix (``layers.py:1089``). Under
     ``scan_impl == "kernel"`` the recurrence is the kernel wrapper, fed
     float32 r, k, v (``layers.py:1098``); under "ref" its plain version.
-    Returns (the output, the final state (B,nh,hd,hd) f32): the serving
-    prefill's, ``rwkv_scan_ref``'s ``S_last`` in JAX
+    Returns (the output, the final state (B,nh,hd,hd) f32, nh this rank's
+    heads): the serving prefill's, ``rwkv_scan_ref``'s ``S_last`` in JAX
     (``transformer.py:752-762``)."""
-    r, k, v, g, w = _rwkv_gates(params, x, shifted, cfg)
+    r, k, v, g, w = _rwkv_gates(params, x, shifted, cfg, opts.tp)
     u = params["u"].float()
     if opts.scan_impl == "kernel":
         from repro_torch.kernels import ops as kops
         y, state = kops.rwkv_scan(r.float(), k.float(), v.float(), w, u)
     else:
         y, state = rwkv_scan_ref(r, k, v, w, u)
-    return _rwkv_out(params, y, g, x, cfg), state
+    return _rwkv_out(params, y, g, x, cfg, opts.tp), state
 
 
 def rwkv_decode(params: Params, x: torch.Tensor, cache: Params,
-                cfg: ArchConfig) -> torch.Tensor:
+                cfg: ArchConfig, tp=None) -> torch.Tensor:
     """One-token RWKV-6 step (``layers.py:1105``), plain PyTorch in both
-    packages. cache: {"state": (B,nh,hd,hd) f32, "shift": (B,1,D), ...};
-    the state and the shift (x) are updated in place, every row at its own
-    step."""
+    packages. cache: {"state": (B,nh,hd,hd) f32 (this rank's heads under
+    ``tp``), "shift": (B,1,D), ...}; the state and the shift (x) are
+    updated in place, every row at its own step."""
     shifted = cache["shift"].to(x.dtype)
-    r, k, v, g, w = _rwkv_gates(params, x, shifted, cfg)
+    r, k, v, g, w = _rwkv_gates(params, x, shifted, cfg, tp)
     u = params["u"].float()
     rf, kf, vf, wf = (t.float()[:, 0] for t in (r, k, v, w))
     state = cache["state"]
@@ -1044,4 +1118,4 @@ def rwkv_decode(params: Params, x: torch.Tensor, cache: Params,
     y = torch.einsum("bhk,bhkv->bhv", rf, state + u[None, :, :, None] * kv)
     state.copy_(wf[..., :, None] * state + kv)
     cache["shift"].copy_(x)
-    return _rwkv_out(params, y.reshape(x.shape[0], 1, -1), g, x, cfg)
+    return _rwkv_out(params, y.reshape(x.shape[0], 1, -1), g, x, cfg, tp)

@@ -173,7 +173,7 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
             shifted = torch.cat([cache_l["shift_mlp"].to(h.dtype),
                                  h[:, :-1]], dim=1)
             cache_l["shift_mlp"].copy_(h[:, -1:])
-        return x + L.rwkv_mix(p["mlp"], h, shifted)
+        return x + L.rwkv_mix(p["mlp"], h, shifted, opts)
     return x + L.mlp(p["mlp"], h, opts)
 
 
@@ -325,7 +325,7 @@ def cache_len(cfg: ArchConfig, spec: LayerSpec, max_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> Cache:
+               dtype=torch.bfloat16, device="cuda", tp=None) -> Cache:
     """Uniform-layout cache, one dict per layer: k/v (B,T,HKV,dh) zeros,
     slot_pos (T,) at -1 (empty) and pos () at -1 (the JAX int32 fill;
     prefill overwrites it); a Mamba layer holds its conv state
@@ -334,7 +334,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     (B,nh,hd,hd) f32 and the two token shifts (B,1,D) at zero, and pos
     (``transformer.py:227-234``); a cross-attention layer also the
     context's xk/xv (B,ctx_len,HKV,dh) zeros (``:216-218``), which prefill
-    fills. On ``cuda`` unless the caller asks for
+    fills. Under tensor parallelism (``tp``, a ``TensorParallel``) the
+    Mamba rows hold this rank's channels of di and the RWKV state its
+    heads (the shifts stay whole). On ``cuda`` unless the caller asks for
     the CPU; ``cuda`` without a GPU raises."""
     device = resolve_device(device)
     out = []
@@ -343,6 +345,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         if spec.mixer == MAMBA:
             mc = cfg.mamba
             di = mc.expand * cfg.d_model
+            if tp is not None:
+                di = tp.width(tp.di, di)
             out.append({
                 "conv": torch.zeros((batch, mc.d_conv - 1, di), dtype=dtype,
                                     device=device),
@@ -353,9 +357,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             continue
         if spec.mixer == RWKV:
             hd = cfg.rwkv_head_dim
+            nh = cfg.d_model // hd
+            if tp is not None:
+                nh = tp.width(tp.rwkv, nh)
             shift = (batch, 1, cfg.d_model)
             out.append({
-                "state": torch.zeros((batch, cfg.d_model // hd, hd, hd),
+                "state": torch.zeros((batch, nh, hd, hd),
                                      dtype=torch.float32, device=device),
                 "shift": torch.zeros(shift, dtype=dtype, device=device),
                 "shift_mlp": torch.zeros(shift, dtype=dtype, device=device),
@@ -393,7 +400,7 @@ def apply_layer_decode(p: Params, x: torch.Tensor, cache_l: Params,
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps, opts)
     if spec.mixer in (RWKV, MAMBA):   # every row at its own step
         decode = L.rwkv_decode if spec.mixer == RWKV else L.mamba_decode
-        mix = decode(p["mixer"], h, cache_l, cfg)
+        mix = decode(p["mixer"], h, cache_l, cfg, tp=opts.tp)
         cache_l["pos"] += 1
     elif paged_tables is not None:
         mix = L.attention_decode_paged(p["mixer"], h, cache_l, paged_tables,
@@ -666,7 +673,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                          f"mlp={bad[0].mlp!r}")
     h = embed(params, tokens, cfg, opts)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    cache = init_cache(cfg, B, max_len, opts.dtype, h.device)
+    cache = init_cache(cfg, B, max_len, opts.dtype, h.device, opts.tp)
     for p, spec, cl in zip(params["layers"], specs, cache):
         h = _prefill_layer(p, h, cl, cfg, spec, opts, positions, xctx)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, opts)

@@ -25,10 +25,12 @@ next one.
 
 Under a serving mesh (``shard``, a ``repro_torch.sharding.placement.
 ServeShard``; JAX ``cache.py:236-290``) the cache holds the rank's KV
-heads, and when the slots divide over the "data" axis the rank holds and
-computes only its ``n_slots / data`` rows: every program's tokens are
-merged over the data axis (one ``all_reduce`` of a zeroed (n_slots, ...)
-buffer), so every rank's scheduler sees every slot. The host-built
+heads, its channels of a Mamba layer's conv (B, d_conv-1, di/tp) and
+scan state (B, di/tp, ds) and its heads of an RWKV state (B, nh/tp, hd,
+hd) (the token shifts whole), and when the slots divide over the "data"
+axis the rank holds and computes only its ``n_slots / data`` rows: every
+program's tokens are merged over the data axis (one ``all_reduce`` of a
+zeroed (n_slots, ...) buffer), so every rank's scheduler sees every slot. The host-built
 operands of the chunk and verify programs are rank 0's, broadcast as one
 packed tensor (``operands``), so every rank runs the same program.
 """
@@ -70,11 +72,12 @@ def slotify(cache: Cache) -> Cache:
 
 
 def init_slot_cache(cfg: ArchConfig, n_slots: int, max_len: int,
-                    dtype=torch.bfloat16, device="cuda") -> Cache:
-    """Fresh slot-layout cache: all slots empty (slot_pos == -1, pos == 0).
-    On ``cuda`` unless the caller asks for the CPU; ``cuda`` without a GPU
+                    dtype=torch.bfloat16, device="cuda", tp=None) -> Cache:
+    """Fresh slot-layout cache: all slots empty (slot_pos == -1, pos == 0);
+    under ``tp`` the Mamba and RWKV state rows at this rank's widths. On
+    ``cuda`` unless the caller asks for the CPU; ``cuda`` without a GPU
     raises (``init_cache``)."""
-    base = slotify(init_cache(cfg, n_slots, max_len, dtype, device))
+    base = slotify(init_cache(cfg, n_slots, max_len, dtype, device, tp))
     # init_cache leaves pos at the int32 fill value; empty slots decode from
     # position 0 (their garbage output is ignored until admission).
     for g in base:
@@ -215,7 +218,7 @@ class SlottedKV:
         self.split = shard is not None and shard.slots_split
         n_local = self.rows.stop - self.rows.start
         self.cache = init_slot_cache(cfg, n_local, max_len, opts.dtype,
-                                     self.device)
+                                     self.device, opts.tp)
         # the decode program serves both step disciplines: two-phase
         # decode, and the chunked engine's pure-decode steps
         self._dec = build_slot_decode_step(cfg, opts, linkage, sampling)

@@ -71,9 +71,14 @@ read a clock: open-load arrivals (rank 0 runs the ``AdmissionWorker`` and
 broadcasts what arrived) and the TTFT tuner's budget (rank 0's, broadcast
 each tick). The swap stream polls no event (a transfer completes past
 its depth or at a drain, both by count) and the draft proposer reads no
-clock, so neither needs agreeing. Rank 0 reports. MoE, Mamba and RWKV
-layers at a model axis > 1 raise ``NotImplementedError`` (ROADMAP entry
-9c); L0 with a mesh raises ``ValueError``, as in JAX.
+clock, so neither needs agreeing. Rank 0 reports. Every family the
+engine serves runs at a model axis > 1 (MoE experts, Mamba channels and
+RWKV heads split over it, ``repro_torch.sharding.placement``), and a
+fleet's replicas share one mesh, each rank's host tier holding its shard
+of every block; L0 with a mesh raises ``ValueError``, as in JAX. The
+constructor issues no collective: ranks that share a card build their
+engines one at a time (``Mesh.in_turn``), the others waiting at a
+barrier.
 
 An ``embeds_in`` model (musicgen-medium) and a cross-attention
 model (llama-3.2-vision-11b) raise ``ValueError``: requests are token
@@ -103,11 +108,6 @@ from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
 
 KV_BACKENDS = ("slotted", "paged")
 SPEC_MODES = ("none", "ngram")
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP entry {item})")
 
 
 def check_slice(*, kv: str = "slotted", spec_decode: str = "none",
@@ -204,7 +204,8 @@ class ServeEngine:
                  ttft_slo_s: Optional[float] = None,
                  kv_dtype: str = "bf16", spec_decode: str = "none",
                  spec_width: int = 0, telemetry: Optional[Telemetry] = None,
-                 async_swap: bool = True, shared_host=None, mesh=None):
+                 async_swap: bool = True, shared_host=None, mesh=None,
+                 shard=None):
         check_slice(kv=kv, spec_decode=spec_decode, kv_dtype=kv_dtype)
         linkage.validate()
         check_servable(cfg)
@@ -217,11 +218,10 @@ class ServeEngine:
         kcfg = cfg
         check_mesh_linkage(linkage, mesh is not None)
         if mesh is not None:
-            if shared_host is not None:
-                raise _not_in_slice("a fleet-shared host tier over a mesh",
-                                    "9c")
+            # ``shard``: this rank's pieces already cut (a fleet's replicas
+            # share one), else cut here from the full ``params``
             from repro_torch.sharding.placement import serve_shard
-            self.shard = serve_shard(cfg, params, mesh, n_slots)
+            self.shard = shard or serve_shard(cfg, params, mesh, n_slots)
             params, kcfg = self.shard.params, self.shard.local_cfg
             opts = dataclasses.replace(opts, tp=self.shard.tp)
         self.cfg = cfg

@@ -29,6 +29,15 @@ the current CUDA stream, as JAX's replicas share one device queue. With
 one replica the two phases run back to back, which is exactly
 ``ServeEngine._admit_and_step``: a 1-replica fleet serves the bare
 engine's streams.
+
+With ``mesh`` every replica runs over the one mesh (JAX passes one mesh
+to every replica): every rank holds its shard of the weights once, cut
+once for all replicas, and its own ``SharedHostTier`` over its KV heads,
+so a handoff moves each rank's shard of a chain through that rank's
+tier. Every routing decision, tick and handoff reads state every rank
+shares (queue depths, loads, resident prefixes: the same block decisions
+on every rank), so the ranks agree by construction; open-load arrivals
+come from rank 0 (``MeshArrivals``), as in the engine.
 """
 from __future__ import annotations
 
@@ -41,8 +50,8 @@ import numpy as np
 
 from repro_torch.core.coprocess import AdmissionWorker
 from repro_torch.core.linkage import LinkageConfig
-from repro_torch.serve.engine import (ServeEngine, check_servable,
-                                      serve_report)
+from repro_torch.serve.engine import (MeshArrivals, ServeEngine,
+                                      check_servable, serve_report)
 from repro_torch.serve.paging import SharedHostTier
 from repro_torch.serve.scheduler import Completion, Request
 from repro_torch.serve.telemetry import NULL_TELEMETRY, Telemetry
@@ -118,7 +127,11 @@ class FleetEngine:
 
     All replicas share the parameters (one dict, one copy on the device),
     the telemetry bundle (events carry a replica id) and, on the paged
-    backend, one ``SharedHostTier``.
+    backend, one ``SharedHostTier``. With ``mesh`` (a live
+    ``repro_torch.launch.mesh.Mesh``) every replica serves over it, from
+    this rank's one shard of the weights and its one tier. The
+    constructor issues no collective: ranks that share a card build their
+    fleets one at a time (``Mesh.in_turn``).
     """
 
     def __init__(self, cfg, params, opts, linkage: LinkageConfig, *,
@@ -126,7 +139,7 @@ class FleetEngine:
                  n_slots: int, max_len: int,
                  admit_cap: Optional[int] = None,
                  shared_host_blocks: Optional[int] = None,
-                 telemetry: Optional[Telemetry] = None,
+                 telemetry: Optional[Telemetry] = None, mesh=None,
                  **engine_kwargs):
         check_servable(cfg)
         if replicas < 1:
@@ -145,6 +158,16 @@ class FleetEngine:
         if self.admit_cap < 1:
             raise ValueError("admit_cap must be >= 1")
         self.tel = telemetry if telemetry is not None else NULL_TELEMETRY
+        self.mesh = mesh
+        shard, tier_cfg = None, cfg
+        if mesh is not None:
+            # this rank's weights, cut once for every replica; the tier
+            # holds this rank's KV heads (the local config's)
+            from repro_torch.core.step import check_mesh_linkage
+            from repro_torch.sharding.placement import serve_shard
+            check_mesh_linkage(linkage, True)
+            shard = serve_shard(cfg, params, mesh, n_slots)
+            tier_cfg = shard.local_cfg
 
         # one host tier for the whole fleet: the shared prefix store and the
         # handoff lane, sized to mirror every replica's device pool by
@@ -158,7 +181,7 @@ class FleetEngine:
             hb = (shared_host_blocks if shared_host_blocks is not None
                   else replicas * dev_blocks)
             self.shared = SharedHostTier.build(
-                cfg, opts, block_size, hb,
+                tier_cfg, opts, block_size, hb,
                 kv_dtype=engine_kwargs.get("kv_dtype", "bf16"),
                 device=params["embed"].device)
 
@@ -177,7 +200,7 @@ class FleetEngine:
                 kw["chunked"] = True
             eng = ServeEngine(cfg, params, opts, linkage, n_slots, max_len,
                               telemetry=self.tel, shared_host=self.shared,
-                              **kw)
+                              mesh=mesh, shard=shard, **kw)
             eng.kv.owner = i          # feeds the shared tier's writer map
             self.engines.append(eng)
         #: replicas the router may admit to (the prefill cells when
@@ -287,7 +310,9 @@ class FleetEngine:
         rel = lambda: clock() - t0
         self.tel.set_clock(rel)
         if load == "open":
-            worker = AdmissionWorker(requests, clock=clock)
+            worker = (AdmissionWorker(requests, clock=clock)
+                      if self.mesh is None
+                      else MeshArrivals(requests, clock, self.mesh))
             waiting: Deque[Request] = deque()
             while len(completions) < n:
                 waiting.extend(worker.poll())
@@ -378,7 +403,7 @@ class FleetEngine:
                     continue
                 agg[k] = agg.get(k, 0) + v
         for k in const | {"kv_backend", "preempt_policy", "step_mode",
-                          "kv_dtype"}:
+                          "mesh", "kv_dtype"}:
             vals = {u.get(k) for u in utils}
             if len(vals) == 1 and vals != {None}:
                 agg[k] = vals.pop()

@@ -28,6 +28,18 @@ a sum forward and the identity backward; the logits' ``place`` passes
 back the rank's slice of the incoming gradient. Without grad (serving)
 each is the in-place collective it was, so serving's outputs do not
 move.
+
+The zoo's other layers read their local widths here, not from a
+shrunken config: the rank's experts (``experts``), its slice of Mamba's
+inner width (``di``) and its RWKV heads (``rwkv``). Two more collectives
+serve them under training: ``sum_both``, a sum over "model" forward and
+backward (Mamba's ``x_proj`` output, partial from a row-parallel product,
+feeds work split over the channels again, whose gradient is partial
+too), and ``all_to_all`` over the ranks the experts are cut over under
+``ep_resident`` (``ep``), whose backward is the reverse exchange. ``once``
+marks a value every rank computes whole whose gradient is then summed
+over "model" (the MoE aux loss): its gradient is divided by the axis
+size, so the sum counts it once.
 """
 from __future__ import annotations
 
@@ -43,9 +55,10 @@ _TRAFFIC: Dict[str, int] = collections.Counter()
 
 def traffic() -> Dict[str, int]:
     """Bytes of the tensors handed to each kind of collective in this
-    process since the last ``reset_traffic`` ("all_reduce", "broadcast";
-    what one rank sends or receives through the call, not what the
-    backend moves inside it)."""
+    process since the last ``reset_traffic`` ("all_reduce", "broadcast",
+    and "all_to_all": the broadcasts of an all-to-all, every index's send
+    buffer once; what one rank sends or receives through the call, not
+    what the backend moves inside it)."""
     return dict(_TRAFFIC)
 
 
@@ -84,11 +97,13 @@ class AxisComm:
         """The elementwise max of ``t`` over the axis, in place."""
         return self._reduce_(t, "MAX")
 
-    def broadcast_(self, t: torch.Tensor, index: int = 0) -> torch.Tensor:
-        """Index ``index``'s ``t`` on every rank of the axis, in place."""
+    def broadcast_(self, t: torch.Tensor, index: int = 0,
+                   kind: str = "broadcast") -> torch.Tensor:
+        """Index ``index``'s ``t`` on every rank of the axis, in place
+        (its bytes counted under ``kind``)."""
         if self.size > 1:
             import torch.distributed as dist
-            _count("broadcast", t)
+            _count(kind, t)
             dist.broadcast(t, src=self.ranks[index], group=self.group)
         return t
 
@@ -97,7 +112,8 @@ class AxisComm:
             import torch.distributed as dist
             dist.barrier(group=self.group)
 
-    def all_gather(self, local: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    def all_gather(self, local: torch.Tensor, dim: int = 0,
+                   kind: str = "broadcast") -> torch.Tensor:
         """Every index's ``local`` (equal shapes) concatenated along
         ``dim`` in index order, on every rank: one broadcast from each
         index, so every piece arrives bit for bit."""
@@ -105,9 +121,26 @@ class AxisComm:
             return local
         local = local.contiguous()
         parts = [self.broadcast_(local if i == self.index
-                                 else torch.empty_like(local), i)
+                                 else torch.empty_like(local), i, kind)
                  for i in range(self.size)]
         return torch.cat(parts, dim)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunk ``j`` of ``x``'s first dimension (``size`` equal chunks)
+        to index ``j``: returns the chunks every index sent this one, in
+        index order. Applied twice it is the identity, so it is its own
+        reverse. Built from ``all_gather`` (gloo has no all-to-all for
+        every tensor): every index's whole ``x`` reaches every rank, counted
+        under "all_to_all"."""
+        if self.size == 1:
+            return x
+        n = x.shape[0] // self.size
+        if n * self.size != x.shape[0]:
+            raise ValueError(f"all_to_all: dimension 0 of size {x.shape[0]} "
+                             f"does not split into {self.size} chunks")
+        every = self.all_gather(x, 0, "all_to_all")
+        return torch.cat([every.narrow(0, i * x.shape[0] + self.index * n, n)
+                          for i in range(self.size)])
 
     def place(self, local: torch.Tensor, full_len: int,
               dim: int = 0) -> torch.Tensor:
@@ -155,6 +188,47 @@ class _Sum(torch.autograd.Function):
         return g, None
 
 
+class _SumBoth(torch.autograd.Function):
+    """A sum over the axis forward and backward ("g" then "f")."""
+
+    @staticmethod
+    def forward(ctx, y, comm):
+        ctx.comm = comm
+        return comm.sum_(y.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.sum_(g.contiguous().clone()), None
+
+
+class _Once(torch.autograd.Function):
+    """The identity forward; the gradient divided by the axis size
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``AxisComm.all_to_all`` forward; the reverse exchange (the same
+    one) of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_to_all(g.contiguous()), None
+
+
 class _Place(torch.autograd.Function):
     """``AxisComm.place`` forward; backward, this rank's slice of the
     incoming gradient (the same on every rank)."""
@@ -184,6 +258,17 @@ class TensorParallel:
                  heads are not split (HKV does not divide by the axis):
                  every rank computes and caches every head (None: every
                  cached head is local)
+    experts      (lo, hi): this rank's MoE experts, of ``num_experts``
+                 (routing stays global; the output is summed over the
+                 axis). None: every expert, or ``ep``'s
+    di           (lo, hi): this rank's channels of Mamba's inner width
+                 (its ``xin`` and ``z`` halves of ``in_proj``; ``x_proj``
+                 and ``out_proj`` row-parallel). None: replicated
+    rwkv         (lo, hi): this rank's RWKV time-mix heads (``wo``
+                 row-parallel). None: replicated
+    ep           ``ep_resident``: the ranks the experts are cut over (every
+                 rank of the mesh); a MoE layer's dispatched tokens move
+                 to their experts' rank and back by ``all_to_all``
     """
     comm: AxisComm
     heads: bool = False
@@ -191,6 +276,15 @@ class TensorParallel:
     vocab: Optional[Sequence[int]] = None
     vocab_size: int = 0
     kv_heads: Optional[slice] = None
+    experts: Optional[Sequence[int]] = None
+    di: Optional[Sequence[int]] = None
+    rwkv: Optional[Sequence[int]] = None
+    ep: Optional[AxisComm] = None
+
+    @staticmethod
+    def width(rng: Optional[Sequence[int]], full: int) -> int:
+        """The local width of a (lo, hi) range (``full`` when None)."""
+        return full if rng is None else rng[1] - rng[0]
 
     def enter(self, x: torch.Tensor, split: bool) -> torch.Tensor:
         """The input of a column-parallel block (``split``: its output
@@ -206,6 +300,27 @@ class TensorParallel:
         """The output of a row-parallel product, summed over the axis
         (``split``: the product's inner dimension is split)."""
         return self._sum(y) if split and self.comm.size > 1 else y
+
+    def sum_both(self, y: torch.Tensor) -> torch.Tensor:
+        """A partial result summed over the axis, whose gradient is
+        partial on every rank too and is summed the same way."""
+        if self.comm.size == 1:
+            return y
+        return (_SumBoth.apply(y, self.comm) if _tracked(y)
+                else self.comm.sum_(y))
+
+    def once(self, t: torch.Tensor) -> torch.Tensor:
+        """A value every rank computes whole, whose gradient is then summed
+        over the axis: its gradient divided by the axis size."""
+        if self.comm.size > 1 and _tracked(t):
+            return _Once.apply(t, self.comm.size)
+        return t
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``ep``'s all-to-all (its gradient the reverse exchange)."""
+        if _tracked(x):
+            return _AllToAll.apply(x.contiguous(), self.ep)
+        return self.ep.all_to_all(x.contiguous())
 
     def kv_view(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The KV heads (along ``dim``) this rank's queries attend to."""

@@ -44,6 +44,26 @@ def P(*dims) -> Spec:
                  for d in dims)
 
 
+class Halves(tuple):
+    """A spec whose last dimension is two equal halves, each cut by the
+    last entry: Mamba's ``in_proj`` (D, 2·di) = [xin | z], whose rank
+    holds the same channels of both halves (a contiguous cut would give
+    rank 0 of 2 all of ``xin`` and none of ``z``). Equal to the plain
+    spec as a tuple; ``shard_leaf``, ``unshard`` and ``gather`` read it."""
+
+    def halved(self) -> Spec:
+        """The spec over the leaf viewed as (..., 2, n / 2)."""
+        return tuple(self[:-1]) + (None, self[-1])
+
+
+def _halve(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(*t.shape[:-1], 2, t.shape[-1] // 2)
+
+
+def _unhalve(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(*t.shape[:-2], -1)
+
+
 def fsdp_axes(mesh):
     return FSDP_AXES_MULTIPOD if "pod" in mesh.axis_names else FSDP_AXES
 
@@ -405,6 +425,9 @@ def shard_leaf(leaf: torch.Tensor, spec: Spec, mesh,
     """This rank's piece of one full tensor: each dimension whose spec
     entry names axes is cut into as many equal pieces, row-major over
     them. A fresh tensor (the full one may be freed)."""
+    if isinstance(spec, Halves):
+        return _unhalve(shard_leaf(_halve(leaf), spec.halved(), mesh,
+                                   coords))
     out = leaf
     for d, dim in enumerate(spec):
         n, idx = _piece(mesh, coords, dim)
@@ -431,6 +454,8 @@ def unshard(pieces: Sequence[Any], specs, mesh):
     ranks row-major over the mesh axes): the inverse of ``shard``. Pieces
     of a replicated dimension must agree; the last rank's is kept."""
     def put(spec, *leaves):
+        if isinstance(spec, Halves):
+            return _unhalve(put(spec.halved(), *map(_halve, leaves)))
         shape = list(leaves[0].shape)
         for d, dim in enumerate(spec):
             shape[d] *= _piece(mesh, mesh.coords_of(0), dim)[0]
@@ -461,6 +486,8 @@ def gather(tree, specs, mesh):
     dimension gathered over its axes (a collective: every rank of the
     mesh calls it with the same specs), innermost axis first."""
     def full(leaf, spec):
+        if isinstance(spec, Halves):
+            return _unhalve(full(_halve(leaf), spec.halved()))
         for d, dim in enumerate(spec):
             for a in reversed(_axes(dim)):
                 leaf = mesh.comm(a).all_gather(leaf, d)

@@ -28,9 +28,10 @@ Against JAX: the fleet counters of one workload (disaggregated and
 colocated, fp32; no EOS, so the schedule does not depend on tokens); the
 Chrome trace of a stamped multi-replica event list; ``load_trace`` reading
 ``eng`` back; the bad-geometry ``ValueError``s; the launcher's report keys
-and its ``--mesh`` refusal.
+and its ``--mesh 1,2`` run over two ranks.
 """
 import dataclasses
+import json
 import types
 
 import numpy as np
@@ -563,9 +564,11 @@ def test_fleet_rejects_bad_geometry(params):
                         block_size=BS, shared_host=tier)
 
 
-def test_run_fleet_engine_reports_jax_keys():
+def test_run_fleet_engine_reports_jax_keys(tmp_path):
     """The launcher on the CPU reports JAX's key set (the fleet's and each
-    replica's); a mesh raises ``NotImplementedError`` naming its item."""
+    replica's); ``--mesh 1,2`` runs both replicas over two spawned ranks,
+    rank 0 reporting the mesh, both ranks' summaries and the one-device
+    streams' token count."""
     from repro.launch.fleet import run_fleet_engine as jrun
     from repro_torch.launch.fleet import main, run_fleet_engine
     kw = dict(replicas=2, disaggregate=1, requests=2, prompt_len=8,
@@ -578,8 +581,16 @@ def test_run_fleet_engine_reports_jax_keys():
     assert ([set(u) for u in trep["per_replica"]]
             == [set(u) for u in jrep["per_replica"]])
     assert trep["requests"] == 2 and trep["fleet_handoffs"] == 2
-    with pytest.raises(NotImplementedError, match="entry 9c"):
-        main(["--mesh", "1,2", "--device", "cpu"])
+    path = str(tmp_path / "mesh.json")
+    assert main(["--mesh", "1,2", "--device", "cpu", "--requests", "2",
+                 "--prompt-len", "8", "--gen-len", "4", "--load", "closed",
+                 "--decode-steps", "2", "--shared-prefix-len", "4",
+                 "--report-json", path]) == 0
+    with open(path) as f:
+        mrep = json.load(f)
+    assert mrep["mesh"] == "1x2" and mrep["requests"] == 2
+    assert mrep["total_tokens"] == 8
+    assert [r["rank"] for r in mrep["ranks"]] == [0, 1]
     # --scale widens the smoke model as the serve launcher does
     srep = run_fleet_engine("tinyllama-1.1b", "nss_shortcut", device="cpu",
                             scale=1.5, requests=1, prompt_len=8, gen_len=4)

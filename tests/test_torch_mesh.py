@@ -23,8 +23,8 @@ over one case's results. The model is the smoke tinyllama-1.1b in fp32
   one KV head (MQA: the heads do not split, each rank holds ``wk``/``wv``
   whole).
 - The KV leaf bytes halve at model 2 (and at data 2 on slot rows); MoE,
-  Mamba and RWKV at model 2 raise ``NotImplementedError`` in the ranks
-  and at 2x1 serve the unsharded streams.
+  Mamba and RWKV models serve the unsharded streams at 1x2 and 2x1
+  (``tests/test_torch_mesh_zoo.py`` holds the whole zoo over every mesh).
 """
 import dataclasses
 import threading
@@ -138,12 +138,10 @@ def _cases(mesh_name, warm_path):
             _serve("int8", "nss_shortcut", reqs, kv="paged",
                    kv_dtype="int8"),
         ]
-        cases += [dict(name=f"refuse/{a}", kind="raises", arch=a,
-                       preset="base", engine=dict(n_slots=2, max_len=MAX_LEN))
-                  for a in RECURRENT]
-    if mesh_name == "2x1":
+    if mesh_name in ("1x2", "2x1"):
         cases += [_serve(f"recurrent/{a}", "base", reqs, arch=a)
                   for a in RECURRENT]
+    if mesh_name == "2x1":
         cases += [_serve("open", "nss_shortcut",
                          synthetic_requests(5, prompt_len=10,
                                             max_new_tokens=5, vocab_size=V,
@@ -380,13 +378,14 @@ def test_mesh_shards_kv_memory(runs, mesh_name, kv, ratio):
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_mesh_recurrent_and_moe(runs, arch):
-    """At model 2 the ranks raise naming ROADMAP entry 9c; at 2x1 they
-    serve the unsharded streams."""
+    """At model 2 (experts, Mamba channels or RWKV heads split over it)
+    every rank serves the unsharded streams, and so do the 2x1 ranks."""
     sharded, ref = runs
-    for r in sharded["1x2"][1]:
-        assert r[f"refuse/{arch}"]["error"] == "NotImplementedError"
-        assert "entry 9c" in r[f"refuse/{arch}"]["message"]
     name = f"recurrent/{arch}"
+    for r in sharded["1x2"][1]:
+        assert r[name]["streams"] == ref[name]["streams"]
+        assert r[name]["kv_bytes_per_shard"] < ref[name][
+            "kv_bytes_per_shard"]
     assert sharded["2x1"][0][name]["streams"] == ref[name]["streams"]
 
 
@@ -403,3 +402,27 @@ def test_spawn_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             spawn(_never_runs, "2,1")
+
+
+@pytest.mark.parametrize("device,backend,shared", [
+    ("cuda", "gloo", True), ("cuda", "nccl", False), ("cpu", "gloo", False)])
+def test_in_turn_only_where_ranks_share_a_card(device, backend, shared):
+    """``Mesh.in_turn`` takes turns (a world barrier a turn) only where
+    every rank computes on one card: gloo over CUDA. With a card a rank
+    (NCCL) or on the CPU it calls ``fn`` at once, with no collective."""
+    from repro_torch.launch.mesh import Mesh
+
+    class World:
+        size, barriers = 2, 0
+
+        def barrier(self):
+            self.barriers += 1
+
+    world = World()
+    mesh = Mesh({"data": 1, "model": 2}, world=world, device=device,
+                backend=backend)
+    calls = []
+    assert mesh.shares_card is shared
+    assert mesh.in_turn(lambda: calls.append(1) or "built") == "built"
+    assert calls == [1]
+    assert world.barriers == (mesh.size if shared else 0)

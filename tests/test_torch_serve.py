@@ -374,12 +374,19 @@ def test_launcher_prefix_cache_needs_paged(flags, tmp_path):
     (["--temperature", "0.7", "--arch", "rwkv6-7b", "--mesh", "1,2"],
      "entry 9c"),
 ])
-def test_out_of_slice_options_raise(flags, item):
-    """What a model axis > 1 does not serve yet raises before any rank
-    starts, naming its ROADMAP entry."""
+def test_out_of_slice_options_raise(flags, item, capsys):
+    """The MoE and RWKV models at a model axis > 1, which raised before
+    any rank started until ROADMAP ``item`` ported them, serve over two
+    spawned ranks on the CPU (greedy and sampled): rank 0 reports the mesh
+    and every request."""
     from repro_torch.launch import serve as launch
-    with pytest.raises(NotImplementedError, match=item):
-        launch.main(["--device", "cpu", "--requests", "1", *flags])
+    assert item == "entry 9c"
+    assert launch.main(["--device", "cpu", "--requests", "1", "--load",
+                        "closed", "--prompt-len", "8", "--gen-len", "4",
+                        *flags]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["mesh"] == "1x2" and rep["requests"] == 1
+    assert rep["total_tokens"] == 4 and len(rep["ranks"]) == 2
 
 
 def test_launcher_serves_sampled(capsys):

@@ -11,8 +11,9 @@ pattern position, so JAX's spec of ``blocks[g]`` less its leading
 (stacked) dimension is the spec of port layer ``i`` with ``i % G == g``.
 Also ``unshard(shard(p)) == p`` for every config's smoke parameters over
 every rank, the mesh-spec parsing, the launcher's ``--scale`` widths
-against JAX's ``_setup``, and the refusals that need no rank process
-(MoE, Mamba and RWKV at a model axis > 1; L0 with a mesh). Parameters
+against JAX's ``_setup``, the local widths of the MoE, Mamba and RWKV
+layers at model 2 (the pieces each rank holds of them), and the refusal
+that needs no rank process (L0 with a mesh). Parameters
 and caches are shapes only (``jax.eval_shape``, the port on the CPU at
 smoke size): the rules read names and shapes.
 """
@@ -36,7 +37,9 @@ from repro_torch.launch.mesh import (make_production_mesh, mesh_device_count,
                                      mesh_shape, parse_mesh_spec)
 from repro_torch.models import init_params
 from repro_torch.serve import init_paged_cache, init_slot_cache
-from repro_torch.sharding.placement import check_mesh, local_config
+from repro_torch.sharding.comm import AxisComm
+from repro_torch.sharding.placement import (_port_specs, check_mesh,
+                                            local_config, tensor_parallel)
 from repro_torch.sharding.rules import (ArchSharding, host_to_mesh, shard,
                                         unshard)
 from torch_threads import cap_threads  # noqa: E402
@@ -270,12 +273,44 @@ def test_launcher_scale_widths_match_jax(arch, scale, monkeypatch):
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "jamba-v0.1-52b",
                                   "rwkv6-7b", "mixtral-8x7b"])
 def test_unported_layers_at_model_axis_raise(arch):
-    """MoE, Mamba and RWKV layers at a model axis > 1 raise naming ROADMAP
-    entry 9c; a data-only mesh accepts them."""
+    """MoE, Mamba and RWKV layers at a model axis > 1: ``check_mesh``
+    accepts 1x2 (and 2x1), and each rank's local widths are its half of
+    the experts, of Mamba's inner width and of the RWKV heads, which the
+    serving pieces hold (``in_proj`` its channels of both halves)."""
     cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="entry 9c"):
-        check_mesh(cfg, mesh_shape(1, 2))
+    check_mesh(cfg, mesh_shape(1, 2))
     check_mesh(cfg, mesh_shape(2, 1))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = mesh_shape(1, 2)
+    sh = ArchSharding(cfg, mesh)
+    specs = _port_specs(sh.serve_param_specs(params), sh)
+    for m in range(2):
+        tp = tensor_parallel(cfg, sh, AxisComm(size=2, index=m))
+        local = shard(params, specs, mesh.at(m))
+        for full, mine in zip(params["layers"], local["layers"]):
+            mixer, mlp = mine["mixer"], mine["mlp"]
+            if "router" in mlp:
+                E = cfg.moe.num_experts
+                assert tuple(tp.experts) == (m * E // 2, (m + 1) * E // 2)
+                assert torch.equal(mlp["wi"], full["mlp"]["wi"][
+                    tp.experts[0]:tp.experts[1]])
+                assert torch.equal(mlp["router"], full["mlp"]["router"])
+            if "in_proj" in mixer:
+                di = cfg.mamba.expand * cfg.d_model
+                lo, hi = tp.di
+                assert (lo, hi) == (m * di // 2, (m + 1) * di // 2)
+                w = full["mixer"]["in_proj"]
+                assert torch.equal(mixer["in_proj"], torch.cat(
+                    [w[:, lo:hi], w[:, di + lo:di + hi]], 1))
+                assert mixer["conv_w"].shape[1] == hi - lo
+            if "u" in mixer:
+                nh = cfg.d_model // cfg.rwkv_head_dim
+                lo, hi = tp.rwkv
+                assert (lo, hi) == (m * nh // 2, (m + 1) * nh // 2)
+                assert torch.equal(mixer["u"], full["mixer"]["u"][lo:hi])
+                hd = cfg.rwkv_head_dim
+                assert mixer["w_bias"].shape[0] == (hi - lo) * hd
+                assert torch.equal(mlp["wr"], full["mlp"]["wr"])
 
 
 def test_mesh_requires_jitted_linkage():
